@@ -1,0 +1,127 @@
+"""Pluggable ring-compute backend — the local hot ops of the online path.
+
+Every *local* ring operation the 2PC protocols consume goes through one
+small dispatch interface:
+
+  * ``ring_mm``  — int64-word matmul mod 2^64 (every Beaver recombination,
+                   every public-x-share product, every C^T X block).
+  * ``ks_fused`` — one party's fused Kogge-Stone recombination: all 7 AND
+                   levels of the secure-adder MSB in one local pass given the
+                   exchanged masked operands.
+
+Two implementations:
+
+  * ``torch`` — plain PyTorch on any device; the bit-exact oracle.
+  * ``cuda``  — the hand-written kernels in ``repro_torch.kernels``. It
+                takes CUDA tensors only and raises on anything else: it never
+                runs quietly on the CPU.
+
+Both are bit-exact in Z_{2^64}; the parity tests assert equality.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ksadder, modmatmul
+from repro_torch.kernels.ksadder import LEVELS as KS_LEVELS
+
+__all__ = ["KS_LEVELS", "RingBackend", "TorchBackend", "CudaBackend",
+           "get_backend"]
+
+
+class RingBackend:
+    """Dispatch interface for the local ring ops on the online hot path."""
+
+    name = "base"
+
+    def ring_mm(self, a, b):
+        """(n, d) @ (d, k) mod 2^64."""
+        raise NotImplementedError
+
+    def ring_spmm(self, blocks, idx, counts, y):
+        raise NotImplementedError(
+            "ring_spmm belongs to the sparse slice (ROADMAP.md Queue 1 "
+            "item 7, Queue 2 item 3)")
+
+    def ring_spmm_csr(self, csr, y, *, bm: int = 8, bk: int = 128):
+        raise NotImplementedError(
+            "ring_spmm_csr belongs to the sparse slice (ROADMAP.md Queue 1 "
+            "item 7)")
+
+    def ks_fused(self, x, e0, f0, u0, v0, z0, el, fl, ul, vl, zl, *,
+                 party0: bool):
+        """One party's fused 7-level Kogge-Stone local recombination.
+
+        Only the g-chain is recombined: the per-level p *shares* feed nothing
+        locally (the next level's public masks are part of the transcript),
+        so the slot-1 operands — and `x`, the party's p0-share — are accepted
+        for interface parity but not computed on. The slot-1 triples are
+        still drawn and exchanged by msb_carry: they mask the transcript."""
+        raise NotImplementedError
+
+
+class TorchBackend(RingBackend):
+    """Plain PyTorch on any device — the parity oracle."""
+
+    name = "torch"
+
+    def ring_mm(self, a, b):
+        return modmatmul.ring_matmul_plain(a, b)
+
+    def ks_fused(self, x, e0, f0, u0, v0, z0, el, fl, ul, vl, zl, *,
+                 party0: bool):
+        return ksadder.ks_carry_share_plain(x, e0, f0, u0, v0, z0, el, fl,
+                                            ul, vl, zl, party0=party0)
+
+
+def _require_cuda(*tensors) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise RuntimeError(
+                f"the cuda backend takes CUDA tensors, got one on {t.device}; "
+                "use backend='torch' for the CPU")
+
+
+class CudaBackend(RingBackend):
+    """The hand-written Hopper kernels (kernels/csrc)."""
+
+    name = "cuda"
+
+    def __init__(self):
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "backend='cuda' needs a CUDA GPU and none is available; "
+                "use backend='torch', device='cpu' for the CPU")
+
+    def ring_mm(self, a, b):
+        _require_cuda(a, b)
+        return modmatmul.ring_matmul(a, b)
+
+    def ks_fused(self, x, e0, f0, u0, v0, z0, el, fl, ul, vl, zl, *,
+                 party0: bool):
+        args = (x, e0, f0, u0, v0, z0, el, fl, ul, vl, zl)
+        _require_cuda(*args)
+        return ksadder.ks_carry_share(*args, party0=party0)
+
+
+# ---------------------------------------------------------------------------
+# resolution
+# ---------------------------------------------------------------------------
+
+_CLASSES = {"torch": TorchBackend, "cuda": CudaBackend}
+_INSTANCES: dict[str, RingBackend] = {}
+
+
+def get_backend(name: "str | RingBackend" = "cuda") -> RingBackend:
+    """Resolve a backend name ('torch' | 'cuda') or pass an instance
+    through. 'cuda' raises when no GPU is available."""
+    if isinstance(name, RingBackend):
+        return name
+    if name not in _INSTANCES:
+        try:
+            cls = _CLASSES[name]
+        except KeyError:
+            raise ValueError(f"unknown ring backend {name!r}; "
+                             "expected 'torch' or 'cuda'") from None
+        _INSTANCES[name] = cls()
+    return _INSTANCES[name]

@@ -1,0 +1,415 @@
+"""Privacy-preserving K-means — paper Algorithm 3, both partitions, dense.
+
+Secure Lloyd iteration (Sec 4.2):
+  S1 F_ESD  — vectorized distances  D' = U - 2 X mu^T  (Eq. 3-5); the
+              ||X_i||^2 term is dropped (constant per row under argmin) and
+              U is computed once per iteration with ONE batched SMUL.
+  S2 F_min  — tournament argmin over k (Fig. 1), vectorized over all n.
+  S3 F_SCU  — mu = C^T X / 1^T C with Newton-Raphson secure division and a
+              secure empty-cluster guard (CMP + MUX keep the old centroid).
+  F_CSC     — secure convergence check, only the stop bit is revealed.
+
+Vertical:   X = [X_A | X_B]   (Eq. 4, Alg. 3)      n x (dA + dB)
+Horizontal: X = [X_A ; X_B]   (Eq. 5)              (nA + nB) x d
+
+`vectorized=False` keeps results identical but *accounts* communication the
+way the pre-vectorization protocol would ship it (one interaction per scalar
+product / per comparison, Sec 4.2) — the Fig. 3 baseline.
+
+This is the eager, on-demand-dealer path of the JAX package's SecureKMeans;
+the options that belong to later slices raise NotImplementedError naming
+their ROADMAP.md item. Entry points run on the GPU unless the config asks
+for the CPU (`backend="torch", device="cpu"`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Literal
+
+import numpy as np
+import torch
+
+from repro_torch.core import protocol as P
+from repro_torch.core import ring
+from repro_torch.core.channel import CommLog, NetModel
+from repro_torch.core.sharing import AShare, rec, rec_real, share
+from repro_torch.core.triples import TrustedDealer
+
+_LATER = {
+    "offline": "ROADMAP.md Queue 1 item 6 (offline planner and pooled fast path)",
+    "batch_size": "ROADMAP.md Queue 1 item 8 (minibatch and pipelining)",
+    "sparse": "ROADMAP.md Queue 1 item 7 (sparse, Protocol 2)",
+    "dealer": "ROADMAP.md Queue 1 item 9 (predict, bank and serving)",
+    "wire": "ROADMAP.md Queue 1 item 10 (durability, wire and runtime)",
+    "checkpoint": "ROADMAP.md Queue 1 item 10 (durability, wire and runtime)",
+}
+
+
+def _not_ported(what: str, key: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: {_LATER[key]}")
+
+
+@dataclasses.dataclass
+class KMeansConfig:
+    k: int
+    iters: int = 10
+    partition: Literal["vertical", "horizontal"] = "vertical"
+    sparse: bool = False
+    vectorized: bool = True
+    f: int = ring.F
+    seed: int = 0
+    tol: float | None = None        # if set, F_CSC early-stops
+    backend: str = "cuda"           # ring-compute backend (core/backend.py)
+    device: str = "cuda"            # where shares and triples live
+    offline: Literal["on_demand", "pooled", "streamed"] = "on_demand"
+    batch_size: int | None = None
+
+    def __post_init__(self):
+        if self.iters < 1:
+            raise ValueError(
+                f"KMeansConfig.iters must be >= 1, got {self.iters}: the "
+                "secure Lloyd loop must run at least once to produce an "
+                "assignment")
+        if self.offline not in ("on_demand", "pooled", "streamed"):
+            raise ValueError(
+                f"KMeansConfig.offline must be 'on_demand', 'pooled' or "
+                f"'streamed', got {self.offline!r}")
+        if self.offline != "on_demand":
+            raise _not_ported(f"offline={self.offline!r}", "offline")
+        if self.batch_size is not None:
+            raise _not_ported("batch_size", "batch_size")
+        if self.sparse:
+            raise _not_ported("sparse=True", "sparse")
+        if self.partition not in ("vertical", "horizontal"):
+            raise ValueError(
+                f"KMeansConfig.partition must be 'vertical' or "
+                f"'horizontal', got {self.partition!r}")
+        if self.backend == "cuda" and torch.device(self.device).type != "cuda":
+            raise ValueError(
+                f"backend='cuda' runs on device='cuda', got "
+                f"device={self.device!r}; use backend='torch' for the CPU")
+
+
+@dataclasses.dataclass
+class KMeansResult:
+    centroids: AShare                 # (k, d) shares, scale f
+    assignment: AShare                # (n, k) one-hot shares, scale 1
+    iters_run: int
+    log: CommLog
+    dealer: TrustedDealer | None
+    online_seconds: float             # loop wall minus in-loop dealer work
+    offline_dealer_seconds: float     # triple synthesis + upload
+    offline_modelled_ot_seconds: float
+    he_seconds: float = 0.0           # Protocol 2 only (not in this slice)
+    loop_seconds: float = 0.0         # raw Lloyd-loop wall-clock: with the
+    # on-demand dealer this INCLUDES triple synthesis
+
+    # -- convenience reconstructions (the protocol's single final Rec) -----
+    def centroids_plain(self, f: int = ring.F) -> np.ndarray:
+        return rec_real(self.centroids, f).cpu().numpy()
+
+    def labels_plain(self) -> np.ndarray:
+        return rec(self.assignment).cpu().numpy().argmax(1)
+
+    def wan_lan_estimate(self, net: NetModel) -> dict:
+        online = self.log.time_estimate(net, "online") + self.online_seconds \
+            + self.he_seconds
+        offline = self.log.time_estimate(net, "offline") \
+            + self.offline_modelled_ot_seconds
+        return {"online_s": online, "offline_s": offline,
+                "total_s": online + offline}
+
+
+class SecureKMeans:
+    """Two-party secure K-means. Party data stays plaintext at its owner;
+    centroids/assignments are secret-shared end to end."""
+
+    def __init__(self, cfg: KMeansConfig):
+        self.cfg = cfg
+
+    # ------------------------------------------------------------------ #
+    def fit(self, x_a: np.ndarray, x_b: np.ndarray, *, dealer=None,
+            wire=None, checkpoint=None) -> KMeansResult:
+        """Jointly cluster the two parties' data."""
+        for key, val in (("dealer", dealer), ("wire", wire),
+                         ("checkpoint", checkpoint)):
+            if val is not None:
+                raise _not_ported(f"fit({key}=...)", key)
+        cfg = self.cfg
+        device = torch.device(cfg.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"KMeansConfig(device={cfg.device!r}) needs a CUDA GPU and "
+                "none is available; pass backend='torch', device='cpu' to "
+                "run on the CPU")
+        rng = np.random.default_rng(cfg.seed)
+        ctx = P.make_ctx(cfg.seed, backend=cfg.backend, device=device)
+        x_a = np.asarray(x_a, np.float64)
+        x_b = np.asarray(x_b, np.float64)
+        if cfg.partition == "vertical":
+            if x_a.shape[0] != x_b.shape[0]:
+                raise ValueError(f"vertical partition needs equal row counts, "
+                                 f"got {x_a.shape[0]} and {x_b.shape[0]}")
+            n = x_a.shape[0]
+        else:
+            if x_a.shape[1] != x_b.shape[1]:
+                raise ValueError(f"horizontal partition needs equal widths, "
+                                 f"got {x_a.shape[1]} and {x_b.shape[1]}")
+            n = x_a.shape[0] + x_b.shape[0]
+        # each party's encoded plaintext, uploaded once
+        enc_a = ring.from_u64_numpy(_encode_np(x_a, cfg.f), device)
+        enc_b = ring.from_u64_numpy(_encode_np(x_b, cfg.f), device)
+        mu = self._init_centroids(ctx, rng, x_a, x_b)
+
+        sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        sync()
+        t_start = time.perf_counter()
+        dealer_s_pre = ctx.dealer.dealer_seconds
+        it = 0
+        for it in range(1, cfg.iters + 1):
+            mu_old = mu
+            ctx.tag = "S1"
+            dist = self._distances(ctx, enc_a, enc_b, mu)
+            ctx.tag = "S2"
+            r_before = ctx.log.total_rounds("online")
+            c = P.argmin_onehot(ctx, dist)                    # (n, k) scale 1
+            if not cfg.vectorized:
+                # pre-vectorization: each of the n samples runs its own
+                # tournament (n separate interaction chains per round)
+                dr = ctx.log.total_rounds("online") - r_before
+                _naive_extra_rounds(ctx, (n - 1) * dr + 1)
+            ctx.tag = "S3"
+            mu = self._update(ctx, enc_a, enc_b, c, mu_old, n)
+            if cfg.tol is not None:
+                ctx.tag = "CSC"
+                if self._converged(ctx, mu_old, mu, cfg.tol):
+                    break
+        sync()
+        wall = time.perf_counter() - t_start
+        dealer = ctx.dealer
+        in_loop_dealer_s = dealer.dealer_seconds - dealer_s_pre
+        self.result_ = KMeansResult(
+            centroids=mu, assignment=c, iters_run=it, log=ctx.log,
+            dealer=dealer,
+            online_seconds=max(0.0, wall - in_loop_dealer_s),
+            offline_dealer_seconds=dealer.dealer_seconds,
+            offline_modelled_ot_seconds=dealer.modelled_ot_seconds,
+            loop_seconds=wall,
+        )
+        return self.result_
+
+    # ------------------------------------------------------------------ #
+    def _init_centroids(self, ctx, rng, x_a, x_b) -> AShare:
+        """Jointly negotiated random sample indexes (paper Sec 4.2); each
+        party secret-shares its slice of the chosen rows."""
+        cfg = self.cfg
+        dev = ctx.device
+        if cfg.partition == "vertical":
+            n = x_a.shape[0]
+            idx = rng.choice(n, cfg.k, replace=False)
+            mu_a = _encode_np(x_a[idx], cfg.f)        # A shares its columns
+            mu_b = _encode_np(x_b[idx], cfg.f)
+            sh = _share_cat(rng, [mu_a, mu_b], axis=1, device=dev)
+        else:
+            n = x_a.shape[0] + x_b.shape[0]
+            idx = rng.choice(n, cfg.k, replace=False)
+            mask = idx < x_a.shape[0]
+            rows_a = _encode_np(x_a[idx[mask]], cfg.f)
+            rows_b = _encode_np(x_b[idx[~mask] - x_a.shape[0]], cfg.f)
+            sh = _share_cat(rng, [rows_a, rows_b], axis=0, device=dev)
+            # restore the jointly-negotiated index order (A rows then B rows
+            # were concatenated; undo that permutation)
+            perm = np.concatenate([np.where(mask)[0], np.where(~mask)[0]])
+            inv = torch.as_tensor(np.argsort(perm), device=dev)
+            sh = AShare(sh.s0[inv], sh.s1[inv])
+        ctx.log.send(2 * ring.nbytes(sh.shape), tag="init", phase="online")
+        return sh
+
+    # ------------------------------------------------------------------ #
+    def _distances(self, ctx, enc_a, enc_b, mu: AShare) -> AShare:
+        """F_ESD: D' = U - 2 X mu^T at scale f (one final truncation)."""
+        cfg = self.cfg
+        # U_j = ||mu_j||^2 : one batched SMUL + row-sum  (scale 2f)
+        mu_sq = P.smul(ctx, mu, mu)
+        u = AShare(mu_sq.s0.sum(1), mu_sq.s1.sum(1))          # (k,)
+        if not cfg.vectorized:
+            _naive_extra_rounds(ctx, cfg.k * mu.shape[1])
+        xmu = self._x_mut(ctx, enc_a, enc_b, mu)              # (n,k) 2f
+        d2 = P.sub(AShare(u.s0[None, :], u.s1[None, :]), P.lshift(xmu, 1))
+        return P.trunc(d2, cfg.f)
+
+    def _x_mut(self, ctx, enc_a, enc_b, mu: AShare) -> AShare:
+        """X @ mu^T as shares, splitting local vs joint blocks (Eq. 4/5)."""
+        mm = ctx.backend.ring_mm
+        mut = AShare(mu.s0.T, mu.s1.T)                        # (d, k)
+        j1, j2 = self._joint_x_mut(ctx, enc_a, enc_b, mut)
+        if self.cfg.partition == "vertical":
+            da = enc_a.shape[1]
+            # local: A's data x A's share slice; B's data x B's share slice
+            loc_a = mm(enc_a, mut.s0[:da])
+            loc_b = mm(enc_b, mut.s1[da:])
+            return AShare(loc_a + j1.s0 + j2.s0, loc_b + j1.s1 + j2.s1)
+        # horizontal: rows split; each party's rows hit BOTH mu shares
+        loc_a = mm(enc_a, mut.s0)                             # A x own share
+        loc_b = mm(enc_b, mut.s1)
+        top = AShare(loc_a + j1.s0, j1.s1)
+        bot = AShare(j2.s0, loc_b + j2.s1)
+        return AShare(torch.cat([top.s0, bot.s0], 0),
+                      torch.cat([top.s1, bot.s1], 0))
+
+    def _joint_x_mut(self, ctx, enc_a, enc_b, mut: AShare) -> tuple:
+        """The two JOINT blocks of X mu^T — A's data x B's share slice and
+        vice versa (vertical: column slices of mu^T; horizontal: each
+        party's rows x the other's full share)."""
+        if self.cfg.partition == "vertical":
+            da = enc_a.shape[1]
+            j1 = self._pub_times_share(ctx, enc_a,
+                                       AShare(torch.zeros_like(mut.s1[:da]),
+                                              mut.s1[:da]), owner="A")
+            j2 = self._pub_times_share(ctx, enc_b,
+                                       AShare(mut.s0[da:],
+                                              torch.zeros_like(mut.s0[da:])),
+                                       owner="B")
+            return j1, j2
+        j1 = self._pub_times_share(ctx, enc_a,
+                                   AShare(torch.zeros_like(mut.s1), mut.s1),
+                                   owner="A")                  # A x B's share
+        j2 = self._pub_times_share(ctx, enc_b,
+                                   AShare(mut.s0, torch.zeros_like(mut.s0)),
+                                   owner="B")                  # B x A's share
+        return j1, j2
+
+    def _pub_times_share(self, ctx, enc, other_share: AShare,
+                         owner: str) -> AShare:
+        """One party's plaintext matrix x the OTHER party's share matrix:
+        a Beaver matmul with the plaintext embedded as a degenerate share
+        (this is what ships X-sized masked matrices)."""
+        zero = torch.zeros_like(enc)
+        pub = AShare(enc, zero) if owner == "A" else AShare(zero, enc)
+        out = P.smatmul(ctx, pub, other_share)
+        if not self.cfg.vectorized:
+            _naive_extra_rounds(ctx, enc.shape[0] * other_share.shape[1])
+        return out
+
+    # ------------------------------------------------------------------ #
+    def _update(self, ctx, enc_a, enc_b, c: AShare, mu_old: AShare,
+                n: int) -> AShare:
+        """F_SCU: mu = C^T X / 1^T C with empty-cluster MUX guard."""
+        num = self._ct_x(ctx, enc_a, enc_b, c)                 # (k, d) scale f
+        den = AShare(c.s0.sum(0), c.s1.sum(0))                 # (k,) scale 1
+        return self._update_final(ctx, num, den, mu_old, n)
+
+    def _update_final(self, ctx, num: AShare, den: AShare, mu_old: AShare,
+                      n: int) -> AShare:
+        """The S3 tail: empty-cluster guard + balanced-split division + MUX.
+
+        Balanced split: computing num * (2^f/den) naively either loses
+        den*2^-f relative precision or pushes the pre-truncation product to
+        ~2^(2f+m) bits, where SecureML local truncation fails often. So the
+        2^m rescale is split: num is shifted down by s = m//2 and 2^s/den is
+        kept in the reciprocal; the product (num/2^s)*(2^s/den) stays at
+        ~2^(2f+4) bits."""
+        cfg = self.cfg
+        k = cfg.k
+        dev = num.s0.device
+        one = AShare(torch.ones((k,), dtype=ring.DTYPE, device=dev),
+                     torch.zeros((k,), dtype=ring.DTYPE, device=dev))
+        is_empty = P.cmp_lt(ctx, den, one)                     # [den < 1]
+        den_safe = P.mux(ctx, is_empty, one, den)
+        m = int(np.ceil(np.log2(max(2, n))))
+        s = m // 2
+        num_s = P.trunc(num, s)
+        r = P.reciprocal(ctx, den_safe, max_den=n, f=cfg.f, extra_bits=s)
+        mu_new = P.smul(ctx, num_s, AShare(r.s0[:, None], r.s1[:, None]),
+                        trunc_f=cfg.f)
+        guard = AShare(is_empty.s0[:, None], is_empty.s1[:, None])
+        return P.mux(ctx, guard, mu_old, mu_new)
+
+    def _ct_x(self, ctx, enc_a, enc_b, c: AShare) -> AShare:
+        """C^T X -> (k, d) shares at scale f (C is scale-1 one-hot)."""
+        ct = AShare(c.s0.T, c.s1.T)                            # (k, n)
+        if self.cfg.partition == "vertical":
+            # [C^T X_A | C^T X_B]; each block: share x one party's plaintext
+            za = self._share_times_pub(ctx, ct, enc_a, owner="A")
+            zb = self._share_times_pub(ctx, ct, enc_b, owner="B")
+            return AShare(torch.cat([za.s0, zb.s0], 1),
+                          torch.cat([za.s1, zb.s1], 1))
+        na = enc_a.shape[0]
+        ct_a = AShare(ct.s0[:, :na], ct.s1[:, :na])
+        ct_b = AShare(ct.s0[:, na:], ct.s1[:, na:])
+        za = self._share_times_pub(ctx, ct_a, enc_a, owner="A")
+        zb = self._share_times_pub(ctx, ct_b, enc_b, owner="B")
+        return P.add(za, zb)
+
+    def _share_times_pub(self, ctx, ct: AShare, x, owner: str) -> AShare:
+        """<C>^T @ X_owner: the owner's share-product is local; the other
+        party's requires a joint Beaver product."""
+        mm = ctx.backend.ring_mm
+        zero = torch.zeros_like(x)
+        if owner == "A":
+            local = mm(ct.s0, x)                               # A local
+            joint = P.smatmul(ctx, AShare(torch.zeros_like(ct.s1), ct.s1),
+                              AShare(x, zero))
+        else:
+            local = mm(ct.s1, x)                               # B local
+            joint = P.smatmul(ctx, AShare(ct.s0, torch.zeros_like(ct.s0)),
+                              AShare(zero, x))
+        if not self.cfg.vectorized:
+            _naive_extra_rounds(ctx, ct.shape[0] * x.shape[1])
+        if owner == "A":
+            return AShare(local + joint.s0, joint.s1)
+        return AShare(joint.s0, local + joint.s1)
+
+    # ------------------------------------------------------------------ #
+    def _converged(self, ctx, mu_old: AShare, mu_new: AShare, tol: float) -> bool:
+        """F_CSC: reveal only CMP(ESD(mu_t, mu_t+1), eps)."""
+        diff = P.sub(mu_new, mu_old)
+        sq = P.smul(ctx, diff, diff)                           # scale 2f
+        tot = AShare(sq.s0.sum(), sq.s1.sum())
+        eps = ring.encode(tol, 2 * self.cfg.f, device=tot.s0.device).reshape(())
+        bit = P.cmp_lt(ctx, tot, AShare(eps, torch.zeros_like(eps)))
+        ctx.log.send(8, tag="CSC", phase="online")             # reveal stop bit
+        return bool(rec(bit).item() == 1)
+
+
+# ---------------------------------------------------------------------------
+# Plaintext oracle (same init, same ESD criterion)
+# ---------------------------------------------------------------------------
+
+def plaintext_kmeans(x: np.ndarray, k: int, iters: int, seed: int = 0,
+                     tol: float | None = None):
+    """Float Lloyd with the same joint-random-row init as SecureKMeans."""
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(x.shape[0], k, replace=False)
+    mu = x[idx].copy()
+    labels = np.zeros(x.shape[0], np.int64)
+    for _ in range(iters):
+        d = (mu ** 2).sum(1)[None, :] - 2 * x @ mu.T           # same D'
+        labels = d.argmin(1)
+        mu_old = mu.copy()
+        for j in range(k):
+            m = labels == j
+            if m.any():
+                mu[j] = x[m].mean(0)
+        if tol is not None and ((mu - mu_old) ** 2).sum() < tol:
+            break
+    return mu, labels
+
+
+def _encode_np(x: np.ndarray, f: int) -> np.ndarray:
+    return np.round(np.asarray(x, np.float64) * (1 << f)) \
+        .astype(np.int64).astype(np.uint64)
+
+
+def _share_cat(rng, mats, axis, device="cpu") -> AShare:
+    parts = [share(m, rng, device) for m in mats]
+    return AShare(torch.cat([p.s0 for p in parts], axis),
+                  torch.cat([p.s1 for p in parts], axis))
+
+
+def _naive_extra_rounds(ctx, n_interactions: int) -> None:
+    """Pre-vectorization accounting: the same payload would be shipped in
+    `n_interactions` round-trips instead of 1 (paper Sec 4.2). Bytes are
+    already logged by the vectorized op; only rounds differ."""
+    ctx.log.send(0, tag=ctx.tag, phase="online", rounds=int(n_interactions) - 1)

@@ -4,3 +4,8 @@ import jax
 # safe to set globally for the test session. (dryrun.py manages its own
 # device-count env and is NOT imported here — smoke tests must see 1 device.)
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped without one")
