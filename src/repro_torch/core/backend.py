@@ -5,6 +5,9 @@ small dispatch interface:
 
   * ``ring_mm``  — int64-word matmul mod 2^64 (every Beaver recombination,
                    every public-x-share product, every C^T X block).
+  * ``ring_spmm`` — blocked-ELL sparse x dense over the ring (the
+                   nnz-proportional step-2 compute of Protocol 2), and
+                   ``ring_spmm_csr``, which packs a CSR matrix into it.
   * ``ks_fused`` — one party's fused Kogge-Stone recombination: all 7 AND
                    levels of the secure-adder MSB in one local pass given the
                    exchanged masked operands.
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ksadder, modmatmul
+from repro_torch.kernels import ksadder, modmatmul, spmm
 from repro_torch.kernels.ksadder import LEVELS as KS_LEVELS
 
 __all__ = ["KS_LEVELS", "RingBackend", "TorchBackend", "CudaBackend",
@@ -39,14 +42,20 @@ class RingBackend:
         raise NotImplementedError
 
     def ring_spmm(self, blocks, idx, counts, y):
-        raise NotImplementedError(
-            "ring_spmm belongs to the sparse slice (ROADMAP.md Queue 1 "
-            "item 7, Queue 2 item 3)")
+        """Blocked-ELL sparse x dense over the ring -> (nrb*bm, k)."""
+        raise NotImplementedError
 
     def ring_spmm_csr(self, csr, y, *, bm: int = 8, bk: int = 128):
-        raise NotImplementedError(
-            "ring_spmm_csr belongs to the sparse slice (ROADMAP.md Queue 1 "
-            "item 7)")
+        """CSR sparse x dense mod 2^64 -> (n, k) via the blocked-ELL op.
+
+        `csr` is a host `core.sparse.CSRMatrix`; its ELL packing is made
+        and uploaded to y's device once and memoized on it (`CSRMatrix.ell`).
+        y is padded with zero rows to a multiple of bk (ring-neutral)."""
+        blocks, idx, counts = csr.ell(bm=bm, bk=bk, device=y.device)
+        pad = (-y.shape[0]) % bk
+        if pad:
+            y = torch.cat([y, y.new_zeros((pad, y.shape[1]))])
+        return self.ring_spmm(blocks, idx, counts, y)[: csr.shape[0]]
 
     def ks_fused(self, x, e0, f0, u0, v0, z0, el, fl, ul, vl, zl, *,
                  party0: bool):
@@ -67,6 +76,9 @@ class TorchBackend(RingBackend):
 
     def ring_mm(self, a, b):
         return modmatmul.ring_matmul_plain(a, b)
+
+    def ring_spmm(self, blocks, idx, counts, y):
+        return spmm.spmm_ell_plain(blocks, idx, counts, y)
 
     def ks_fused(self, x, e0, f0, u0, v0, z0, el, fl, ul, vl, zl, *,
                  party0: bool):
@@ -96,6 +108,10 @@ class CudaBackend(RingBackend):
     def ring_mm(self, a, b):
         _require_cuda(a, b)
         return modmatmul.ring_matmul(a, b)
+
+    def ring_spmm(self, blocks, idx, counts, y):
+        _require_cuda(blocks, idx, counts, y)
+        return spmm.spmm_ell(blocks, idx, counts, y)
 
     def ks_fused(self, x, e0, f0, u0, v0, z0, el, fl, ul, vl, zl, *,
                  party0: bool):

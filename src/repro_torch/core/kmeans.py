@@ -1,4 +1,4 @@
-"""Privacy-preserving K-means — paper Algorithm 3, both partitions, dense.
+"""Privacy-preserving (sparse) K-means — paper Algorithm 3, both partitions.
 
 Secure Lloyd iteration (Sec 4.2):
   S1 F_ESD  — vectorized distances  D' = U - 2 X mu^T  (Eq. 3-5); the
@@ -11,6 +11,11 @@ Secure Lloyd iteration (Sec 4.2):
 
 Vertical:   X = [X_A | X_B]   (Eq. 4, Alg. 3)      n x (dA + dB)
 Horizontal: X = [X_A ; X_B]   (Eq. 5)              (nA + nB) x d
+
+`sparse=True` swaps every joint public-x-share product for Protocol 2
+(HE + HE2SS, core/sparse.py) — X never leaves its owner, traffic is
+independent of n*d, and the step-2 product runs on the ring backend's
+blocked-ELL spmm.
 
 `vectorized=False` keeps results identical but *accounts* communication the
 way the pre-vectorization protocol would ship it (one interaction per scalar
@@ -33,13 +38,14 @@ import torch
 from repro_torch.core import protocol as P
 from repro_torch.core import ring
 from repro_torch.core.channel import CommLog, NetModel
+from repro_torch.core.he import OU_COST_S, SimulatedPHE
 from repro_torch.core.sharing import AShare, rec, rec_real, share
+from repro_torch.core.sparse import CSRMatrix, secure_sparse_matmul
 from repro_torch.core.triples import TrustedDealer
 
 _LATER = {
     "offline": "ROADMAP.md Queue 1 item 6 (offline planner and pooled fast path)",
     "batch_size": "ROADMAP.md Queue 1 item 8 (minibatch and pipelining)",
-    "sparse": "ROADMAP.md Queue 1 item 7 (sparse, Protocol 2)",
     "dealer": "ROADMAP.md Queue 1 item 9 (predict, bank and serving)",
     "wire": "ROADMAP.md Queue 1 item 10 (durability, wire and runtime)",
     "checkpoint": "ROADMAP.md Queue 1 item 10 (durability, wire and runtime)",
@@ -60,6 +66,7 @@ class KMeansConfig:
     f: int = ring.F
     seed: int = 0
     tol: float | None = None        # if set, F_CSC early-stops
+    he_backend: object | None = None  # default: SimulatedPHE()
     backend: str = "cuda"           # ring-compute backend (core/backend.py)
     device: str = "cuda"            # where shares and triples live
     offline: Literal["on_demand", "pooled", "streamed"] = "on_demand"
@@ -79,8 +86,6 @@ class KMeansConfig:
             raise _not_ported(f"offline={self.offline!r}", "offline")
         if self.batch_size is not None:
             raise _not_ported("batch_size", "batch_size")
-        if self.sparse:
-            raise _not_ported("sparse=True", "sparse")
         if self.partition not in ("vertical", "horizontal"):
             raise ValueError(
                 f"KMeansConfig.partition must be 'vertical' or "
@@ -101,7 +106,7 @@ class KMeansResult:
     online_seconds: float             # loop wall minus in-loop dealer work
     offline_dealer_seconds: float     # triple synthesis + upload
     offline_modelled_ot_seconds: float
-    he_seconds: float = 0.0           # Protocol 2 only (not in this slice)
+    he_seconds: float = 0.0           # modelled HE time (Protocol 2 only)
     loop_seconds: float = 0.0         # raw Lloyd-loop wall-clock: with the
     # on-demand dealer this INCLUDES triple synthesis
 
@@ -127,6 +132,7 @@ class SecureKMeans:
 
     def __init__(self, cfg: KMeansConfig):
         self.cfg = cfg
+        self.he = cfg.he_backend or SimulatedPHE()
 
     # ------------------------------------------------------------------ #
     def fit(self, x_a: np.ndarray, x_b: np.ndarray, *, dealer=None,
@@ -157,9 +163,13 @@ class SecureKMeans:
                 raise ValueError(f"horizontal partition needs equal widths, "
                                  f"got {x_a.shape[1]} and {x_b.shape[1]}")
             n = x_a.shape[0] + x_b.shape[0]
-        # each party's encoded plaintext, uploaded once
-        enc_a = ring.from_u64_numpy(_encode_np(x_a, cfg.f), device)
-        enc_b = ring.from_u64_numpy(_encode_np(x_b, cfg.f), device)
+        # each party's encoded plaintext, uploaded once; the sparse path
+        # also keeps it as a host CSR matrix for Protocol 2
+        enc_a_np, enc_b_np = _encode_np(x_a, cfg.f), _encode_np(x_b, cfg.f)
+        enc_a = ring.from_u64_numpy(enc_a_np, device)
+        enc_b = ring.from_u64_numpy(enc_b_np, device)
+        csr_a = CSRMatrix.from_dense(enc_a_np) if cfg.sparse else None
+        csr_b = CSRMatrix.from_dense(enc_b_np) if cfg.sparse else None
         mu = self._init_centroids(ctx, rng, x_a, x_b)
 
         sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
@@ -170,7 +180,7 @@ class SecureKMeans:
         for it in range(1, cfg.iters + 1):
             mu_old = mu
             ctx.tag = "S1"
-            dist = self._distances(ctx, enc_a, enc_b, mu)
+            dist = self._distances(ctx, enc_a, enc_b, csr_a, csr_b, mu)
             ctx.tag = "S2"
             r_before = ctx.log.total_rounds("online")
             c = P.argmin_onehot(ctx, dist)                    # (n, k) scale 1
@@ -180,7 +190,7 @@ class SecureKMeans:
                 dr = ctx.log.total_rounds("online") - r_before
                 _naive_extra_rounds(ctx, (n - 1) * dr + 1)
             ctx.tag = "S3"
-            mu = self._update(ctx, enc_a, enc_b, c, mu_old, n)
+            mu = self._update(ctx, enc_a, enc_b, csr_a, csr_b, c, mu_old, n)
             if cfg.tol is not None:
                 ctx.tag = "CSC"
                 if self._converged(ctx, mu_old, mu, cfg.tol):
@@ -195,6 +205,7 @@ class SecureKMeans:
             online_seconds=max(0.0, wall - in_loop_dealer_s),
             offline_dealer_seconds=dealer.dealer_seconds,
             offline_modelled_ot_seconds=dealer.modelled_ot_seconds,
+            he_seconds=ctx.he_seconds,
             loop_seconds=wall,
         )
         return self.result_
@@ -227,7 +238,7 @@ class SecureKMeans:
         return sh
 
     # ------------------------------------------------------------------ #
-    def _distances(self, ctx, enc_a, enc_b, mu: AShare) -> AShare:
+    def _distances(self, ctx, enc_a, enc_b, csr_a, csr_b, mu: AShare) -> AShare:
         """F_ESD: D' = U - 2 X mu^T at scale f (one final truncation)."""
         cfg = self.cfg
         # U_j = ||mu_j||^2 : one batched SMUL + row-sum  (scale 2f)
@@ -235,15 +246,15 @@ class SecureKMeans:
         u = AShare(mu_sq.s0.sum(1), mu_sq.s1.sum(1))          # (k,)
         if not cfg.vectorized:
             _naive_extra_rounds(ctx, cfg.k * mu.shape[1])
-        xmu = self._x_mut(ctx, enc_a, enc_b, mu)              # (n,k) 2f
+        xmu = self._x_mut(ctx, enc_a, enc_b, csr_a, csr_b, mu)  # (n,k) 2f
         d2 = P.sub(AShare(u.s0[None, :], u.s1[None, :]), P.lshift(xmu, 1))
         return P.trunc(d2, cfg.f)
 
-    def _x_mut(self, ctx, enc_a, enc_b, mu: AShare) -> AShare:
+    def _x_mut(self, ctx, enc_a, enc_b, csr_a, csr_b, mu: AShare) -> AShare:
         """X @ mu^T as shares, splitting local vs joint blocks (Eq. 4/5)."""
         mm = ctx.backend.ring_mm
         mut = AShare(mu.s0.T, mu.s1.T)                        # (d, k)
-        j1, j2 = self._joint_x_mut(ctx, enc_a, enc_b, mut)
+        j1, j2 = self._joint_x_mut(ctx, enc_a, enc_b, csr_a, csr_b, mut)
         if self.cfg.partition == "vertical":
             da = enc_a.shape[1]
             # local: A's data x A's share slice; B's data x B's share slice
@@ -258,33 +269,42 @@ class SecureKMeans:
         return AShare(torch.cat([top.s0, bot.s0], 0),
                       torch.cat([top.s1, bot.s1], 0))
 
-    def _joint_x_mut(self, ctx, enc_a, enc_b, mut: AShare) -> tuple:
+    def _joint_x_mut(self, ctx, enc_a, enc_b, csr_a, csr_b,
+                     mut: AShare) -> tuple:
         """The two JOINT blocks of X mu^T — A's data x B's share slice and
         vice versa (vertical: column slices of mu^T; horizontal: each
         party's rows x the other's full share)."""
         if self.cfg.partition == "vertical":
             da = enc_a.shape[1]
-            j1 = self._pub_times_share(ctx, enc_a,
+            j1 = self._pub_times_share(ctx, enc_a, csr_a,
                                        AShare(torch.zeros_like(mut.s1[:da]),
                                               mut.s1[:da]), owner="A")
-            j2 = self._pub_times_share(ctx, enc_b,
+            j2 = self._pub_times_share(ctx, enc_b, csr_b,
                                        AShare(mut.s0[da:],
                                               torch.zeros_like(mut.s0[da:])),
                                        owner="B")
             return j1, j2
-        j1 = self._pub_times_share(ctx, enc_a,
+        j1 = self._pub_times_share(ctx, enc_a, csr_a,
                                    AShare(torch.zeros_like(mut.s1), mut.s1),
                                    owner="A")                  # A x B's share
-        j2 = self._pub_times_share(ctx, enc_b,
+        j2 = self._pub_times_share(ctx, enc_b, csr_b,
                                    AShare(mut.s0, torch.zeros_like(mut.s0)),
                                    owner="B")                  # B x A's share
         return j1, j2
 
-    def _pub_times_share(self, ctx, enc, other_share: AShare,
+    def _pub_times_share(self, ctx, enc, csr, other_share: AShare,
                          owner: str) -> AShare:
-        """One party's plaintext matrix x the OTHER party's share matrix:
-        a Beaver matmul with the plaintext embedded as a degenerate share
-        (this is what ships X-sized masked matrices)."""
+        """One party's plaintext matrix x the OTHER party's share matrix.
+
+        Dense path: Beaver matmul with the plaintext embedded as a degenerate
+        share (this is what ships X-sized masked matrices).
+        Sparse path: Protocol 2 — nnz-proportional HE compute, X never moves.
+        """
+        if self.cfg.sparse:
+            b_mat = other_share.s1 if owner == "A" else other_share.s0
+            z = secure_sparse_matmul(ctx, csr, b_mat, self.he,
+                                     time_model=OU_COST_S)
+            return z if owner == "A" else AShare(z.s1, z.s0)
         zero = torch.zeros_like(enc)
         pub = AShare(enc, zero) if owner == "A" else AShare(zero, enc)
         out = P.smatmul(ctx, pub, other_share)
@@ -293,10 +313,10 @@ class SecureKMeans:
         return out
 
     # ------------------------------------------------------------------ #
-    def _update(self, ctx, enc_a, enc_b, c: AShare, mu_old: AShare,
-                n: int) -> AShare:
+    def _update(self, ctx, enc_a, enc_b, csr_a, csr_b, c: AShare,
+                mu_old: AShare, n: int) -> AShare:
         """F_SCU: mu = C^T X / 1^T C with empty-cluster MUX guard."""
-        num = self._ct_x(ctx, enc_a, enc_b, c)                 # (k, d) scale f
+        num = self._ct_x(ctx, enc_a, enc_b, csr_a, csr_b, c)   # (k, d) scale f
         den = AShare(c.s0.sum(0), c.s1.sum(0))                 # (k,) scale 1
         return self._update_final(ctx, num, den, mu_old, n)
 
@@ -326,40 +346,57 @@ class SecureKMeans:
         guard = AShare(is_empty.s0[:, None], is_empty.s1[:, None])
         return P.mux(ctx, guard, mu_old, mu_new)
 
-    def _ct_x(self, ctx, enc_a, enc_b, c: AShare) -> AShare:
+    def _ct_x(self, ctx, enc_a, enc_b, csr_a, csr_b, c: AShare) -> AShare:
         """C^T X -> (k, d) shares at scale f (C is scale-1 one-hot)."""
         ct = AShare(c.s0.T, c.s1.T)                            # (k, n)
         if self.cfg.partition == "vertical":
             # [C^T X_A | C^T X_B]; each block: share x one party's plaintext
-            za = self._share_times_pub(ctx, ct, enc_a, owner="A")
-            zb = self._share_times_pub(ctx, ct, enc_b, owner="B")
+            za = self._share_times_pub(ctx, ct, enc_a, csr_a, owner="A")
+            zb = self._share_times_pub(ctx, ct, enc_b, csr_b, owner="B")
             return AShare(torch.cat([za.s0, zb.s0], 1),
                           torch.cat([za.s1, zb.s1], 1))
         na = enc_a.shape[0]
         ct_a = AShare(ct.s0[:, :na], ct.s1[:, :na])
         ct_b = AShare(ct.s0[:, na:], ct.s1[:, na:])
-        za = self._share_times_pub(ctx, ct_a, enc_a, owner="A")
-        zb = self._share_times_pub(ctx, ct_b, enc_b, owner="B")
+        za = self._share_times_pub(ctx, ct_a, enc_a, csr_a, owner="A")
+        zb = self._share_times_pub(ctx, ct_b, enc_b, csr_b, owner="B")
         return P.add(za, zb)
 
-    def _share_times_pub(self, ctx, ct: AShare, x, owner: str) -> AShare:
+    def _share_times_pub(self, ctx, ct: AShare, x, csr, owner: str) -> AShare:
         """<C>^T @ X_owner: the owner's share-product is local; the other
-        party's requires a joint Beaver product."""
+        party's requires a joint product (Beaver dense / Protocol 2 sparse,
+        via the transpose identity <C>_other^T X = (X^T <C>_other)^T)."""
+        cfg = self.cfg
         mm = ctx.backend.ring_mm
         zero = torch.zeros_like(x)
-        if owner == "A":
-            local = mm(ct.s0, x)                               # A local
-            joint = P.smatmul(ctx, AShare(torch.zeros_like(ct.s1), ct.s1),
-                              AShare(x, zero))
+        local = mm(ct.s0 if owner == "A" else ct.s1, x)        # owner local
+        if cfg.sparse:
+            joint = self._joint_share_times_pub(ctx, ct, csr.transpose(),
+                                                owner=owner)
         else:
-            local = mm(ct.s1, x)                               # B local
-            joint = P.smatmul(ctx, AShare(ct.s0, torch.zeros_like(ct.s0)),
-                              AShare(zero, x))
-        if not self.cfg.vectorized:
-            _naive_extra_rounds(ctx, ct.shape[0] * x.shape[1])
+            if owner == "A":
+                joint = P.smatmul(ctx, AShare(torch.zeros_like(ct.s1), ct.s1),
+                                  AShare(x, zero))
+            else:
+                joint = P.smatmul(ctx, AShare(ct.s0, torch.zeros_like(ct.s0)),
+                                  AShare(zero, x))
+            if not cfg.vectorized:
+                _naive_extra_rounds(ctx, ct.shape[0] * x.shape[1])
         if owner == "A":
             return AShare(local + joint.s0, joint.s1)
         return AShare(joint.s0, local + joint.s1)
+
+    def _joint_share_times_pub(self, ctx, ct: AShare, csr_t: CSRMatrix,
+                               owner: str) -> AShare:
+        """The sparse joint block of <C>^T X_owner: Protocol 2 on the pre-
+        transposed CSR (transpose identity), on the other party's share."""
+        if owner == "A":
+            z = secure_sparse_matmul(ctx, csr_t, ct.s1.T, self.he,
+                                     time_model=OU_COST_S)
+            return AShare(z.s0.T, z.s1.T)
+        z = secure_sparse_matmul(ctx, csr_t, ct.s0.T, self.he,
+                                 time_model=OU_COST_S)
+        return AShare(z.s1.T, z.s0.T)
 
     # ------------------------------------------------------------------ #
     def _converged(self, ctx, mu_old: AShare, mu_new: AShare, tol: float) -> bool:

@@ -39,6 +39,7 @@ class Ctx:
     log: CommLog
     tag: str = "misc"  # current Lloyd step: S1 / S2 / S3
     backend: RingBackend | str = "cuda"  # local ring-compute dispatch
+    he_seconds: float = 0.0  # modelled HE wall-time accumulated by Protocol 2
 
     def __post_init__(self):
         self.backend = get_backend(self.backend)
@@ -49,6 +50,9 @@ class Ctx:
 
     def send(self, nbytes: int, rounds: int = 1) -> None:
         self.log.send(nbytes, tag=self.tag, phase="online", rounds=rounds)
+
+    def add_he_seconds(self, t: float) -> None:
+        self.he_seconds += t
 
 
 def make_ctx(seed: int = 0, backend: RingBackend | str = "cuda",

@@ -37,6 +37,8 @@ SIGNATURES = {
                   [_P, _P, _P, _I64, _I64, _I64, _I32, _I64, _I32, _P]),
     "ksadder": ("ks_carry_share_launch",
                 [_P] * 5 + [_P, _I64] * 5 + [_P, _I64, _I32, _I32, _I32, _P]),
+    "spmm": ("spmm_ell_launch",
+             [_P] * 5 + [_I64, _I64, _I32, _I32, _I32, _I64, _I32, _P]),
 }
 
 _LOCK = threading.Lock()

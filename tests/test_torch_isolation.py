@@ -1,6 +1,7 @@
-"""The port stands alone: no module of `repro_torch`, and not
-`chip_smoke.py`, imports jax or the JAX package, and the default config
-refuses to fall back to the CPU when there is no GPU."""
+"""The port stands alone: no module of `repro_torch`, and neither
+`chip_smoke.py` nor the port's examples, imports jax or the JAX package,
+and the default config refuses to fall back to the CPU when there is no
+GPU."""
 import ast
 import os
 import pathlib
@@ -25,6 +26,9 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.core.kmeans" in mods
     assert "repro_torch.kernels.modmatmul" in mods
+    for m in ("repro_torch.core.sparse", "repro_torch.core.he",
+              "repro_torch.kernels.spmm"):
+        assert m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -52,6 +56,7 @@ def _imported_names(path: pathlib.Path) -> set:
 
 
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
+                                  *sorted((ROOT / "examples").glob("*_torch.py")),
                                   *sorted(PKG.rglob("*.py"))],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_neither_jax_nor_repro(path):

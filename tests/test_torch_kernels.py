@@ -12,7 +12,7 @@ from repro.core.backend import PallasBackend, XlaBackend, _ks_fused_generic
 from repro.kernels import ops as jops
 from repro.kernels.ksadder import ks_carry_share as j_ks_carry_share
 from repro_torch.core import ring
-from repro_torch.core.backend import (CudaBackend, TorchBackend,
+from repro_torch.core.backend import (CudaBackend, RingBackend, TorchBackend,
                                       get_backend)
 from repro_torch.kernels import ksadder, modmatmul
 
@@ -177,10 +177,11 @@ def test_get_backend_resolution():
     assert get_backend(inst) is inst
     with pytest.raises(ValueError):
         get_backend("xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inst.ring_spmm(None, None, None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inst.ring_spmm_csr(None, None)
+    # the sparse ops are implemented by both backends; the seam's base
+    # class still declares them abstract
+    assert inst.ring_spmm.__func__ is not RingBackend.ring_spmm
+    with pytest.raises(NotImplementedError):
+        RingBackend().ring_spmm(None, None, None, None)
 
 
 def test_cuda_backend_refuses_cpu(monkeypatch):
@@ -201,3 +202,8 @@ def test_cuda_backend_refuses_cpu(monkeypatch):
     flat, lvls = _ks_inputs((3,))
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         backend.ks_fused(*[_t(t) for t in flat + lvls], party0=True)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        backend.ring_spmm(_t(_words((1, 1, 8, 128))),
+                          torch.zeros((1, 1), dtype=torch.int32),
+                          torch.ones((1,), dtype=torch.int32),
+                          _t(_words((128, 3))))

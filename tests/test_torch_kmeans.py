@@ -146,7 +146,7 @@ def test_steps_on_reference_centroid_shares(partition):
 
     jctx.tag = tctx.tag = "S1"
     dist_j = km_j._distances(jctx, enc_a, enc_b, None, None, mu_j)
-    dist_t = km_t._distances(tctx, ta, tb, mu_t)
+    dist_t = km_t._distances(tctx, ta, tb, None, None, mu_t)
     same(dist_j, dist_t)
     jctx.tag = tctx.tag = "S2"
     c_j = JP.argmin_onehot(jctx, dist_j)
@@ -154,7 +154,7 @@ def test_steps_on_reference_centroid_shares(partition):
     same(c_j, c_t)
     jctx.tag = tctx.tag = "S3"
     same(km_j._update(jctx, enc_a, enc_b, None, None, c_j, mu_j, n),
-         km_t._update(tctx, ta, tb, c_t, mu_t, n))
+         km_t._update(tctx, ta, tb, None, None, c_t, mu_t, n))
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +163,7 @@ def test_steps_on_reference_centroid_shares(partition):
 
 @pytest.mark.parametrize("kwargs", [{"offline": "pooled"},
                                     {"offline": "streamed"},
-                                    {"batch_size": 16}, {"sparse": True}])
+                                    {"batch_size": 16}])
 def test_later_slice_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         KMeansConfig(k=2, **kwargs)
