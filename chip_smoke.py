@@ -22,12 +22,26 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      sparse=True (Protocol 2), vertical, d_a=d_b=128, k=3, 90 % zeros,
      5 iterations at n=100,000 — requires agreement >= 0.98 and all three
      kernels launched, and times `spmm_ell` on that fit's own ELL inputs;
-  5. prints one JSON line of per-kernel launches, times and bounds, the
+  5. drives the kernel API (`repro_torch.kernels.ops`) the same way, with
+     the launch counters set to 0 just before and read just after:
+     plaintext Lloyd iterations (esd -> argmin_onehot -> C^T x through
+     spmm_from_dense) at n=100,000 and the widths of phases 4 and 4b and of
+     benchmarks/kernel_bench.py, held to the repository's plaintext_kmeans;
+     mod-2^32 ring products; f32 and u32 spmm on phase 4b's own ELL, and
+     u64 spmm at k=10. Then it holds each of the API's kernels against its
+     plain version at those shapes (ring words exactly, float32 within
+     rtol 1e-5, atol 1e-3) and times kernel, plain version and the one
+     PyTorch call for the same function where there is one;
+  6. prints one JSON line of per-kernel launches, times and bounds, the
      nvidia-smi line, and finally {"ok": true, "device": {...}}.
 
 Phases 2 and 3 cover the sparse slice too: `spmm_ell` against its plain
 version at both main-path shapes and at odd ones, and the sparse GPU fit
-against the sparse CPU fit.
+against the sparse CPU fit at k=3 and at k=10 (y wider than one launch's
+8 columns, so the kernel runs as column groups).
+
+Every float32 plain version runs with torch.backends.cuda.matmul.
+allow_tf32 = False (set here), so it is full FP32 like the kernels.
 
 Any failure exits non-zero before the final line. Without a GPU, or outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -60,6 +74,13 @@ HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2 ** 20
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 INT64_MAC_PER_S = INT32_OPS_PER_S / 3
+# FP32 outside the tensor cores (NVIDIA's H100 SXM data sheet); an FMA is
+# 2 operations of it
+FP32_OPS_PER_S = 67e12
+# multiply-adds per second of each word type of the kernel API
+MAC_PER_S = {torch.float32: FP32_OPS_PER_S / 2,
+             torch.int32: INT32_OPS_PER_S,
+             torch.int64: INT64_MAC_PER_S}
 
 # Launches of each kernel shape per vertical Lloyd iteration at k=5, read
 # from core/kmeans.py and core/protocol.py: S1 has 2 Beaver smatmuls
@@ -83,6 +104,18 @@ SP_SPARSITY = 0.9
 SP_ELL_S1 = (-(-SP_N // 8), 1, 8, 128)
 SP_ELL_S3 = (SP_DA // 8, -(-SP_N // 128), 8, 128)
 SP_PER_ITER = {"spmm_ell": 4, "ring_matmul": 4, "ks_carry_share": 6}
+SP_WIDE_K = 10      # phase 3: a sparse fit with y wider than 8 columns
+
+# The kernel API (phase 5) at n = 100,000: esd and argmin_onehot at the
+# (d, k) of the fraud deployment (phase 4), of the sparse fit (phase 4b) and
+# of benchmarks/kernel_bench.py's esd row; the mod-2^32 ring product at the
+# dense fit's tall-skinny and long-K shapes and kernel_bench's square one;
+# spmm on phase 4b's ELL of X_A (S1) and X_A^T (S3), and u64 at k = 10.
+API_N = 100_000
+API_ESD = [(42, 5), (256, 3), (512, 128)]                  # (d, k)
+API_MM32 = [(100_000, 18, 5), (5, 100_000, 24), (1024, 512, 128)]
+API_ITERS = 3       # plaintext Lloyd iterations per width, through the API
+API_SEED = 11
 
 
 def fail(msg: str) -> None:
@@ -143,12 +176,35 @@ def ell_bound_ms(blocks: torch.Tensor, counts: torch.Tensor,
                  y: torch.Tensor) -> tuple[float, float]:
     """(bytes ms, operations ms) of one spmm_ell: the tiles of the slots
     this input uses (sum of counts), Y, the output and the index arrays;
-    one 64-bit multiply-add per tile word and column of Y."""
+    one multiply-add of the word type per tile word and column of Y."""
     nrb, maxb, bm, bk = blocks.shape
     d_pad, k = y.shape
+    word = blocks.element_size()
     used = int(counts.sum()) * bm * bk
-    nbytes = 8 * (used + d_pad * k + nrb * bm * k) + 4 * (nrb * maxb + nrb)
-    return (1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * used * k / INT64_MAC_PER_S)
+    nbytes = word * (used + d_pad * k + nrb * bm * k) \
+        + 4 * (nrb * maxb + nrb)
+    return (1e3 * nbytes / HBM_BYTES_PER_S,
+            1e3 * used * k / MAC_PER_S[blocks.dtype])
+
+
+def esd_bound_ms(n: int, d: int, k: int) -> tuple[float, float]:
+    """(bytes ms, operations ms): x, mu read once, D' written once; one FP32
+    FMA per (i, j, d) and per (j, d) of the norms."""
+    return (1e3 * 4 * (n * d + k * d + n * k) / HBM_BYTES_PER_S,
+            1e3 * 2 * (n + 1) * d * k / FP32_OPS_PER_S)
+
+
+def argmin_bound_ms(n: int, k: int) -> tuple[float, float]:
+    """(bytes ms, operations ms): the f32 distances read once, the int32
+    one-hot written once; one compare per distance."""
+    return (1e3 * 8 * n * k / HBM_BYTES_PER_S, 1e3 * n * k / FP32_OPS_PER_S)
+
+
+def mm32_bound_ms(m: int, kdim: int, n: int) -> tuple[float, float]:
+    """(bytes ms, operations ms) of a mod-2^32 ring product: 4-byte words,
+    one 32-bit IMAD per multiply-add."""
+    return (1e3 * 4 * (m * kdim + kdim * n + m * n) / HBM_BYTES_PER_S,
+            1e3 * m * kdim * n / INT32_OPS_PER_S)
 
 
 def _fmt_bound(bound: tuple[float, float]) -> str:
@@ -160,6 +216,13 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.numel() == 0:
         return 0.0
     return float((a.double() - b.double()).abs().max())
+
+
+def within(got: torch.Tensor, want: torch.Tensor, rtol: float,
+           atol: float) -> bool:
+    """|got - want| <= atol + rtol |want| everywhere (a NaN fails)."""
+    diff = (got.double() - want.double()).abs()
+    return bool((diff <= atol + rtol * want.double().abs()).all())
 
 
 # ---------------------------------------------------------------------------
@@ -258,8 +321,10 @@ def phase_kernels(rng):
 
 
 def library_spmm(blocks, idx, counts, y):
-    """The one PyTorch call for the same product: the ELL tiles as a COO
-    tensor (built outside the timing) times Y with `torch.sparse.mm`.
+    """The one PyTorch call for the same product: the ELL tiles as a sparse
+    tensor (built outside the timing) times Y with `torch.sparse.mm`; CSR
+    for float32, COO for ring words (cuSPARSE has no integer CSR product,
+    and COO refuses them with a plain NotImplementedError).
     Returns (ms or None, note)."""
     nrb, maxb, bm, bk = blocks.shape
     dev = blocks.device
@@ -269,29 +334,37 @@ def library_spmm(blocks, idx, counts, y):
         .expand(-1, bm, bk)
     cols = (idx[r, j].long()[:, None, None] * bk
             + torch.arange(bk, device=dev)[None, None, :]).expand(-1, bm, bk)
-    coo = torch.sparse_coo_tensor(
-        torch.stack([rows.reshape(-1), cols.reshape(-1)]),
-        blocks[r, j].reshape(-1), (nrb * bm, y.shape[0])).coalesce()
     try:
-        got = torch.sparse.mm(coo, y)
+        sp = torch.sparse_coo_tensor(
+            torch.stack([rows.reshape(-1), cols.reshape(-1)]),
+            blocks[r, j].reshape(-1), (nrb * bm, y.shape[0])).coalesce()
+        if y.dtype == torch.float32:
+            sp = sp.to_sparse_csr()
+        got = torch.sparse.mm(sp, y)
         torch.cuda.synchronize()
     except (RuntimeError, NotImplementedError) as exc:
         return None, f"refused: {type(exc).__name__}: {str(exc)[:120]}"
     from repro_torch.kernels import spmm
-    same = torch.equal(got, spmm.spmm_ell_plain(blocks, idx, counts, y))
-    ms = device_ms(torch.sparse.mm, [(coo, y)], reps=5, bursts=3)
-    return ms, f"ran, words {'equal' if same else 'DIFFER'}"
+    want = spmm.spmm_ell_plain(blocks, idx, counts, y)
+    same = within(got, want, 1e-5, 1e-3) if y.dtype == torch.float32 \
+        else torch.equal(got, want)
+    ms = device_ms(torch.sparse.mm, [(sp, y)], reps=5, bursts=3)
+    return ms, f"ran, result {'agrees' if same else 'DIFFERS'}"
 
 
 def time_spmm(label, blocks, idx, counts, y, library=False):
-    """Kernel = plain version (exact), then kernel, plain and (optionally)
-    library times and the bound. Returns (ms, plain_ms, bound, lib_ms)."""
+    """Kernel = plain version (ring words exactly; float32 within rtol 1e-5,
+    atol 1e-3, since its split tile lists meet by atomicAdd in an order
+    that changes per run), then kernel, plain and (optionally) library
+    times and the bound. Returns (ms, plain_ms, bound, lib_ms, err)."""
     from repro_torch.kernels import spmm
     got = spmm.spmm_ell(blocks, idx, counts, y)
     want = spmm.spmm_ell_plain(blocks, idx, counts, y)
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
-    if not torch.equal(got, want):
+    ok = within(got, want, 1e-5, 1e-3) if y.dtype == torch.float32 \
+        else torch.equal(got, want)
+    if not ok:
         fail(f"spmm_ell {label} differs from its plain version "
              f"(max abs err {err})")
     sets = cold_copies((blocks, idx, counts, y))
@@ -301,7 +374,8 @@ def time_spmm(label, blocks, idx, counts, y, library=False):
     bound = ell_bound_ms(blocks, counts, y)
     lib_ms, lib_note = library_spmm(blocks, idx, counts, y) if library \
         else (None, "")
-    print(f"spmm_ell {label}: equal; kernel {ms:.4f} ms, plain "
+    print(f"spmm_ell {label}: {'within tolerance' if y.dtype == torch.float32 else 'equal'}"
+          f" (max abs err {err}); kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {_fmt_bound(bound)}"
           + (f"; torch.sparse.mm {lib_note}"
              + (f", {lib_ms:.4f} ms" if lib_ms is not None else "")
@@ -429,19 +503,20 @@ def phase_gpu_equals_cpu():
               f"CPU loop {c.loop_seconds:.3f} s", flush=True)
 
 
-def phase_sparse_gpu_equals_cpu():
+def phase_sparse_gpu_equals_cpu(k: int):
     """The sparse GPU fit = the sparse CPU fit, word for word, with the same
-    dealer counters, per-tag traffic and modelled HE seconds."""
+    dealer counters, per-tag traffic and modelled HE seconds. At k > 8 the
+    fit's spmm_ell runs as column groups of y."""
     from repro_torch.core import ring
     from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
-    x = _one_hot_like(np.random.default_rng(4), 2048, SP_DA + SP_DB, SP_K,
+    x = _one_hot_like(np.random.default_rng(4), 2048, SP_DA + SP_DB, k,
                       SP_SPARSITY)
     splits = {"vertical": (x[:, :SP_DA], x[:, SP_DA:]),
               "horizontal": (x[:1024], x[1024:])}
     for part, (xa, xb) in splits.items():
         res = {}
         for backend, device in (("cuda", "cuda"), ("torch", "cpu")):
-            cfg = KMeansConfig(k=SP_K, iters=2, partition=part, seed=3,
+            cfg = KMeansConfig(k=k, iters=2, partition=part, seed=3,
                                sparse=True, backend=backend, device=device)
             res[backend] = SecureKMeans(cfg).fit(xa, xb)
         g, c = res["cuda"], res["torch"]
@@ -450,19 +525,19 @@ def phase_sparse_gpu_equals_cpu():
                 gw = ring.to_u64_numpy(getattr(g, field)[i])
                 cw = ring.to_u64_numpy(getattr(c, field)[i])
                 if not np.array_equal(gw, cw):
-                    fail(f"sparse {part}: GPU and CPU {field} s{i} differ")
+                    fail(f"sparse {part}, k={k}: GPU and CPU {field} s{i} differ")
         for attr in ("n_matmul", "n_mul", "n_bin"):
             if getattr(g.dealer, attr) != getattr(c.dealer, attr):
-                fail(f"sparse {part}: dealer {attr} differs")
+                fail(f"sparse {part}, k={k}: dealer {attr} differs")
         for phase in ("online", "offline"):
             if g.log.by_tag(phase) != c.log.by_tag(phase):
-                fail(f"sparse {part}: {phase} CommLog differs: "
+                fail(f"sparse {part}, k={k}: {phase} CommLog differs: "
                      f"{g.log.by_tag(phase)} vs {c.log.by_tag(phase)}")
         if g.he_seconds != c.he_seconds:
-            fail(f"sparse {part}: he_seconds {g.he_seconds} vs "
+            fail(f"sparse {part}, k={k}: he_seconds {g.he_seconds} vs "
                  f"{c.he_seconds}")
         print(f"sparse GPU fit = CPU fit ({part}, n=2048, d={SP_DA}+{SP_DB},"
-              f" k={SP_K}, 2 iters): share words, dealer counters (matmul "
+              f" k={k}, 2 iters): share words, dealer counters (matmul "
               f"{g.dealer.n_matmul}, mul {g.dealer.n_mul}, bin "
               f"{g.dealer.n_bin}), online/offline traffic per tag and "
               f"he_seconds ({g.he_seconds!r}) identical; GPU loop "
@@ -542,6 +617,293 @@ def phase_sparse_main_path():
     return launches, (total[0], total[1], total[2], by)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the kernel API (kernels/ops.py)
+# ---------------------------------------------------------------------------
+
+def _api_counters() -> dict:
+    """{name in the kernels line: (module, counter)} of every kernel the
+    kernel API can launch."""
+    from repro_torch.kernels import argmin, esd, ksadder, modmatmul, spmm
+    return {"esd": (esd, "LAUNCHES"), "argmin_onehot": (argmin, "LAUNCHES"),
+            "ring_matmul_u32": (modmatmul, "LAUNCHES_U32"),
+            "spmm_ell_f32": (spmm, "LAUNCHES_F32"),
+            "spmm_ell_u32": (spmm, "LAUNCHES_U32"),
+            "spmm_ell": (spmm, "LAUNCHES"),
+            "ring_matmul": (modmatmul, "LAUNCHES"),
+            "ks_carry_share": (ksadder, "LAUNCHES")}
+
+
+def _u32_words(rng, shape, dev) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(0, 1 << 32, shape, dtype=np.uint32)
+                            .view(np.int32)).to(dev)
+
+
+def api_data() -> dict:
+    """Phase 5's inputs, made from seeds and uploaded: blobs and their
+    plaintext_kmeans init rows at each esd width (each init row is put in a
+    blob of its own, so no two centroids start in one blob and the Lloyd
+    steps have clear margins: float32 and float64 then agree label for
+    label); u32 ring operands; and phase 4b's X_A (the fit's fixed-point
+    words, the same seed) packed to blocked ELL as S1 (X_A) and S3 (X_A^T)
+    in each word type, with Y operands of the fit's shapes (k = 3; k = 10
+    for the u64 words)."""
+    from repro_torch.core import ring
+    from repro_torch.core.kmeans import _encode_np
+    from repro_torch.kernels import spmm
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(API_SEED)
+    lloyd = {}
+    for d, k in API_ESD:
+        # plaintext_kmeans(seed=API_SEED) starts from these rows
+        init = np.random.default_rng(API_SEED).choice(API_N, k, replace=False)
+        centers = rng.uniform(-5.0, 5.0, (k, d))
+        lab = rng.integers(0, k, API_N)
+        lab[init] = np.arange(k)
+        x = (centers[lab] + rng.normal(0, 0.3, (API_N, d))).astype(np.float32)
+        lloyd[(d, k)] = (x, torch.from_numpy(x).to(dev), init)
+    mm32 = [(_u32_words(rng, (m, kd), dev), _u32_words(rng, (kd, n), dev))
+            for m, kd, n in API_MM32]
+    xa = _one_hot_like(np.random.default_rng(SP_SEED + 7), SP_N,
+                       SP_DA + SP_DB, SP_K, SP_SPARSITY)[:, :SP_DA]
+    enc = _encode_np(xa, ring.F)
+    host = {torch.float32: xa.astype(np.float32),
+            torch.int32: (enc & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+            .view(np.int32),
+            torch.int64: enc.view(np.int64)}
+    ell = {}
+    for dtype, mat in host.items():
+        k = SP_WIDE_K if dtype == torch.int64 else SP_K
+        for step, m in (("S1", mat), ("S3", np.ascontiguousarray(mat.T))):
+            blocks, idx, counts = spmm.dense_to_ell(m)
+            rows = m.shape[1]
+            d_pad = -(-rows // blocks.shape[3]) * blocks.shape[3]
+            if dtype == torch.float32:
+                y = torch.from_numpy(rng.normal(0, 1, (d_pad, k))
+                                     .astype(np.float32))
+            elif dtype == torch.int32:
+                y = torch.from_numpy(rng.integers(0, 1 << 32, (d_pad, k),
+                                                  dtype=np.uint32)
+                                     .view(np.int32))
+            else:
+                y = torch.from_numpy(rng.integers(0, 1 << 64, (d_pad, k),
+                                                  dtype=np.uint64)
+                                     .view(np.int64))
+            y[rows:] = 0                      # the rows ops.spmm pads
+            ell[(dtype, step)] = (torch.from_numpy(blocks).to(dev),
+                                  torch.from_numpy(idx).to(dev),
+                                  torch.from_numpy(counts).to(dev),
+                                  y.to(dev), rows)
+    return {"lloyd": lloyd, "mm32": mm32, "ell": ell}
+
+
+def phase_api_main_path(data: dict) -> dict:
+    """The kernel API through its public entry points, with every launch
+    counter set to 0 just before and read just after: API_ITERS plaintext
+    Lloyd iterations at each width (esd -> argmin_onehot -> C^T x through
+    spmm_from_dense -> new centroids), the mod-2^32 ring products, and
+    spmm in f32 and u32 (k = 3) and u64 (k = 10) on phase 4b's ELL. The
+    Lloyd results are held to the repository's plaintext_kmeans (float64,
+    same init rows); the rest to the plain versions."""
+    from repro_torch.core.kmeans import plaintext_kmeans
+    from repro_torch.kernels import modmatmul, ops, spmm
+    counters = _api_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    lloyd = {}
+    for (d, k), (_, x, init) in data["lloyd"].items():
+        mu = x[torch.as_tensor(init, device=x.device)].clone()
+        for _ in range(API_ITERS):
+            c = ops.argmin_onehot(ops.esd(x, mu))
+            sums = ops.spmm_from_dense(c.T, x)
+            sizes = c.sum(0)[:, None]
+            mu = torch.where(sizes > 0, sums / sizes.clamp(min=1), mu)
+        lloyd[(d, k)] = (c, mu)
+    rings = [ops.ring_matmul(a, b) for a, b in data["mm32"]]
+    ells = {key: ops.spmm(blocks, idx, counts, y[:rows])
+            for key, (blocks, idx, counts, y, rows) in data["ell"].items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
+
+    for (d, k), (c, mu) in lloyd.items():
+        x_np, _, _ = data["lloyd"][(d, k)]
+        mu_ref, lab_ref = plaintext_kmeans(x_np.astype(np.float64), k,
+                                           API_ITERS, seed=API_SEED)
+        c = c.cpu().numpy()
+        mu = mu.cpu().numpy()
+        if c.shape != (API_N, k) or not (c.sum(1) == 1).all():
+            fail(f"API Lloyd d={d} k={k}: the one-hot is not one 1 per row")
+        if mu.shape != (k, d) or not np.isfinite(mu).all():
+            fail(f"API Lloyd d={d} k={k}: centroids not finite of shape "
+                 f"{(k, d)}")
+        agree = float((c.argmax(1) == lab_ref).mean())
+        mu_err = float(np.abs(mu - mu_ref).max())
+        print(f"kernel API Lloyd (n={API_N}, d={d}, k={k}, {API_ITERS} "
+              f"iters): label agreement with plaintext_kmeans {agree:.5f}, "
+              f"max centroid difference {mu_err:.3e}", flush=True)
+        if agree < 0.999 or mu_err > 1e-3 * max(1.0, np.abs(mu_ref).max()):
+            fail(f"API Lloyd d={d} k={k} departs from plaintext_kmeans")
+    for (a, b), got in zip(data["mm32"], rings):
+        if not torch.equal(got, modmatmul.ring_matmul_plain(a, b)):
+            fail(f"API ring_matmul u32 {tuple(a.shape)}@{tuple(b.shape)} "
+                 "differs from its plain version")
+    for key, got in ells.items():
+        blocks, idx, counts, y, rows = data["ell"][key]
+        want = spmm.spmm_ell_plain(blocks, idx, counts, y)
+        ok = within(got, want, 1e-5, 1e-3) if key[0] == torch.float32 \
+            else torch.equal(got, want)
+        if not ok:
+            fail(f"API spmm {key} differs from its plain version")
+    expected = {
+        "esd": len(API_ESD) * API_ITERS,
+        "argmin_onehot": len(API_ESD) * API_ITERS,
+        "ring_matmul_u32": len(API_MM32),
+        "spmm_ell_f32": API_ITERS * sum(len(spmm.column_groups(d))
+                                        for d, _ in API_ESD) + 2,
+        "spmm_ell_u32": 2,
+        "spmm_ell": 2 * len(spmm.column_groups(SP_WIDE_K)),
+        "ring_matmul": 0, "ks_carry_share": 0}
+    print(f"launches in the kernel API path ({wall:.3f} s wall): {launches} "
+          f"(expected from the code: {expected})", flush=True)
+    for name in ("esd", "argmin_onehot", "ring_matmul_u32", "spmm_ell_f32",
+                 "spmm_ell_u32", "spmm_ell"):
+        if launches[name] <= 0:
+            fail(f"{name} was not launched on the kernel API path")
+    return launches
+
+
+def library_esd(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
+    """The PyTorch calls for the same function: the norms, then one addmm."""
+    u = (mu * mu).sum(1)
+    return torch.addmm(u[None], x, mu.T, alpha=-2)
+
+
+def library_mm32(a: torch.Tensor, b: torch.Tensor):
+    """torch.matmul on int32 words: (ms or None, note)."""
+    try:
+        got = torch.matmul(a, b)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        return None, f"refused: {type(exc).__name__}: {str(exc)[:120]}"
+    from repro_torch.kernels import modmatmul
+    same = torch.equal(got, modmatmul.ring_matmul_plain(a, b))
+    ms = device_ms(torch.matmul, [(a, b)], reps=5, bursts=3)
+    return ms, f"ran, words {'equal' if same else 'DIFFER'}"
+
+
+def _argmin_edge_rows(rng) -> np.ndarray:
+    """Distances with ties, -0.0 against +0.0, +inf rows and NaN rows."""
+    d = rng.normal(0, 10, (4096, 7)).astype(np.float32)
+    d[::7] = np.round(d[::7])
+    d[1::11] = 0.0
+    d[1::11, ::2] = -0.0
+    d[2::13] = np.inf
+    d[3::17, -1] = np.nan
+    return d
+
+
+def phase_api_kernels(data: dict):
+    """Each kernel of the API against its plain version at the phase-5
+    shapes, then kernel, plain and library times (L2-cold inputs) and the
+    bound. Returns ({name: [(ms, plain_ms, bound, lib_ms)]}, {name: worst
+    max abs err}); u64 spmm at k=10 is held and printed, with its worst
+    error under "spmm_ell_k10"."""
+    from repro_torch.kernels import argmin, esd, modmatmul, spmm
+    rows = {n: [] for n in ("esd", "argmin_onehot", "ring_matmul_u32",
+                            "spmm_ell_f32", "spmm_ell_u32")}
+    worst = dict.fromkeys([*rows, "spmm_ell_k10"], 0.0)
+    for (d, k), (_, x, init) in data["lloyd"].items():
+        mu = x[torch.as_tensor(init, device=x.device)].clone()
+        got, want = esd.esd(x, mu), esd.esd_plain(x, mu)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if not within(got, want, 1e-5, 1e-3):
+            fail(f"esd ({API_N},{d})x({k},{d}) departs from its plain "
+                 f"version beyond rtol 1e-5, atol 1e-3 (max abs err {err})")
+        worst["esd"] = max(worst["esd"], err)
+        lib_err = max_abs_err(library_esd(x, mu), want)
+        sets = cold_copies((x, mu))
+        ms = device_ms(esd.esd, sets)
+        plain_ms = device_ms(esd.esd_plain, sets, reps=5, bursts=3)
+        lib_ms = device_ms(library_esd, sets, reps=5, bursts=3)
+        del sets
+        bound = esd_bound_ms(API_N, d, k)
+        rows["esd"].append((ms, plain_ms, bound, lib_ms))
+        print(f"esd ({API_N},{d})x({k},{d}): within rtol 1e-5, atol 1e-3 "
+              f"(max abs err {err:.3e}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, addmm + norms {lib_ms:.4f} ms (max abs "
+              f"err {lib_err:.3e}), bound {_fmt_bound(bound)}", flush=True)
+
+        dist = want
+        got, want = argmin.argmin_onehot(dist), argmin.argmin_onehot_plain(dist)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"argmin_onehot ({API_N},{k}) differs from its plain version")
+        sets = cold_copies((dist,))
+        ms = device_ms(argmin.argmin_onehot, sets)
+        plain_ms = device_ms(argmin.argmin_onehot_plain, sets, reps=5,
+                             bursts=3)
+        ctx_ms = device_ms(lambda t: torch.argmin(t, 1), sets, reps=5,
+                           bursts=3)
+        del sets
+        bound = argmin_bound_ms(API_N, k)
+        rows["argmin_onehot"].append((ms, plain_ms, bound, None))
+        print(f"argmin_onehot ({API_N},{k}): equal; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {_fmt_bound(bound)}; no single "
+              f"PyTorch call makes the one-hot (torch.argmin alone, for "
+              f"context: {ctx_ms:.4f} ms)", flush=True)
+    edge = torch.from_numpy(_argmin_edge_rows(np.random.default_rng(API_SEED))
+                            ).cuda()
+    got = argmin.argmin_onehot(edge)
+    if not torch.equal(got, argmin.argmin_onehot_plain(edge)):
+        fail("argmin_onehot on ties, +-0, +inf and NaN rows differs from its "
+             "plain version")
+    nan_rows = torch.isnan(edge).any(1)
+    if (got[nan_rows] != 0).any() or (got[~nan_rows].sum(1) != 1).any():
+        fail("argmin_onehot: NaN rows not all zeros, or other rows not "
+             "one-hot")
+    print(f"argmin_onehot (4096,7) with ties, -0.0/+0.0, +inf rows and "
+          f"{int(nan_rows.sum())} NaN rows: equal, NaN rows all zeros",
+          flush=True)
+
+    for (a, b), (m, kd, n) in zip(data["mm32"], API_MM32):
+        got, want = modmatmul.ring_matmul(a, b), modmatmul.ring_matmul_plain(a, b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"ring_matmul u32 ({m},{kd})@({kd},{n}) differs from its "
+                 f"plain version (max abs err {max_abs_err(got, want)})")
+        sets = cold_copies((a, b))
+        ms = device_ms(modmatmul.ring_matmul, sets)
+        plain_ms = device_ms(modmatmul.ring_matmul_plain, sets, reps=3,
+                             bursts=3)
+        del sets
+        lib_ms, lib_note = library_mm32(a, b)
+        bound = mm32_bound_ms(m, kd, n)
+        rows["ring_matmul_u32"].append((ms, plain_ms, bound, lib_ms))
+        print(f"ring_matmul u32 ({m},{kd})@({kd},{n}): equal; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{_fmt_bound(bound)}; torch.matmul on int32 {lib_note}"
+              + (f", {lib_ms:.4f} ms" if lib_ms is not None else ""),
+              flush=True)
+
+    names = {torch.float32: "spmm_ell_f32", torch.int32: "spmm_ell_u32",
+             torch.int64: "spmm_ell_k10"}
+    for (dtype, step), (blocks, idx, counts, y, _) in data["ell"].items():
+        name = names[dtype]
+        label = (f"{name.removeprefix('spmm_ell_')} {step} on phase 4b's X_A"
+                 f"{'^T' if step == 'S3' else ''} {tuple(blocks.shape)} @ "
+                 f"{tuple(y.shape)}")
+        ms, plain_ms, bound, lib_ms, err = time_spmm(
+            label, blocks, idx, counts, y, library=dtype != torch.int64)
+        if name in rows:                  # u64 at k=10 is printed only
+            rows[name].append((ms, plain_ms, bound, lib_ms))
+        worst[name] = max(worst[name], err)
+    return rows, worst
+
+
 def phase_main_path():
     """The full-width secure fit through the user's entry point, with the
     launch counters read around it."""
@@ -587,6 +949,7 @@ def phase_main_path():
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA GPU is available")
+    torch.backends.cuda.matmul.allow_tf32 = False    # FP32 plain versions
     sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch  # noqa: F401
@@ -596,9 +959,15 @@ def main() -> None:
     rows, worst = phase_kernels(np.random.default_rng(SEED))
     sp_rows, worst["spmm_ell"] = phase_spmm(np.random.default_rng(SEED + 1))
     phase_gpu_equals_cpu()
-    phase_sparse_gpu_equals_cpu()
+    phase_sparse_gpu_equals_cpu(SP_K)
+    phase_sparse_gpu_equals_cpu(SP_WIDE_K)
     launches = phase_main_path()
     sp_launches, sp_iter = phase_sparse_main_path()
+    data = api_data()
+    api_launches = phase_api_main_path(data)
+    api_rows, api_worst = phase_api_kernels(data)
+    worst["spmm_ell"] = max(worst["spmm_ell"], api_worst["spmm_ell_k10"])
+    del data
 
     # per-kernel line: times and bounds summed over one vertical iteration's
     # launches at the main-path shapes (MM_PER_ITER / KS_PER_ITER)
@@ -643,6 +1012,32 @@ def main() -> None:
          "ms": sp_iter[0], "plain_ms": sp_iter[1], "bound_ms": sp_iter[2],
          "bound_by": sp_iter[3], "library_ms": lib_ms},
     ]
+
+    # the kernel API's kernels (phase 5): launches from its counted drive;
+    # times and bounds summed over one call at each of its phase-5 shapes;
+    # library: the sum of the PyTorch calls where every shape has one
+    def summed(name):
+        rs = api_rows[name]
+        by_bytes = sum(r[2][0] for r in rs)
+        by_ops = sum(r[2][1] for r in rs)
+        libs = [r[3] for r in rs]
+        return {"ms": sum(r[0] for r in rs), "plain_ms": sum(r[1] for r in rs),
+                "bound_ms": sum(max(r[2]) for r in rs),
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                "library_ms": None if None in libs else sum(libs)}
+
+    for name, src, replaces in (
+            ("ring_matmul_u32", "modmatmul.cu", "modmatmul.py:29"),
+            ("spmm_ell_f32", "spmm.cu", "spmm.py:29"),
+            ("spmm_ell_u32", "spmm.cu", "spmm.py:29"),
+            ("esd", "esd.cu", "esd.py:43"),
+            ("argmin_onehot", "argmin.cu", "argmin.py:28")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": api_launches[name], "max_abs_err": api_worst[name],
+            **summed(name)})
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,26 +1,31 @@
-// Blocked-ELL sparse x dense mod 2^64 on 64-bit words, for Hopper (sm_90a):
+// Blocked-ELL sparse x dense for Hopper (sm_90a), in three word types:
+// float32, 32-bit words mod 2^32 and 64-bit words mod 2^64:
 // out[r*bm + i, :] = sum over slots j < counts[r] of
 //                    blocks[r, j, i, :] @ Y[idx[r, j]*bk : (idx[r, j]+1)*bk, :]
 //
-// Replaces the Pallas TPU kernel repro/kernels/spmm.py:spmm_ell (u64), the
-// step-2 product of Protocol 2. The TPU version walks a row block's tile
+// Replaces the Pallas TPU kernel repro/kernels/spmm.py:spmm_ell with all
+// three tile products of its _tile_matmul: u64 (the step-2 product of
+// Protocol 2), u32 and f32 (reached through the kernel API,
+// repro/kernels/ops.py:spmm). The TPU version walks a row block's tile
 // list in a fori_loop with all of Y resident in VMEM (up to 12 MB); an SM
-// has ~228 KB of shared memory, so here Y is staged one bk x k tile at a
+// has ~228 KB of shared memory, so here Y is staged one bk x K tile at a
 // time, the tile a slot points at. Padded slots (j >= counts[r]) are never
 // read: the reference multiplies them by a zero mask, so the words agree.
+// The TPU's u32 tiles split each word into 16-bit limbs because the MXU has
+// no 32-bit integer product; here one 32-bit IMAD wraps mod 2^32.
 //
-// Arithmetic is unsigned long long, so wraparound is defined.
+// Integer arithmetic is unsigned, so wraparound is defined. The f32 sums
+// are FP32 FMAs (never TF32).
 //
-// What bounds it: the tiles dominate the bytes (8 bytes a word) and each
-// word feeds k multiply-adds, about 0.375 64-bit MACs per byte at k = 3.
-// The card does ~1.7 MACs per byte of HBM rate (5.58 T MAC/s over
-// 3.35 TB/s), so the kernel is bound by device-memory bytes. The design
-// aims at streaming the tiles at full width on every SM:
-//   * one warp per tile row: a warp reads 32 consecutive words (256 bytes)
-//     per load, and a lane keeps k running sums for its row; a tile's
-//     columns are spread over the lanes, not its bm x k outputs (k is 1-8,
-//     which would give 24 threads). A warp shuffle sums the lanes at the
-//     end.
+// What bounds it: the tiles dominate the bytes and each tile word feeds K
+// multiply-adds, about 0.375 64-bit MACs per byte at K = 3 (0.75 for 32-bit
+// words). The card does ~1.7 64-bit MACs (~5 32-bit ones, ~10 FP32 FMAs) per
+// byte of HBM rate, so every word type is bound by device-memory bytes. The
+// design aims at streaming the tiles at full width on every SM:
+//   * one warp per tile row: a warp reads 32 consecutive words per load,
+//     and a lane keeps K running sums for its row; a tile's columns are
+//     spread over the lanes, not its bm x K outputs (K is 1-8, which would
+//     give 24 threads). A warp shuffle sums the lanes at the end.
 //   * a lane issues the loads of its first 4 words of the slot's tile row
 //     before the block stages the slot's Y tile, so both are in flight
 //     together.
@@ -29,30 +34,39 @@
 //     X_A^T @ C (nrb = 16 row blocks of 782 tiles). One block per row
 //     block would run the second on 16 of 132 SMs, so the wrapper splits
 //     the tile list over gridDim.y and the partial sums meet with
-//     atomicAdd on unsigned 64-bit words into a zero-filled output: exact
-//     and order-free mod 2^64. With one split the block stores its sums.
+//     atomicAdd into a zero-filled output. For the ring words that is exact
+//     and order-free mod 2^l; for f32 the order of the additions changes
+//     from run to run, so f32 results agree to rounding, not bit for bit.
+//     With one split the block stores its sums.
+//   * Y wider than 8 columns runs as column groups of at most 8: the
+//     wrapper copies each group's columns into a contiguous Y, launches
+//     once per group and concatenates the outputs. Row strides passed to
+//     the kernel would take the 64-bit instances from 64 to 80 registers,
+//     one block fewer per SM (~10 % slower on an H100 at the fit's k = 3).
 // Operands must be contiguous row-major; the wrapper makes contiguous
-// copies of transposed Y views. The indices of used slots must point into
-// Y (idx[r, j] < d_pad / bk for j < counts[r]), as the packers make them;
-// they are not checked here.
+// copies of transposed Y views. The indices of used slots must
+// point into Y (idx[r, j] < d_pad / bk for j < counts[r]), as the packers
+// make them; they are not checked here.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 typedef unsigned long long u64;
+typedef unsigned int u32;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;   // tile rows in flight per block
 constexpr int kPrefetch = 4;            // words per lane loaded ahead
 
-template <int K>
+template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-spmm_ell_kernel(const u64* __restrict__ blocks, const int* __restrict__ idx,
-                const int* __restrict__ counts, const u64* __restrict__ y,
-                u64* __restrict__ out, int maxb, int bm, int bk,
+spmm_ell_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
+                const int* __restrict__ counts, const T* __restrict__ y,
+                T* __restrict__ out, int maxb, int bm, int bk,
                 int per_split) {
-  extern __shared__ u64 ys[];             // one Y tile, laid out [K][bk]
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ys = reinterpret_cast<T*>(smem);     // one Y tile, laid out [K][bk]
   const int r = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -61,25 +75,25 @@ spmm_ell_kernel(const u64* __restrict__ blocks, const int* __restrict__ idx,
   const bool split = gridDim.y > 1;
   if (split && j0 >= j1) return;          // nothing to add (uniform)
   const long long tile = (long long)bm * bk;
-  const u64* rb = blocks + (long long)r * maxb * tile;
+  const T* rb = blocks + (long long)r * maxb * tile;
   const int* ri = idx + (long long)r * maxb;
 
   for (int row0 = 0; row0 < bm; row0 += kWarps) {
     const int row = row0 + warp;
     const bool active = row < bm;
-    u64 acc[K];
+    T acc[K];
 #pragma unroll
-    for (int kk = 0; kk < K; ++kk) acc[kk] = 0ULL;
+    for (int kk = 0; kk < K; ++kk) acc[kk] = T(0);
 
     for (int j = j0; j < j1; ++j) {
-      const u64* xrow = rb + (long long)j * tile + (long long)row * bk;
-      u64 xv[kPrefetch];
+      const T* xrow = rb + (long long)j * tile + (long long)row * bk;
+      T xv[kPrefetch];
 #pragma unroll
       for (int i = 0; i < kPrefetch; ++i) {
         const int c = lane + 32 * i;
-        xv[i] = (active && c < bk) ? xrow[c] : 0ULL;
+        xv[i] = (active && c < bk) ? xrow[c] : T(0);
       }
-      const u64* ysrc = y + (long long)ri[j] * bk * K;
+      const T* ysrc = y + (long long)ri[j] * bk * K;
       __syncthreads();                    // readers of the last tile done
       for (int e = tid; e < bk * K; e += kThreads)
         ys[(e % K) * bk + e / K] = ysrc[e];
@@ -94,7 +108,7 @@ spmm_ell_kernel(const u64* __restrict__ blocks, const int* __restrict__ idx,
         }
       }
       for (int c = lane + 32 * kPrefetch; c < bk; c += 32) {
-        const u64 x = xrow[c];
+        const T x = xrow[c];
 #pragma unroll
         for (int kk = 0; kk < K; ++kk) acc[kk] += x * ys[kk * bk + c];
       }
@@ -108,7 +122,7 @@ spmm_ell_kernel(const u64* __restrict__ blocks, const int* __restrict__ idx,
         acc[kk] += __shfl_down_sync(0xffffffffu, acc[kk], off);
     }
     if (lane == 0) {
-      u64* o = out + ((long long)r * bm + row) * K;
+      T* o = out + ((long long)r * bm + row) * K;
 #pragma unroll
       for (int kk = 0; kk < K; ++kk) {
         if (split) {
@@ -121,43 +135,64 @@ spmm_ell_kernel(const u64* __restrict__ blocks, const int* __restrict__ idx,
   }
 }
 
-template <int K>
-cudaError_t launch(const u64* blocks, const int* idx, const int* counts,
-                   const u64* y, u64* out, long long nrb, long long maxb,
-                   int bm, int bk, long long per_split, int splits,
-                   cudaStream_t stream) {
-  dim3 grid((unsigned)nrb, (unsigned)splits);
-  const size_t smem = (size_t)bk * K * sizeof(u64);
-  spmm_ell_kernel<K><<<grid, kThreads, smem, stream>>>(
-      blocks, idx, counts, y, out, (int)maxb, bm, bk, (int)per_split);
+struct Args {
+  const void* blocks;
+  const int* idx;
+  const int* counts;
+  const void* y;
+  void* out;
+  long long nrb, maxb;
+  int bm, bk;
+  long long per_split;
+  int splits;
+  cudaStream_t stream;
+};
+
+template <typename T, int K>
+cudaError_t launch(const Args& a) {
+  dim3 grid((unsigned)a.nrb, (unsigned)a.splits);
+  const size_t smem = (size_t)a.bk * K * sizeof(T);
+  spmm_ell_kernel<T, K><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.blocks), a.idx, a.counts,
+      static_cast<const T*>(a.y), static_cast<T*>(a.out), (int)a.maxb, a.bm,
+      a.bk, (int)a.per_split);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_k(int k, const Args& a) {
+  switch (k) {
+    case 1: return launch<T, 1>(a);
+    case 2: return launch<T, 2>(a);
+    case 3: return launch<T, 3>(a);
+    case 4: return launch<T, 4>(a);
+    case 5: return launch<T, 5>(a);
+    case 6: return launch<T, 6>(a);
+    case 7: return launch<T, 7>(a);
+    case 8: return launch<T, 8>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// k in 1..8 columns of Y. splits blocks along each row block's tile list,
-// each over per_split slots; with splits > 1 `out` must be zero-filled.
+// k in 1..8 columns of Y (the wrapper cuts wider Y into column groups).
+// splits blocks along each row block's tile list, each over per_split
+// slots; with splits > 1 `out` must be zero-filled.
+// word: 0 -> float32, 1 -> 32-bit words mod 2^32, 2 -> 64-bit words mod 2^64.
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int spmm_ell_launch(const void* blocks, const void* idx,
                                const void* counts, const void* y, void* out,
                                long long nrb, long long maxb, int bm, int bk,
                                int k, long long per_split, int splits,
-                               void* stream) {
-  const u64* b = static_cast<const u64*>(blocks);
-  const int* ix = static_cast<const int*>(idx);
-  const int* cn = static_cast<const int*>(counts);
-  const u64* py = static_cast<const u64*>(y);
-  u64* o = static_cast<u64*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 1: return (int)launch<1>(b, ix, cn, py, o, nrb, maxb, bm, bk, per_split, splits, s);
-    case 2: return (int)launch<2>(b, ix, cn, py, o, nrb, maxb, bm, bk, per_split, splits, s);
-    case 3: return (int)launch<3>(b, ix, cn, py, o, nrb, maxb, bm, bk, per_split, splits, s);
-    case 4: return (int)launch<4>(b, ix, cn, py, o, nrb, maxb, bm, bk, per_split, splits, s);
-    case 5: return (int)launch<5>(b, ix, cn, py, o, nrb, maxb, bm, bk, per_split, splits, s);
-    case 6: return (int)launch<6>(b, ix, cn, py, o, nrb, maxb, bm, bk, per_split, splits, s);
-    case 7: return (int)launch<7>(b, ix, cn, py, o, nrb, maxb, bm, bk, per_split, splits, s);
-    case 8: return (int)launch<8>(b, ix, cn, py, o, nrb, maxb, bm, bk, per_split, splits, s);
+                               int word, void* stream) {
+  const Args a{blocks, static_cast<const int*>(idx),
+               static_cast<const int*>(counts), y, out, nrb, maxb, bm, bk,
+               per_split, splits, static_cast<cudaStream_t>(stream)};
+  switch (word) {
+    case 0: return (int)launch_k<float>(k, a);
+    case 1: return (int)launch_k<u32>(k, a);
+    case 2: return (int)launch_k<u64>(k, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -27,7 +27,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.core.kmeans" in mods
     assert "repro_torch.kernels.modmatmul" in mods
     for m in ("repro_torch.core.sparse", "repro_torch.core.he",
-              "repro_torch.kernels.spmm"):
+              "repro_torch.kernels.spmm", "repro_torch.kernels.ops",
+              "repro_torch.kernels.ref", "repro_torch.kernels.esd",
+              "repro_torch.kernels.argmin"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -82,10 +82,28 @@ def test_ring_matmul_launches_nothing_on_cpu():
 
 
 def test_ring_matmul_rejects_bad_operands():
+    """Mixed and unsupported word types are refused; int64 (mod 2^64) and
+    int32 (mod 2^32) words are taken, each keeping its type."""
     with pytest.raises(ValueError):
         modmatmul.ring_matmul(_t(_words((4, 3))), _t(_words((4, 2))))
     with pytest.raises(TypeError):
         modmatmul.ring_matmul(torch.zeros(4, 3), torch.zeros(3, 2))
+    with pytest.raises(TypeError):
+        modmatmul.ring_matmul(_t(_words((4, 3))).to(torch.int32),
+                              _t(_words((3, 2))))
+    with pytest.raises(TypeError):
+        modmatmul.ring_matmul(torch.zeros(4, 3, dtype=torch.int16),
+                              torch.zeros(3, 2, dtype=torch.int16))
+    a32 = torch.from_numpy(RNG.integers(0, 1 << 32, (4, 3), dtype=np.uint32)
+                           .view(np.int32))
+    b32 = torch.from_numpy(RNG.integers(0, 1 << 32, (3, 2), dtype=np.uint32)
+                           .view(np.int32))
+    got = modmatmul.ring_matmul(a32, b32)
+    assert got.dtype == torch.int32
+    want = np.einsum("ij,jk->ik", a32.numpy().view(np.uint32),
+                     b32.numpy().view(np.uint32), dtype=np.uint32,
+                     casting="unsafe")
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
 @pytest.mark.parametrize("shape", [(100_000, 18, 5), (100_000, 24, 5),

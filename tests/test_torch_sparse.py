@@ -235,12 +235,22 @@ def test_spmm_ell_plain_broadcast_form_equals_matmul_form():
 
 
 def test_spmm_ell_rejects_other_dtypes_and_shapes():
+    """Mixed and unsupported word types are refused; float32, int32 and
+    int64 blocks with y of the same type are taken."""
     _, blocks, idx, counts, y = _ell_case(0.5, 3)
     i, c = torch.from_numpy(idx), torch.from_numpy(counts)
-    with pytest.raises(TypeError, match="Queue 2, row 3b"):
-        spmm.spmm_ell(_t(blocks).float(), i, c, _t(y).float())
-    with pytest.raises(TypeError, match="Queue 2, row 3b"):
+    with pytest.raises(TypeError, match="one word type"):
+        spmm.spmm_ell(_t(blocks).float(), i, c, _t(y))
+    with pytest.raises(TypeError, match="one word type"):
         spmm.spmm_ell(_t(blocks).to(torch.int32), i, c, _t(y))
+    with pytest.raises(TypeError, match="one word type"):
+        spmm.spmm_ell(_t(blocks).double(), i, c, _t(y).double())
+    small_b, small_y = _t(blocks) & 0xF, _t(y) & 0xF      # exact in f32
+    for dtype in (torch.float32, torch.int32):
+        got = spmm.spmm_ell(small_b.to(dtype), i, c, small_y.to(dtype))
+        assert got.dtype == dtype
+        assert torch.equal(got.long(),
+                           spmm.spmm_ell_plain(small_b, i, c, small_y))
     with pytest.raises(ValueError, match="multiple"):
         spmm.spmm_ell(_t(blocks), i, c, _t(y)[:-1])
     with pytest.raises(ValueError):
