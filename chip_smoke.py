@@ -10,14 +10,19 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      versions and the build time;
   2. holds each kernel against its plain PyTorch version on the card, with
      exact integer equality, at the main path's full-size shapes and at odd
-     and wrap-heavy ones, and times both;
+     and wrap-heavy ones, and times ks_carry_share and spmm_ell there;
+     ring_matmul is timed at the operand layouts the dense and sparse fits
+     really pass (transposed and sliced views, read in place, and the
+     contiguous ones), the wrapper's work included;
   3. runs the secure fit on the GPU (backend="cuda") and on the CPU
      (backend="torch") at a small size, both partitions, and requires the
      same share words, dealer counters and per-tag traffic;
   4. runs the main path — SecureKMeans.fit, vertical, d_a=18, d_b=24, k=5,
      10 iterations at n=100,000 (the paper's fraud-detection deployment
      shape) — with the launch counters set to 0 just before and read just
-     after, and requires agreement >= 0.98 with plaintext K-means;
+     after, and requires agreement >= 0.98 with plaintext K-means and no
+     ring_matmul operand copy (`modmatmul.COPIES`); it prints the device
+     launches ring_matmul made (products and zero kernels);
   4b. runs the sparse main path the same way — SecureKMeans.fit with
      sparse=True (Protocol 2), vertical, d_a=d_b=128, k=3, 90 % zeros,
      5 iterations at n=100,000 — requires agreement >= 0.98 and all three
@@ -45,6 +50,14 @@ allow_tf32 = False (set here), so it is full FP32 like the kernels.
 
 Any failure exits non-zero before the final line. Without a GPU, or outside
 a checkout of the repository, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --kernel-times [--src DIR]
+
+times only ring_matmul at the fits' own operand layouts and esd beside
+addmm + norms (each held to its plain version first), for the repro_torch
+package under DIR (default: this checkout's src/), and prints one JSON line.
+Run on two trees in one call, in turns (A, B, B, A), it compares their
+kernels on one card.
 """
 from __future__ import annotations
 
@@ -77,6 +90,10 @@ INT64_MAC_PER_S = INT32_OPS_PER_S / 3
 # FP32 outside the tensor cores (NVIDIA's H100 SXM data sheet); an FMA is
 # 2 operations of it
 FP32_OPS_PER_S = 67e12
+# TF32 on the tensor cores (the same data sheet, dense). esd's wide kernel
+# (k > esd.SMALL_K) keeps FP32 accuracy with 3xTF32: three TF32 products
+# per multiply-add, so it can reach a third of this rate
+TF32_OPS_PER_S = 495e12
 # multiply-adds per second of each word type of the kernel API
 MAC_PER_S = {torch.float32: FP32_OPS_PER_S / 2,
              torch.int32: INT32_OPS_PER_S,
@@ -89,6 +106,19 @@ MAC_PER_S = {torch.float32: FP32_OPS_PER_S / 2,
 # (k,), two ks_carry_share launches (one per party) per compare.
 MM_PER_ITER = [((N, DA, K), 5), ((N, DB, K), 5), ((K, N, DA), 5),
                ((K, N, DB), 5)]                      # ((m, kdim, n), count)
+# The same 20 products with the operand layouts the fit hands ring_matmul
+# (core/kmeans.py _x_mut / _share_times_pub, core/protocol.py smatmul):
+# ((m, kdim, n), A layout, B layout, count). "row" is row-major and
+# contiguous; "t" the transposed view of a row-major matrix (c.s0.T as A,
+# the Beaver f and v + f built from mu.s0.T as B); ("mu", lo) rows lo: of
+# the transposed (k, d_a + d_b) centroid share (mut.s0[:da], mut.s1[da:]).
+MM_FIT_PER_ITER = [
+    ((N, DA, K), "row", "t", 2), ((N, DA, K), "row", ("mu", 0), 1),
+    ((N, DA, K), "row", "row", 2),
+    ((N, DB, K), "row", "t", 2), ((N, DB, K), "row", ("mu", DA), 1),
+    ((N, DB, K), "row", "row", 2),
+    ((K, N, DA), "t", "row", 3), ((K, N, DA), "row", "row", 2),
+    ((K, N, DB), "t", "row", 3), ((K, N, DB), "row", "row", 2)]
 KS_PER_ITER = [((N, 2), 2), ((N, 1), 4), ((K,), 2)]  # (shape, count)
 
 # The sparse main path (phase 4b): examples/sparse_vertical.py's widths,
@@ -104,6 +134,11 @@ SP_SPARSITY = 0.9
 SP_ELL_S1 = (-(-SP_N // 8), 1, 8, 128)
 SP_ELL_S3 = (SP_DA // 8, -(-SP_N // 128), 8, 128)
 SP_PER_ITER = {"spmm_ell": 4, "ring_matmul": 4, "ks_carry_share": 6}
+# its 4 local ring products, with the fit's layouts (as MM_FIT_PER_ITER)
+SP_MM_FIT_PER_ITER = [
+    ((SP_N, SP_DA, SP_K), "row", ("mu", 0), 1),
+    ((SP_N, SP_DB, SP_K), "row", ("mu", SP_DA), 1),
+    ((SP_K, SP_N, SP_DA), "t", "row", 1), ((SP_K, SP_N, SP_DB), "t", "row", 1)]
 SP_WIDE_K = 10      # phase 3: a sparse fit with y wider than 8 columns
 
 # The kernel API (phase 5) at n = 100,000: esd and argmin_onehot at the
@@ -188,10 +223,14 @@ def ell_bound_ms(blocks: torch.Tensor, counts: torch.Tensor,
 
 
 def esd_bound_ms(n: int, d: int, k: int) -> tuple[float, float]:
-    """(bytes ms, operations ms): x, mu read once, D' written once; one FP32
-    FMA per (i, j, d) and per (j, d) of the norms."""
+    """(bytes ms, operations ms): x, mu read once, D' written once; one
+    multiply-add per (i, j, d) — an FP32 FMA in the narrow kernel, three
+    TF32 tensor-core products in the wide one (k > esd.SMALL_K) — and one
+    FP32 FMA per (j, d) of the norms."""
+    from repro_torch.kernels import esd
+    rate = TF32_OPS_PER_S / 3 if k > esd.SMALL_K else FP32_OPS_PER_S
     return (1e3 * 4 * (n * d + k * d + n * k) / HBM_BYTES_PER_S,
-            1e3 * 2 * (n + 1) * d * k / FP32_OPS_PER_S)
+            1e3 * (2 * n * d * k / rate + 2 * d * k / FP32_OPS_PER_S))
 
 
 def argmin_bound_ms(n: int, k: int) -> tuple[float, float]:
@@ -210,6 +249,16 @@ def mm32_bound_ms(m: int, kdim: int, n: int) -> tuple[float, float]:
 def _fmt_bound(bound: tuple[float, float]) -> str:
     by = "bytes" if bound[0] >= bound[1] else "operations"
     return f"{max(bound):.4f} ms ({by})"
+
+
+def mm_device_launches(products: int, zeros: int, copies: int,
+                       iters: int) -> str:
+    """ring_matmul's device launches over a fit, counted by its wrapper:
+    the products, the zero kernels before split ones, the operand copies."""
+    total = products + zeros + copies
+    return (f"ring_matmul device launches {total} ({products} products, "
+            f"{zeros} zero kernels, {copies} copies), "
+            f"{total / max(1, iters):g} an iteration")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -252,7 +301,9 @@ def setup():
 
 
 def phase_kernels(rng):
-    """Kernel = plain version on the card, exact equality; times."""
+    """Kernel = plain version on the card, exact equality; ks_carry_share
+    times (ring_matmul is timed at the fits' own layouts,
+    `time_fit_layouts`)."""
     from repro_torch.kernels import ksadder, modmatmul
     dev = torch.device("cuda")
 
@@ -265,7 +316,7 @@ def phase_kernels(rng):
         x = top - rng.integers(0, 1 << 62, shape, dtype=np.uint64)
         return torch.from_numpy(x.view(np.int64)).to(dev)
 
-    rows = {"ring_matmul": {}, "ks_carry_share": {}}
+    rows = {"ks_carry_share": {}}
     worst = {"ring_matmul": 0.0, "ks_carry_share": 0.0}
     mm_cases = [(s, words) for s, _ in MM_PER_ITER] + \
         [((SP_N, SP_DA, SP_K), words), ((SP_K, SP_N, SP_DA), words)] + \
@@ -281,16 +332,8 @@ def phase_kernels(rng):
             fail(f"ring_matmul {m}x{kdim}x{n} ({draw.__name__}) differs from "
                  f"its plain version (max abs err {err})")
         worst["ring_matmul"] = max(worst["ring_matmul"], err)
-        sets = cold_copies((a, b))
-        ms = device_ms(modmatmul.ring_matmul, sets)
-        plain_ms = device_ms(modmatmul.ring_matmul_plain, sets, reps=3,
-                             bursts=3)
-        del sets
-        bound = mm_bound_ms(m, kdim, n)
-        rows["ring_matmul"][(m, kdim, n)] = (ms, plain_ms, bound)
         print(f"ring_matmul ({m},{kdim})@({kdim},{n}) [{draw.__name__}]: "
-              f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {_fmt_bound(bound)}", flush=True)
+              f"equal", flush=True)
 
     for shape in [(N, 2), (N, 1), (K,), (1, 1), ()]:
         flat = [words(shape) for _ in range(6)]
@@ -318,6 +361,64 @@ def phase_kernels(rng):
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{_fmt_bound(bound)}", flush=True)
     return rows, worst
+
+
+def fit_operand(gen, rows: int, cols: int, kind, mu_width: int):
+    """A (rows, cols) operand of random int64 words from `gen`, in the
+    layout `kind` of MM_FIT_PER_ITER, as a view of a freshly drawn base."""
+    def draw(shape):
+        return torch.randint(-2 ** 63, 2 ** 63 - 1, shape, generator=gen,
+                             dtype=torch.int64, device="cuda")
+    if kind == "row":
+        return draw((rows, cols))
+    if kind == "t":
+        return draw((cols, rows)).T
+    _, lo = kind
+    return draw((cols, mu_width)).T[lo:lo + rows]
+
+
+def time_fit_layouts(table, mu_width: int, seed: int, label: str) -> dict:
+    """ring_matmul at the fit's own operand layouts: each (shape, layouts)
+    of `table` held word for word to the plain version, then timed with
+    the wrapper's work included, on L2-cold inputs (fresh views of fresh
+    bases, together at least twice the L2). Returns {(shape, a kind, b
+    kind): (ms, plain_ms, bound)} and prints the per-iteration sums."""
+    from repro_torch.kernels import modmatmul
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rows = {}
+    tot = [0.0, 0.0, 0.0]
+    for (m, kdim, n), a_kind, b_kind, count in table:
+        def make():
+            return (fit_operand(gen, m, kdim, a_kind, mu_width),
+                    fit_operand(gen, kdim, n, b_kind, mu_width))
+        a, b = make()
+        got = modmatmul.ring_matmul(a, b)
+        want = modmatmul.ring_matmul_plain(a.contiguous(), b.contiguous())
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"ring_matmul ({m},{kdim})@({kdim},{n}) A {a_kind} B "
+                 f"{b_kind} differs from its plain version")
+        nbytes = 8 * (m * kdim + kdim * n)
+        sets = [(a, b)] + [make() for _ in range(
+            min(15, -(-2 * L2_BYTES // nbytes) - 1))]
+        ms = device_ms(modmatmul.ring_matmul, sets)
+        plain_ms = device_ms(modmatmul.ring_matmul_plain, sets, reps=3,
+                             bursts=3)
+        del sets
+        bound = mm_bound_ms(m, kdim, n)
+        rows[((m, kdim, n), a_kind, b_kind)] = (ms, plain_ms, bound)
+        for i, v in enumerate((ms, plain_ms, max(bound))):
+            tot[i] += count * v
+        print(f"ring_matmul ({m},{kdim})@({kdim},{n}) at the fit's layout "
+              f"A {a_kind} {tuple(a.stride())}, B {b_kind} "
+              f"{tuple(b.stride())}, x{count} per iteration: equal; kernel "
+              f"{ms:.4f} ms (wrapper included), plain {plain_ms:.4f} ms, "
+              f"bound {_fmt_bound(bound)}", flush=True)
+    print(f"ring_matmul per {label} iteration at the fit's layouts "
+          f"({sum(c for *_, c in table)} products): kernel {tot[0]:.4f} ms, "
+          f"plain {tot[1]:.4f} ms, bound {tot[2]:.4f} ms", flush=True)
+    return rows
 
 
 def library_spmm(blocks, idx, counts, y):
@@ -559,12 +660,18 @@ def phase_sparse_main_path():
     cfg = KMeansConfig(k=SP_K, iters=SP_ITERS, partition="vertical",
                        seed=SP_SEED, sparse=True)
     modmatmul.LAUNCHES = 0
+    modmatmul.COPIES = 0
+    modmatmul.ZERO_LAUNCHES = 0
     ksadder.LAUNCHES = 0
     spmm.LAUNCHES = 0
     sparse.ELL_PACK_SECONDS = 0.0
     res = SecureKMeans(cfg).fit(x[:, :SP_DA], x[:, SP_DA:])
     launches = {"spmm_ell": spmm.LAUNCHES, "ring_matmul": modmatmul.LAUNCHES,
                 "ks_carry_share": ksadder.LAUNCHES}
+    copies = modmatmul.COPIES
+    device_line = mm_device_launches(launches["ring_matmul"],
+                                     modmatmul.ZERO_LAUNCHES, copies,
+                                     res.iters_run)
     pack_s = sparse.ELL_PACK_SECONDS
     cent = res.centroids_plain()
     labels = res.labels_plain()
@@ -585,7 +692,8 @@ def phase_sparse_main_path():
           f"ELL packing and upload {pack_s:.3f} s (host, inside the loop)",
           flush=True)
     print(f"launches in the sparse main path: {launches} (expected from the "
-          f"code: {SP_ITERS} x {SP_PER_ITER})", flush=True)
+          f"code: {SP_ITERS} x {SP_PER_ITER}); ring_matmul operand copies "
+          f"{copies}; {device_line}", flush=True)
     if agree < 0.98:
         fail(f"sparse agreement {agree:.5f} < 0.98")
     for name, count in launches.items():
@@ -639,6 +747,22 @@ def _u32_words(rng, shape, dev) -> torch.Tensor:
                             .view(np.int32)).to(dev)
 
 
+def lloyd_data(rng) -> dict:
+    """{(d, k): (x on the host, x on the card, init rows)} for each esd
+    width of phase 5: blobs from `rng`, each plaintext_kmeans init row in a
+    blob of its own."""
+    lloyd = {}
+    for d, k in API_ESD:
+        # plaintext_kmeans(seed=API_SEED) starts from these rows
+        init = np.random.default_rng(API_SEED).choice(API_N, k, replace=False)
+        centers = rng.uniform(-5.0, 5.0, (k, d))
+        lab = rng.integers(0, k, API_N)
+        lab[init] = np.arange(k)
+        x = (centers[lab] + rng.normal(0, 0.3, (API_N, d))).astype(np.float32)
+        lloyd[(d, k)] = (x, torch.from_numpy(x).cuda(), init)
+    return lloyd
+
+
 def api_data() -> dict:
     """Phase 5's inputs, made from seeds and uploaded: blobs and their
     plaintext_kmeans init rows at each esd width (each init row is put in a
@@ -653,15 +777,7 @@ def api_data() -> dict:
     from repro_torch.kernels import spmm
     dev = torch.device("cuda")
     rng = np.random.default_rng(API_SEED)
-    lloyd = {}
-    for d, k in API_ESD:
-        # plaintext_kmeans(seed=API_SEED) starts from these rows
-        init = np.random.default_rng(API_SEED).choice(API_N, k, replace=False)
-        centers = rng.uniform(-5.0, 5.0, (k, d))
-        lab = rng.integers(0, k, API_N)
-        lab[init] = np.arange(k)
-        x = (centers[lab] + rng.normal(0, 0.3, (API_N, d))).astype(np.float32)
-        lloyd[(d, k)] = (x, torch.from_numpy(x).to(dev), init)
+    lloyd = lloyd_data(rng)
     mm32 = [(_u32_words(rng, (m, kd), dev), _u32_words(rng, (kd, n), dev))
             for m, kd, n in API_MM32]
     xa = _one_hot_like(np.random.default_rng(SP_SEED + 7), SP_N,
@@ -794,6 +910,35 @@ def library_mm32(a: torch.Tensor, b: torch.Tensor):
     return ms, f"ran, words {'equal' if same else 'DIFFER'}"
 
 
+def check_time_esd(x: torch.Tensor, mu: torch.Tensor, plain: bool = True):
+    """esd(x, mu) held to its plain version (rtol 1e-5, atol 1e-3), then
+    the kernel's, the plain version's (when `plain`) and addmm + norms'
+    times on L2-cold inputs, and the bound; printed. Returns (ms, plain_ms
+    or None, bound, lib_ms, max abs err)."""
+    from repro_torch.kernels import esd
+    (n, d), k = x.shape, mu.shape[0]
+    got, want = esd.esd(x, mu), esd.esd_plain(x, mu)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if not within(got, want, 1e-5, 1e-3):
+        fail(f"esd ({n},{d})x({k},{d}) departs from its plain version "
+             f"beyond rtol 1e-5, atol 1e-3 (max abs err {err})")
+    lib_err = max_abs_err(library_esd(x, mu), want)
+    sets = cold_copies((x, mu))
+    ms = device_ms(esd.esd, sets)
+    plain_ms = device_ms(esd.esd_plain, sets, reps=5, bursts=3) \
+        if plain else None
+    lib_ms = device_ms(library_esd, sets, reps=5, bursts=3)
+    del sets
+    bound = esd_bound_ms(n, d, k)
+    print(f"esd ({n},{d})x({k},{d}): within rtol 1e-5, atol 1e-3 (max abs "
+          f"err {err:.3e}); kernel {ms:.4f} ms, "
+          + (f"plain {plain_ms:.4f} ms, " if plain else "")
+          + f"addmm + norms {lib_ms:.4f} ms (max abs err {lib_err:.3e}), "
+          f"bound {_fmt_bound(bound)}", flush=True)
+    return ms, plain_ms, bound, lib_ms, err
+
+
 def _argmin_edge_rows(rng) -> np.ndarray:
     """Distances with ties, -0.0 against +0.0, +inf rows and NaN rows."""
     d = rng.normal(0, 10, (4096, 7)).astype(np.float32)
@@ -817,27 +962,11 @@ def phase_api_kernels(data: dict):
     worst = dict.fromkeys([*rows, "spmm_ell_k10"], 0.0)
     for (d, k), (_, x, init) in data["lloyd"].items():
         mu = x[torch.as_tensor(init, device=x.device)].clone()
-        got, want = esd.esd(x, mu), esd.esd_plain(x, mu)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        if not within(got, want, 1e-5, 1e-3):
-            fail(f"esd ({API_N},{d})x({k},{d}) departs from its plain "
-                 f"version beyond rtol 1e-5, atol 1e-3 (max abs err {err})")
+        ms, plain_ms, bound, lib_ms, err = check_time_esd(x, mu)
         worst["esd"] = max(worst["esd"], err)
-        lib_err = max_abs_err(library_esd(x, mu), want)
-        sets = cold_copies((x, mu))
-        ms = device_ms(esd.esd, sets)
-        plain_ms = device_ms(esd.esd_plain, sets, reps=5, bursts=3)
-        lib_ms = device_ms(library_esd, sets, reps=5, bursts=3)
-        del sets
-        bound = esd_bound_ms(API_N, d, k)
         rows["esd"].append((ms, plain_ms, bound, lib_ms))
-        print(f"esd ({API_N},{d})x({k},{d}): within rtol 1e-5, atol 1e-3 "
-              f"(max abs err {err:.3e}); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, addmm + norms {lib_ms:.4f} ms (max abs "
-              f"err {lib_err:.3e}), bound {_fmt_bound(bound)}", flush=True)
 
-        dist = want
+        dist = esd.esd_plain(x, mu)
         got, want = argmin.argmin_onehot(dist), argmin.argmin_onehot_plain(dist)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
@@ -913,12 +1042,18 @@ def phase_main_path():
     x = _blobs(np.random.default_rng(SEED + 7), N, DA + DB, K)
     cfg = KMeansConfig(k=K, iters=ITERS, partition="vertical", seed=SEED)
     modmatmul.LAUNCHES = 0
+    modmatmul.COPIES = 0
+    modmatmul.ZERO_LAUNCHES = 0
     ksadder.LAUNCHES = 0
     spmm.LAUNCHES = 0
     res = SecureKMeans(cfg).fit(x[:, :DA], x[:, DA:])
     launches = {"ring_matmul": modmatmul.LAUNCHES,
                 "ks_carry_share": ksadder.LAUNCHES}
     dense_spmm = spmm.LAUNCHES
+    copies = modmatmul.COPIES
+    device_line = mm_device_launches(launches["ring_matmul"],
+                                     modmatmul.ZERO_LAUNCHES, copies,
+                                     res.iters_run)
     cent = res.centroids_plain()
     labels = res.labels_plain()
     if cent.shape != (K, DA + DB) or not np.isfinite(cent).all():
@@ -937,26 +1072,67 @@ def phase_main_path():
     print(f"launches in the main path: {launches}, spmm_ell {dense_spmm} "
           f"(expected per iteration from the code: ring_matmul "
           f"{sum(c for _, c in MM_PER_ITER)}, ks_carry_share "
-          f"{sum(c for _, c in KS_PER_ITER)}, spmm_ell 0)", flush=True)
+          f"{sum(c for _, c in KS_PER_ITER)}, spmm_ell 0); ring_matmul "
+          f"operand copies {copies} (expected 0: every layout the fit "
+          f"passes is read in place); {device_line}", flush=True)
     if agree < 0.98:
         fail(f"agreement {agree:.5f} < 0.98")
+    if copies != 0:
+        fail(f"ring_matmul copied {copies} operands on the main path")
     for name, count in launches.items():
         if count <= 0:
             fail(f"{name} was not launched on the main path")
     return launches
 
 
+def kernel_times(src: pathlib.Path, smi_line: str) -> None:
+    """`--kernel-times`: ring_matmul at the dense and sparse fits' own
+    layouts and esd beside addmm + norms at the phase-5 shapes, each held
+    to its plain version first, for the repro_torch package under `src`.
+    Run it on two trees in one call, in turns, to compare their kernels on
+    one card. Prints one JSON line of the times."""
+    out = {"src": str(src), "card": smi_line, "ring_matmul": {}, "esd": {}}
+    for label, table, width, seed in (
+            ("dense", MM_FIT_PER_ITER, DA + DB, SEED),
+            ("sparse", SP_MM_FIT_PER_ITER, SP_DA + SP_DB, SEED + 1)):
+        rows = time_fit_layouts(table, width, seed, label)
+        per_case = {f"{m}x{kd}x{n} A {a} B {b}": rows[((m, kd, n), a, b)][0]
+                    for (m, kd, n), a, b, _ in table}
+        out["ring_matmul"][label] = {
+            "per_iteration_ms": sum(c * rows[(sh, a, b)][0]
+                                    for sh, a, b, c in table),
+            "bound_ms": sum(c * max(rows[(sh, a, b)][2])
+                            for sh, a, b, c in table),
+            "cases_ms": per_case}
+    for (d, k), (_, x, init) in lloyd_data(
+            np.random.default_rng(API_SEED)).items():
+        mu = x[torch.as_tensor(init, device=x.device)].clone()
+        ms, _, bound, lib_ms, err = check_time_esd(x, mu, plain=False)
+        out["esd"][f"{d}x{k}"] = {"ms": ms, "library_ms": lib_ms,
+                                  "bound_ms": max(bound), "max_abs_err": err}
+    print(json.dumps({"kernel_times": out}))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA GPU is available")
     torch.backends.cuda.matmul.allow_tf32 = False    # FP32 plain versions
-    sys.path.insert(0, str(ROOT / "src"))
+    args = sys.argv[1:]
+    src = ROOT / "src"
+    if "--src" in args:
+        src = pathlib.Path(args[args.index("--src") + 1]).resolve()
+    sys.path.insert(0, str(src))
     try:
         import repro_torch  # noqa: F401
     except ImportError as exc:
-        fail(f"cannot import repro_torch from {ROOT / 'src'}: {exc}")
+        fail(f"cannot import repro_torch from {src}: {exc}")
     smi_line = setup()
+    if "--kernel-times" in args:
+        kernel_times(src, smi_line)
+        return
     rows, worst = phase_kernels(np.random.default_rng(SEED))
+    fit_rows = time_fit_layouts(MM_FIT_PER_ITER, DA + DB, SEED, "dense")
+    time_fit_layouts(SP_MM_FIT_PER_ITER, SP_DA + SP_DB, SEED + 1, "sparse")
     sp_rows, worst["spmm_ell"] = phase_spmm(np.random.default_rng(SEED + 1))
     phase_gpu_equals_cpu()
     phase_sparse_gpu_equals_cpu(SP_K)
@@ -982,7 +1158,14 @@ def main() -> None:
             by_ops += count * o_ms
         return ms, plain, bound, "bytes" if by_bytes >= by_ops else "operations"
 
-    mm = per_iter("ring_matmul", MM_PER_ITER)
+    # ring_matmul: the dense iteration's 20 products at the fit's own
+    # layouts, the wrapper's work included
+    mm = [0.0, 0.0, 0.0, 0.0, 0.0]     # ms, plain, bound, bytes, operations
+    for shape, a_kind, b_kind, count in MM_FIT_PER_ITER:
+        k_ms, p_ms, (b_ms, o_ms) = fit_rows[(shape, a_kind, b_kind)]
+        for i, v in enumerate((k_ms, p_ms, max(b_ms, o_ms), b_ms, o_ms)):
+            mm[i] += count * v
+    mm[3] = "bytes" if mm[3] >= mm[4] else "operations"
     ks = per_iter("ks_carry_share", KS_PER_ITER)
     libs = [sp_rows[s][3] for s in ("S1", "S3")]
     lib_ms = None if None in libs else 2 * sum(libs)

@@ -34,12 +34,14 @@ _I32 = ctypes.c_int
 # C signature of every source's launcher: (argtypes, name)
 SIGNATURES = {
     "modmatmul": ("ring_matmul_launch",
-                  [_P, _P, _P, _I64, _I64, _I64, _I32, _I64, _I32, _I32, _P]),
+                  [_P, _I32, _I32, _P, _I32, _I32, _P, _I64, _I64, _I64,
+                   _I32, _I64, _I32, _I32, _P]),
     "ksadder": ("ks_carry_share_launch",
                 [_P] * 5 + [_P, _I64] * 5 + [_P, _I64, _I32, _I32, _I32, _P]),
     "spmm": ("spmm_ell_launch",
              [_P] * 5 + [_I64, _I64, _I32, _I32, _I32, _I64, _I32, _I32, _P]),
-    "esd": ("esd_launch", [_P, _P, _P, _I64, _I32, _I32, _I32, _P]),
+    "esd": ("esd_launch", [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
+                           _P]),
     "argmin": ("argmin_onehot_launch", [_P, _P, _I64, _I32, _I32, _P]),
 }
 

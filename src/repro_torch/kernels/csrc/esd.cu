@@ -3,130 +3,478 @@
 // x (n, d) f32, mu (k, d) f32, both row-major -> D' (n, k) f32.
 //
 // Replaces the Pallas TPU kernel repro/kernels/esd.py:esd. Its point is the
-// fusion: ||mu_j||^2 is accumulated from the same staged mu chunks that feed
-// the product, so there is no separate norm pass and no intermediate
-// x @ mu^T buffer in device memory. The TPU version carries both sums in
-// VMEM scratch across a sequential d grid axis; here a loop over d inside
-// the block replaces that axis and the sums stay in registers. mu does not
-// fit on chip at the widest shape of the kernel API (k = 128, d = 512 is
-// 256 KB against 227 KB of shared memory a block), so the grid tiles the
-// centroids over blockIdx.y and the loop stages d in chunks of kBD.
+// fusion: ||mu_j||^2 is accumulated in FP32 from the same staged mu chunks
+// that feed the product, so there is no separate norm pass and no
+// intermediate x @ mu^T buffer in device memory. The TPU version carries
+// both sums in VMEM scratch across a sequential d grid axis; here a loop
+// over d inside the block replaces that axis and the sums stay in
+// registers. mu does not fit on chip at the widest shape of the kernel API
+// (k = 128, d = 512 is 256 KB against 227 KB of shared memory a block), so
+// the wide kernel cuts the centroids over blockIdx.y and both kernels stage
+// d in chunks through a 3-stage cp.async ring.
 //
-// Every product is an FP32 FMA on the CUDA cores, never TF32: the plain
-// version it is held to is a full-FP32 matmul.
+// The result must hold to a full-FP32 matmul at rtol 1e-5, atol 1e-3 (the
+// reference tests' tolerance), so plain TF32 is out.
 //
-// What bounds it: at the fraud deployment's widths (d = 42, k = 5) each x
-// word feeds 5 FMAs, far below the card's ~20 FP32 FLOPs per byte of HBM
-// rate (67 TFLOP/s over 3.35 TB/s), so it is bound by reading x; at
-// k = 128, d = 512 it does 2 * 128 FLOPs per x word and is bound by the
-// FP32 FMAs. Two tiles answer the two cases:
-//   * tile 0, 256 rows x 8 centroids (k <= 32): few centroids, so each
-//     block streams a tall slab of x once and a thread keeps 4 x 2 sums;
-//   * tile 1, 128 x 128 (wide k): the classic register-blocked SIMT GEMM
-//     tile, 8 x 8 sums a thread, so each staged word feeds 8 FMAs.
-// A thread's outputs are strided across the tile (row ty + r * BM/TM,
-// column tx + c * BN/TN), so a warp's shared-memory reads fall on
-// consecutive words. The first BN threads also accumulate ||mu_j||^2 of the
-// block's centroids from each staged chunk.
+// What bounds it: with few centroids (the fraud deployment's d = 42, k = 5;
+// the sparse fit's d = 256, k = 3) each x word feeds k FMAs, far below the
+// card's ~20 FP32 FLOPs per byte of HBM rate (67 TFLOP/s over 3.35 TB/s),
+// so it is bound by reading x; at k = 128, d = 512 it does 2 * 128 FLOPs
+// per x word and is bound by the multiply-adds. Two kernels answer the two:
+//   * narrow (k <= 32): FP32 FMAs on the CUDA cores, one thread a row, 128
+//     rows a block. The block's slab of x is copied by cp.async in d chunks
+//     (all of d up to 64, else chunks of at most 32) and its rows land at a
+//     stride of 4 mod 8 float4s, so each thread reads its row as float4s
+//     without bank conflicts; the copies are one word each, walked flat, so
+//     a warp covers consecutive words of x whatever the row's alignment.
+//     When d is one chunk with d % 4 == 2 (the fraud width, 168-byte rows)
+//     the slab is one contiguous 16-byte-aligned range: it is copied in
+//     16-byte pieces and read as float2s at row stride d, also free of bank
+//     conflicts. mu's chunk is staged transposed (KT centroid slots a d
+//     step, zero past k) and read as broadcast float4s. The 128 x k output
+//     slab leaves through shared memory, written coalesced;
+//   * wide (k > 32): 3 x TF32 on the tensor cores (mma.sync m16n8k8). Each
+//     operand v is split into TF32 parts hi + lo (v - hi - lo is below
+//     2^-22 |v|), and a 16 x 8 tile sums lo*hi + hi*lo + hi*hi over each
+//     step of 8 d. The tensor core truncates its FP32 accumulator, and
+//     carried across the 64 steps of d = 512 that bias breaks the
+//     tolerance, so each step's three products start from zero and are
+//     added into FP32 totals, rounded to nearest on the CUDA cores: the
+//     tensor core only ever rounds an 8-term partial. A
+//     block is 128 rows x 128 centroids, 8 warps of 64 x 32; x and mu rows
+//     are staged d-contiguous at a stride of 36 floats, where every
+//     fragment load is conflict-free, in 16-byte copies when d % 4 == 0
+//     and both operands are 16-byte aligned, else one word a copy. Rows,
+//     centroids and d past the edge are zero-filled. It needs ~250
+//     registers a thread, so it runs one block an SM.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBD = 16;                  // d chunk staged in shared memory
+constexpr int kStages = 3;              // cp.async ring depth
 
-template <int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(kThreads)
-esd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
-           float* __restrict__ out, long long n, int d, int k) {
-  constexpr int NX = BN / TN;              // threads across the columns
-  constexpr int NY = BM / TM;              // threads across the rows
-  static_assert(NX * NY == kThreads, "tile must fill the block");
-  static_assert(BN <= kThreads, "one thread per centroid norm");
-  __shared__ float xs[kBD][BM + 1];        // x chunk, transposed; +1: banks
-  __shared__ float ms[kBD][BN + 1];        // mu chunk, transposed
-  __shared__ float us[BN];                 // ||mu_j||^2 of the block's tile
+// one float from global to shared memory; src_bytes = 0 writes a zero
+// without reading (src must still be a valid address)
+__device__ __forceinline__ void cp_float(float* smem, const float* gmem,
+                                         int src_bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(src_bytes));
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % NX, ty = tid / NX;
-  const long long row0 = (long long)blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
-  float u = 0.f;                           // thread tid < BN: centroid col0+tid
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
 
-  for (int d0 = 0; d0 < d; d0 += kBD) {
-    for (int i = tid; i < BM * kBD; i += kThreads) {
-      const int r = i / kBD, dd = i % kBD;
-      const long long gr = row0 + r;
-      const int gd = d0 + dd;
-      xs[dd][r] = (gr < n && gd < d) ? x[gr * d + gd] : 0.f;
+// ---------------------------------------------------------------------------
+// narrow: k <= KT <= 32 centroids, one thread a row
+// ---------------------------------------------------------------------------
+
+constexpr int kNarrowRows = 128;
+
+// acc[j] += xv * m[j] for the KT centroids of one d step
+template <int KT>
+__device__ __forceinline__ void fma_row(float (&acc)[KT], float xv,
+                                        const float* m) {
+  if constexpr (KT % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < KT / 4; ++q) {
+      const float4 mv = reinterpret_cast<const float4*>(m)[q];
+      acc[4 * q + 0] = fmaf(xv, mv.x, acc[4 * q + 0]);
+      acc[4 * q + 1] = fmaf(xv, mv.y, acc[4 * q + 1]);
+      acc[4 * q + 2] = fmaf(xv, mv.z, acc[4 * q + 2]);
+      acc[4 * q + 3] = fmaf(xv, mv.w, acc[4 * q + 3]);
     }
-    for (int i = tid; i < BN * kBD; i += kThreads) {
-      const int c = i / kBD, dd = i % kBD;
-      const int gc = col0 + c, gd = d0 + dd;
-      ms[dd][c] = (gc < k && gd < d) ? mu[(long long)gc * d + gd] : 0.f;
-    }
-    __syncthreads();
-    if (tid < BN) {
+  } else {
 #pragma unroll
-      for (int dd = 0; dd < kBD; ++dd) u = fmaf(ms[dd][tid], ms[dd][tid], u);
-    }
-#pragma unroll
-    for (int dd = 0; dd < kBD; ++dd) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) a[r] = xs[dd][ty + r * NY];
-#pragma unroll
-      for (int c = 0; c < TN; ++c) b[c] = ms[dd][tx + c * NX];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
-    __syncthreads();
+    for (int j = 0; j < KT; ++j) acc[j] = fmaf(xv, m[j], acc[j]);
   }
-  if (tid < BN) us[tid] = u;
-  __syncthreads();
+}
 
+// dc: the d chunk, a multiple of 4; stage_floats: one ring stage (x rows,
+// then the mu chunk). SLAB: d is one chunk with d % 4 == 2 and x 16-byte
+// aligned, so the block's rows are one contiguous 16-byte-aligned range
+// (128 d floats a slab): it is copied in 16-byte pieces and kept at row
+// stride d, where a warp's float2 reads of its rows are conflict-free.
+template <int KT, bool SLAB>
+__global__ void __launch_bounds__(kNarrowRows)
+esd_narrow(const float* __restrict__ x, const float* __restrict__ mu,
+           float* __restrict__ out, long long n, int d, int k, int dc,
+           int stage_floats) {
+  extern __shared__ __align__(16) float sm[];
+  const int S = SLAB ? d : ((dc >> 2) | 1) << 2;   // x row stride
+  const int tid = threadIdx.x;
+  const long long row0 = (long long)blockIdx.x * kNarrowRows;
+  const int rows = (int)min((long long)kNarrowRows, n - row0);
+  const int nchunks = (d + dc - 1) / dc;
+
+  auto load_chunk = [&](int ch) {
+    const int d0 = ch * dc;
+    const int dcur = min(dc, d - d0);
+    const int dc4 = (dcur + 3) & ~3;
+    float* xs = sm + (ch % kStages) * stage_floats;
+    float* ms = xs + kNarrowRows * (SLAB ? dc : S);
+    if (SLAB) {              // rows x d floats from x + row0 d, flat
+      const int floats = rows * d;
+      const float* src = x + row0 * d;
+      for (int v = tid * 4; v < floats; v += kNarrowRows * 4) {
+        const unsigned dst =
+            static_cast<unsigned>(__cvta_generic_to_shared(xs + v));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(dst), "l"(src + v), "r"(4 * min(4, floats - v)));
+      }
+    } else {
+      // x: rows x dc4 words walked flat; columns past dcur zero-filled
+      const int dr = kNarrowRows / dc4, dk = kNarrowRows % dc4;
+      int r = tid / dc4, c = tid % dc4;
+      const float* src = x + (row0 + r) * d + d0;     // row r of the chunk
+      for (int f = tid; f < rows * dc4; f += kNarrowRows) {
+        const bool in = c < dcur;
+        cp_float(xs + r * S + c, in ? src + c : x, in ? 4 : 0);
+        c += dk;
+        r += dr;
+        src += (long long)dr * d;
+        if (c >= dc4) {
+          c -= dc4;
+          ++r;
+          src += d;
+        }
+      }
+    }
+    // mu: KT x dc4 -> ms[c * KT + j]; centroids past k zero-filled
+    for (int f = tid; f < KT * dc4; f += kNarrowRows) {
+      const int j = f / dc4, cc = f % dc4;
+      const bool in = j < k && cc < dcur;
+      cp_float(ms + cc * KT + j, in ? mu + (long long)j * d + d0 + cc : mu,
+               in ? 4 : 0);
+    }
+  };
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const long long gr = row0 + ty + r * NY;
-    if (gr >= n) continue;
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nchunks) load_chunk(s);
+    cp_commit();
+  }
+
+  float acc[KT];
 #pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int lc = tx + c * NX;
-      const int gc = col0 + lc;
-      if (gc < k) out[gr * k + gc] = us[lc] - 2.f * acc[r][c];
+  for (int j = 0; j < KT; ++j) acc[j] = 0.f;
+  float u = 0.f;                           // thread tid < KT: centroid tid
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_wait<kStages - 2>();
+    __syncthreads();                       // chunk ch landed; ch-1 consumed
+    if (ch + kStages - 1 < nchunks) load_chunk(ch + kStages - 1);
+    cp_commit();
+    const float* xs = sm + (ch % kStages) * stage_floats;
+    const float* ms = xs + kNarrowRows * (SLAB ? dc : S);
+    const int dc4 = (min(dc, d - ch * dc) + 3) & ~3;
+    if (tid < KT) {
+      for (int c = 0; c < dc4; ++c) {
+        const float m = ms[c * KT + tid];
+        u = fmaf(m, m, u);
+      }
+    }
+    const float* xr = xs + tid * S;
+    if (SLAB) {                            // d even: float2 steps
+      for (int c = 0; c < d; c += 2) {
+        const float2 xv = *reinterpret_cast<const float2*>(xr + c);
+        fma_row<KT>(acc, xv.x, ms + (c + 0) * KT);
+        fma_row<KT>(acc, xv.y, ms + (c + 1) * KT);
+      }
+    } else {
+      for (int c = 0; c < dc4; c += 4) {
+        const float4 xv = *reinterpret_cast<const float4*>(xr + c);
+        fma_row<KT>(acc, xv.x, ms + (c + 0) * KT);
+        fma_row<KT>(acc, xv.y, ms + (c + 1) * KT);
+        fma_row<KT>(acc, xv.z, ms + (c + 2) * KT);
+        fma_row<KT>(acc, xv.w, ms + (c + 3) * KT);
+      }
+    }
+  }
+
+  // the rows x k output slab leaves through shared memory, coalesced
+  cp_wait<0>();
+  __syncthreads();
+  float* us = sm;                          // ||mu_j||^2
+  float* os = sm + KT;                     // os[r * k + j]
+  if (tid < KT) us[tid] = u;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < KT; ++j)
+    if (j < k) os[tid * k + j] = us[j] - 2.f * acc[j];
+  __syncthreads();
+  float* o = out + row0 * k;
+  for (int f = tid; f < rows * k; f += kNarrowRows) o[f] = os[f];
+}
+
+// ---------------------------------------------------------------------------
+// wide on the tensor cores: 3 x TF32 (lo*hi + hi*lo + hi*hi) on mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 256;           // 8 warps: 2 (rows) x 4 (centroids)
+constexpr int kTcM = 128, kTcN = 128;     // rows, centroids a block
+constexpr int kTcK = 32;                  // d chunk
+constexpr int kTcS = kTcK + 4;            // row stride: conflict-free frags
+constexpr int kTcStage = (kTcM + kTcN) * kTcS;
+
+// v = hi + lo + (a residual below 2^-22 |v|), hi and lo TF32
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  const float r = v - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+// c = a * b + c on one 16 x 8 x 8 TF32 tile
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a * b (a zero accumulator)
+__device__ __forceinline__ void mma_tf32_zero(float (&c)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kTcThreads, 1)
+esd_tf32x3(const float* __restrict__ x, const float* __restrict__ mu,
+           float* __restrict__ out, long long n, int d, int k) {
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;    // mma fragment group, thread
+  const int wm = warp / 4, wn = warp % 4;  // the warp's 64 x 32 sub-tile
+  const long long row0 = (long long)blockIdx.x * kTcM;
+  const int col0 = blockIdx.y * kTcN;
+  const int nchunks = (d + kTcK - 1) / kTcK;
+
+  // chunk ch: xs[r * kTcS + c] (rows), ms[j * kTcS + c] (centroids), d
+  // along each row as in memory; everything out of range is zero. VEC:
+  // rows tid / 8 + 32 i at column (tid % 8) * 4; else rows tid / 32 + 8 i
+  // at column tid % 32
+  auto load_chunk = [&](int ch) {
+    constexpr int kCopies = VEC ? kTcM * kTcK / 4 / kTcThreads
+                                : kTcM * kTcK / kTcThreads;
+    constexpr int kRowStep = VEC ? 32 : 8;
+    const int cr = VEC ? tid / 8 : tid / 32;
+    const int gd = ch * kTcK + (VEC ? (tid % 8) * 4 : tid % 32);
+    float* xs = sm + (ch % kStages) * kTcStage + cr * kTcS + gd % kTcK;
+    float* ms = xs + kTcM * kTcS;
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const long long gr = row0 + cr + i * kRowStep;
+      const int gc = col0 + cr + i * kRowStep;
+      const bool xin = gr < n && gd < d, min_ = gc < k && gd < d;
+      const float* xsrc = xin ? x + gr * d + gd : x;
+      const float* msrc = min_ ? mu + (long long)gc * d + gd : mu;
+      const int off = i * kRowStep * kTcS;
+      if (VEC) {
+        const unsigned xd = static_cast<unsigned>(
+            __cvta_generic_to_shared(xs + off));
+        const unsigned md = static_cast<unsigned>(
+            __cvta_generic_to_shared(ms + off));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(xd), "l"(xsrc), "r"(xin ? 16 : 0));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(md), "l"(msrc), "r"(min_ ? 16 : 0));
+      } else {
+        cp_float(xs + off, xsrc, xin ? 4 : 0);
+        cp_float(ms + off, msrc, min_ ? 4 : 0);
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nchunks) load_chunk(s);
+    cp_commit();
+  }
+
+  // FP32 totals; each k8 step's three products start from zero, so the
+  // tensor core only ever rounds an 8-term partial, and the totals are
+  // rounded to nearest on the CUDA cores
+  float acc[4][4][4];                      // [m tile][n tile][fragment]
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+  float u = 0.f;           // ||mu_j||^2: half (tid % 2) of centroid tid / 2
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_wait<kStages - 2>();
+    __syncthreads();
+    if (ch + kStages - 1 < nchunks) load_chunk(ch + kStages - 1);
+    cp_commit();
+    const float* xs = sm + (ch % kStages) * kTcStage;
+    const float* ms = xs + kTcM * kTcS;
+    {
+      const float* mr = ms + (tid / 2) * kTcS + (tid % 2) * (kTcK / 2);
+#pragma unroll
+      for (int c = 0; c < kTcK / 2; c += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(mr + c);
+        u = fmaf(v.x, v.x, u);
+        u = fmaf(v.y, v.y, u);
+        u = fmaf(v.z, v.z, u);
+        u = fmaf(v.w, v.w, u);
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < kTcK; ks += 8) {
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* mr = ms + (wn * 32 + nt * 8 + g) * kTcS + ks + t;
+        split_tf32(mr[0], bh[nt][0], bl[nt][0]);
+        split_tf32(mr[4], bh[nt][1], bl[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const float* xr = xs + (wm * 64 + mt * 16 + g) * kTcS + ks + t;
+        uint32_t ah[4], al[4];
+        split_tf32(xr[0], ah[0], al[0]);
+        split_tf32(xr[8 * kTcS], ah[1], al[1]);
+        split_tf32(xr[4], ah[2], al[2]);
+        split_tf32(xr[8 * kTcS + 4], ah[3], al[3]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {   // small terms first
+          float p[4];
+          mma_tf32_zero(p, al, bh[nt][0], bh[nt][1]);
+          mma_tf32(p, ah, bl[nt][0], bl[nt][1]);
+          mma_tf32(p, ah, bh[nt][0], bh[nt][1]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] += p[q];
+        }
+      }
+    }
+  }
+
+  cp_wait<0>();
+  __syncthreads();
+  u += __shfl_xor_sync(0xffffffffu, u, 1);
+  float* us = sm;
+  if (tid % 2 == 0) us[tid / 2] = u;
+  __syncthreads();
+  const bool pair = (k & 1) == 0;          // (c, c + 1) 8-byte aligned
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long gr = row0 + wm * 64 + mt * 16 + g + h * 8;
+      if (gr >= n) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int lc = wn * 32 + nt * 8 + 2 * t;
+        const int gc = col0 + lc;
+        const float v0 = us[lc] - 2.f * acc[mt][nt][2 * h];
+        const float v1 = us[lc + 1] - 2.f * acc[mt][nt][2 * h + 1];
+        float* o = out + gr * k + gc;
+        if (pair && gc + 1 < k) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          if (gc < k) o[0] = v0;
+          if (gc + 1 < k) o[1] = v1;
+        }
+      }
     }
   }
 }
 
-template <int BM, int BN, int TM, int TN>
-cudaError_t launch(const float* x, const float* mu, float* out, long long n,
-                   int d, int k, cudaStream_t stream) {
-  dim3 grid((unsigned)((n + BM - 1) / BM), (unsigned)((k + BN - 1) / BN));
-  esd_kernel<BM, BN, TM, TN><<<grid, kThreads, 0, stream>>>(x, mu, out, n,
-                                                            d, k);
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int KT, bool SLAB>
+cudaError_t launch_narrow_as(const float* x, const float* mu, float* out,
+                             long long n, int d, int k, int dc,
+                             cudaStream_t s) {
+  const int S = SLAB ? dc : ((dc >> 2) | 1) << 2;
+  const int stage_floats = kNarrowRows * S + dc * KT;
+  const int nchunks = (d + dc - 1) / dc;
+  int floats = (nchunks < kStages ? nchunks : kStages) * stage_floats;
+  if (floats < KT + kNarrowRows * KT) floats = KT + kNarrowRows * KT;
+  const size_t smem = sizeof(float) * floats;
+  auto kernel = esd_narrow<KT, SLAB>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)((n + kNarrowRows - 1) / kNarrowRows);
+  kernel<<<grid, kNarrowRows, smem, s>>>(x, mu, out, n, d, k, dc,
+                                         stage_floats);
+  return cudaGetLastError();
+}
+
+template <int KT>
+cudaError_t launch_narrow(const float* x, const float* mu, float* out,
+                          long long n, int d, int k, int dc, cudaStream_t s) {
+  // d in one chunk (dc = d rounded up to 4), d % 4 == 2, x 16-byte aligned
+  if (dc >= d && d % 4 == 2 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    return launch_narrow_as<KT, true>(x, mu, out, n, d, k, dc, s);
+  return launch_narrow_as<KT, false>(x, mu, out, n, d, k, dc, s);
+}
+
+cudaError_t launch_tf32x3(const float* x, const float* mu, float* out,
+                          long long n, int d, int k, cudaStream_t s) {
+  const size_t smem = sizeof(float) * kStages * kTcStage;
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(mu) % 16 == 0;
+  dim3 grid((unsigned)((n + kTcM - 1) / kTcM),
+            (unsigned)((k + kTcN - 1) / kTcN));
+  if (vec) {
+    cudaError_t err = allow_smem(esd_tf32x3<true>, smem);
+    if (err != cudaSuccess) return err;
+    esd_tf32x3<true><<<grid, kTcThreads, smem, s>>>(x, mu, out, n, d, k);
+  } else {
+    cudaError_t err = allow_smem(esd_tf32x3<false>, smem);
+    if (err != cudaSuccess) return err;
+    esd_tf32x3<false><<<grid, kTcThreads, smem, s>>>(x, mu, out, n, d,
+                                                           k);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// tile: 0 -> 256 rows x 8 centroids (few centroids), 1 -> 128 x 128.
+// tile: 0 -> narrow, with kt centroid slots (1, 2, 4, 8, 16 or 32 >= k) and
+// d chunks of dc (a multiple of 4); 1 -> wide (kt and dc unused).
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int esd_launch(const void* x, const void* mu, void* out,
-                          long long n, int d, int k, int tile, void* stream) {
+                          long long n, int d, int k, int tile, int kt, int dc,
+                          void* stream) {
   const float* px = static_cast<const float*>(x);
   const float* pm = static_cast<const float*>(mu);
   float* po = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile == 0) return (int)launch<256, 8, 4, 2>(px, pm, po, n, d, k, s);
-  if (tile == 1) return (int)launch<128, 128, 8, 8>(px, pm, po, n, d, k, s);
+  if (tile == 1) return (int)launch_tf32x3(px, pm, po, n, d, k, s);
+  if (tile != 0 || k > kt || dc <= 0 || (dc & 3) != 0)
+    return (int)cudaErrorInvalidValue;
+  switch (kt) {
+    case 1: return (int)launch_narrow<1>(px, pm, po, n, d, k, dc, s);
+    case 2: return (int)launch_narrow<2>(px, pm, po, n, d, k, dc, s);
+    case 4: return (int)launch_narrow<4>(px, pm, po, n, d, k, dc, s);
+    case 8: return (int)launch_narrow<8>(px, pm, po, n, d, k, dc, s);
+    case 16: return (int)launch_narrow<16>(px, pm, po, n, d, k, dc, s);
+    case 32: return (int)launch_narrow<32>(px, pm, po, n, d, k, dc, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

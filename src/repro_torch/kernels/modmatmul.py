@@ -2,24 +2,36 @@
 int32 words.
 
 Port of the Pallas TPU kernel `repro/kernels/modmatmul.py:modmatmul`, both
-bodies (`_kernel_u64`, `_kernel_u32`). The CUDA kernel is
-`csrc/modmatmul.cu`, one template on the word type; its header says what
-bounds it and how its tiling and split-K answer that. u32 words are int32
+bodies (`_kernel_u64`, `_kernel_u32`). The CUDA kernels are in
+`csrc/modmatmul.cu`, templates on the word type; its header says what
+bounds them and how each variant answers that. u32 words are int32
 tensors, as u64 words are int64 ones: int32 `+ - * @` wrap mod 2^32 on the
 CPU, and PyTorch has no `add` for uint32. Beside it:
 
 * `ring_matmul_plain` — the plain PyTorch version. On the CPU integer `@`
   wraps mod 2^l; on CUDA `torch.matmul` refuses integer words, so there it
   is a broadcast multiply-and-sum over K chunks.
+* `layout` — how the kernels read an operand in place: row-major, or the
+  transposed view of a row-major matrix, with its leading dimension.
+* `plan` — which variant a launch takes, and its K chunk and grid: the
+  long-K kernel (few output rows, K cut over a few hundred blocks), the
+  tall-skinny kernel (few output columns, B staged whole) or the general
+  tile.
+* `prepare` — the plan of a product and the operands to hand it. The
+  long-K kernel also reads A, and the tall-skinny kernel B, as a
+  transposed view; everything else is read row-major. The fit's views
+  (`mu.s0.T`, `mut.s1[da:]`, `c.s0.T`) all land where they are read in
+  place; an operand that its variant cannot read is copied contiguous and
+  counted in `COPIES`.
 * `ring_matmul` — the wrapper. A CPU tensor takes the plain version; a
   CUDA tensor launches the kernel or raises. `LAUNCHES` counts launches on
-  int64 words, `LAUNCHES_U32` on int32 words.
-
-The main path passes transposed and sliced views (`mu.s0.T`, `c.s0.T`,
-`mut.s0[:da]`); the wrapper makes `.contiguous()` copies of them, which the
-kernel then reads row-major.
+  int64 words, `LAUNCHES_U32` on int32 words. The output is allocated
+  empty; a launch whose blocks meet by atomicAdd zeroes it in a small
+  kernel of its own that the product overlaps, counted in `ZERO_LAUNCHES`.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -27,12 +39,46 @@ from repro_torch.kernels import _build
 
 LAUNCHES = 0            # kernel launches by `ring_matmul` on int64 words
 LAUNCHES_U32 = 0        # ... on int32 words (the mod-2^32 ring)
+COPIES = 0              # operands copied because their kernel cannot read them
+ZERO_LAUNCHES = 0       # zero kernels launched before split products
 WORD_BITS = {torch.int64: 64, torch.int32: 32}
+INT32_MAX = 2 ** 31 - 1
 
-BK = 16                 # K chunk staged in shared memory (csrc/modmatmul.cu)
-TILES = ((128, 8), (8, 32))   # (BM, BN) of tile ids 0 and 1
-TARGET_BLOCKS = 4 * 132  # enough blocks to fill an H100's 132 SMs
+SMS = 132               # an H100's streaming multiprocessors
+# tall-skinny (csrc/modmatmul.cu tall_kernel): 128 rows a block; B staged
+# whole; K in one stage up to TALL_ONE_STAGE_K words, else TALL_KC a stage
+TALL_ROWS = 128
+TALL_MAX_N = 8
+TALL_MAX_B_WORDS = 2048
+TALL_ONE_STAGE_K = 32
+TALL_KC = 16
+# long-K (longk_kernel): up to 8 output rows and 256 columns; a stage of
+# about LONG_STAGE_BYTES of A and B rows; at most LONG_MAX_BLOCKS blocks
+LONG_MAX_M = 8
+LONG_MAX_N = 256
+LONG_STAGE_BYTES = 16 * 1024
+LONG_MIN_KB = 8
+LONG_MAX_BLOCKS = 3 * SMS
+# general tile (general_kernel)
+BK = 16                 # K chunk staged in shared memory
+TILES = ((128, 8), (8, 32))   # (BM, BN) of general tiles 0 and 1
+TARGET_BLOCKS = 4 * SMS  # enough blocks to fill the card
 MIN_K_PER_SPLIT = 4 * BK
+VARIANT_CODES = {"tall": 2, "longk": 3}   # general tiles are 0 and 1
+
+
+class Plan(NamedTuple):
+    """A launch of csrc/modmatmul.cu."""
+    variant: str        # "tall", "longk" or "general"
+    tile: int           # general tile id (0 or 1); 0 otherwise
+    chunk: int          # K words a stage (tall, longk) or a split (general)
+    blocks: int         # longk: grid size; general: K splits; tall: row slabs
+
+    @property
+    def zeroed(self) -> bool:
+        """A longk or general launch of more than one block meets by
+        atomicAdd, so the launcher zeroes C first, in a launch of its own."""
+        return self.variant != "tall" and self.blocks > 1
 
 
 def ring_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -58,10 +104,26 @@ def _broadcast_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def plan(m: int, kdim: int, n: int) -> tuple[int, int, int]:
-    """(tile id, K words per split, number of splits) for an (m, kdim) @
-    (kdim, n) product: the tile that wastes the fewest padded outputs, and
-    K split so that about TARGET_BLOCKS blocks are in flight."""
+def layout(t: torch.Tensor) -> tuple[bool, int] | None:
+    """(transposed, leading dimension) under which the kernels read the
+    2-D tensor t in place: row-major (t[i, j] at i * ld + j), or the
+    transposed view of a row-major matrix (t[i, j] at j * ld + i), counted
+    from t's first element (its storage offset included). None when t is
+    neither, or its leading dimension does not fit 32 bits."""
+    r, c = t.shape
+    sr, sc = t.stride()
+    if (c == 1 or sc == 1) and (r == 1 or sr >= c):
+        ld = sr if r > 1 else c
+        return (False, ld) if ld <= INT32_MAX else None
+    if (r == 1 or sr == 1) and (c == 1 or sc >= r):
+        ld = sc if c > 1 else r
+        return (True, ld) if ld <= INT32_MAX else None
+    return None
+
+
+def _general_plan(m: int, kdim: int, n: int) -> Plan:
+    """The general tile that wastes the fewest padded outputs, and K split
+    so that about TARGET_BLOCKS blocks are in flight."""
     def padded(t):
         bm, bn = TILES[t]
         return -(-m // bm) * bm * (-(-n // bn) * bn)
@@ -74,7 +136,59 @@ def plan(m: int, kdim: int, n: int) -> tuple[int, int, int]:
     k_per_split = -(-kdim // splits)
     k_per_split = -(-k_per_split // BK) * BK
     splits = -(-kdim // k_per_split)
-    return tile, k_per_split, splits
+    return Plan("general", tile, k_per_split, splits)
+
+
+def _longk_plan(m: int, kdim: int, n: int, word_bytes: int) -> Plan:
+    """K cut into chunks of about LONG_STAGE_BYTES, spread evenly over at
+    most LONG_MAX_BLOCKS blocks."""
+    kb_max = max(LONG_MIN_KB, LONG_STAGE_BYTES // (word_bytes * (m + n)))
+    chunks = -(-kdim // kb_max)
+    blocks = min(LONG_MAX_BLOCKS, chunks)
+    per_block = -(-chunks // blocks)
+    kb = -(-kdim // (blocks * per_block))
+    chunks = -(-kdim // kb)
+    return Plan("longk", 0, kb, -(-chunks // per_block))
+
+
+def plan(m: int, kdim: int, n: int, a_t: bool = False, b_t: bool = False,
+         word_bytes: int = 8) -> Plan:
+    """The launch of an (m, kdim) @ (kdim, n) product whose A and B come
+    row-major or as transposed views (a_t, b_t): long-K while C has at most
+    LONG_MAX_M rows and LONG_MAX_N columns and B is row-major; tall-skinny
+    while B (at most TALL_MAX_B_WORDS words, TALL_MAX_N columns) fits a
+    block and A is row-major; else the general tile, which reads both
+    row-major."""
+    if m <= LONG_MAX_M and n <= LONG_MAX_N and not b_t:
+        return _longk_plan(m, kdim, n, word_bytes)
+    if n <= TALL_MAX_N and kdim * n <= TALL_MAX_B_WORDS and not a_t:
+        kc = kdim if kdim <= TALL_ONE_STAGE_K else TALL_KC
+        return Plan("tall", 0, kc, -(-m // TALL_ROWS))
+    return _general_plan(m, kdim, n)
+
+
+def _operand(t: torch.Tensor, lay: tuple[bool, int] | None,
+             transposed_ok: bool) -> tuple[torch.Tensor, bool, int]:
+    """(tensor, transposed, leading dimension) to hand a kernel: t itself
+    when its layout `lay` is one the kernel reads, else a counted
+    contiguous copy."""
+    global COPIES
+    if lay is None or (lay[0] and not transposed_ok):
+        COPIES += 1
+        t = t.contiguous()
+        lay = (False, max(1, t.shape[1]))
+    return t, lay[0], lay[1]
+
+
+def prepare(a: torch.Tensor, b: torch.Tensor):
+    """(plan, (A, a_t, lda), (B, b_t, ldb)) of the product a @ b: the plan
+    chosen for the operands' layouts, and each operand as its variant reads
+    it (only long-K reads A, and only tall-skinny reads B, transposed)."""
+    la, lb = layout(a), layout(b)
+    p = plan(a.shape[0], a.shape[1], b.shape[1], la is not None and la[0],
+             lb is not None and lb[0], a.element_size())
+    return (p, _operand(a, la, p.variant == "longk"),
+            _operand(b, lb, p.variant == "tall"))
 
 
 def ring_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -94,23 +208,24 @@ def ring_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return ring_matmul_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"ring_matmul runs on cpu or cuda, not {a.device}")
-    global LAUNCHES, LAUNCHES_U32
+    global LAUNCHES, LAUNCHES_U32, ZERO_LAUNCHES
     m, kdim = a.shape
     n = b.shape[1]
-    out = torch.zeros((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0 or kdim == 0:
-        return out
-    a = a.contiguous()
-    b = b.contiguous()
-    tile, k_per_split, splits = plan(m, kdim, n)
-    if -(-n // TILES[tile][1]) > 65535:          # CUDA's gridDim.y limit
+        return torch.zeros((m, n), dtype=a.dtype, device=a.device)
+    p, (a, a_t, lda), (b, b_t, ldb) = prepare(a, b)
+    if p.variant == "general" and -(-n // TILES[p.tile][1]) > 65535:
         raise ValueError(f"ring_matmul: {n} output columns exceed one launch")
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    code = VARIANT_CODES.get(p.variant, p.tile)
     fn = _build.launcher("modmatmul")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, kdim, n,
-                 tile, k_per_split, splits, WORD_BITS[a.dtype], stream)
+        err = fn(a.data_ptr(), lda, int(a_t), b.data_ptr(), ldb, int(b_t),
+                 out.data_ptr(), m, kdim, n, code, p.chunk, p.blocks,
+                 WORD_BITS[a.dtype], stream)
     _build.check(err, "ring_matmul")
+    ZERO_LAUNCHES += p.zeroed
     if a.dtype == torch.int64:
         LAUNCHES += 1
     else:

@@ -69,6 +69,121 @@ def test_ring_matmul_u32_kernel_equals_plain(cuda, shape):
     np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), want)
 
 
+def _wrap_heavy(shape, dev, bits):
+    """Words at the top of the ring: every product and sum wraps."""
+    top = (1 << bits) - 1
+    dtype = np.uint64 if bits == 64 else np.uint32
+    x = (dtype(top) - RNG.integers(0, 1 << (bits - 4), shape, dtype=dtype))
+    view = np.int64 if bits == 64 else np.int32
+    return torch.from_numpy(x.view(view)).to(dev)
+
+
+def _operand(rows, cols, kind, draw):
+    """A (rows, cols) operand in one of the layouts the fit passes:
+    row-major, row-major inside a wider matrix (ld > cols), the transposed
+    view of a row-major (cols, rows) matrix (`c.s0.T`, `mu.s0.T`), or a row
+    slice of such a view past its first 3 rows (`mut.s1[da:]`)."""
+    if kind == "row":
+        return draw((rows, cols))
+    if kind == "wide":
+        return draw((rows, cols + 5))[:, 2:2 + cols]
+    if kind == "t":
+        return draw((cols, rows)).T
+    assert kind == "slice"
+    return draw((cols, rows + 3)).T[3:]
+
+
+# (m, K, n, A layout, B layout, operands copied): each variant's main-path
+# shapes and the fit's own layouts, K in {1, 17, 18, 24, 100003}, and M*N, N
+# or K*N on both sides of each variant's limit (tall: N <= 8 and K*N <= 2048;
+# long-K: M <= 8, N <= 256). Long-K reads a transposed A, tall-skinny a
+# transposed B; any other transposed operand is copied.
+LAYOUT_CASES = [
+    (2048, 18, 5, "row", "t", 0), (2048, 24, 5, "row", "slice", 0),
+    (2048, 18, 5, "row", "row", 0), (3000, 1, 8, "wide", "row", 0),
+    (1000, 17, 8, "row", "t", 0), (500, 256, 8, "row", "row", 0),
+    (500, 257, 8, "row", "row", 0), (300, 18, 9, "row", "t", 1),
+    (2048, 18, 5, "t", "row", 1), (100_000, 128, 3, "row", "t", 0),
+    (5, 100_003, 18, "t", "row", 0), (5, 100_003, 24, "row", "row", 0),
+    (5, 100_003, 24, "slice", "wide", 0), (3, 100_003, 128, "t", "row", 0),
+    (8, 4096, 256, "t", "row", 0), (9, 4096, 24, "t", "row", 1),
+    (8, 4096, 257, "row", "row", 0), (5, 3000, 18, "t", "t", 2),
+    (1, 200, 7, "t", "slice", 0), (129, 129, 129, "t", "t", 2),
+]
+
+
+@pytest.mark.parametrize("bits", [64, 32])
+@pytest.mark.parametrize("wrap", [False, True], ids=["random", "wrap_heavy"])
+@pytest.mark.parametrize("case", LAYOUT_CASES,
+                         ids=["x".join(map(str, c[:3])) + f"-{c[3]}-{c[4]}"
+                              for c in LAYOUT_CASES])
+def test_ring_matmul_layouts_equal_plain(cuda, case, wrap, bits):
+    """Word for word on the layouts the fit passes, read in place, and on
+    the others, each copied once and counted."""
+    m, kdim, n, a_kind, b_kind, copied = case
+    if wrap:
+        def draw(shape):
+            return _wrap_heavy(shape, cuda, bits)
+    else:
+        def draw(shape):
+            return (_words if bits == 64 else _words32)(shape, cuda)
+    a = _operand(m, kdim, a_kind, draw)
+    b = _operand(kdim, n, b_kind, draw)
+    counter = "LAUNCHES" if bits == 64 else "LAUNCHES_U32"
+    before = getattr(modmatmul, counter)
+    copies, zeros = modmatmul.COPIES, modmatmul.ZERO_LAUNCHES
+    p = modmatmul.plan(m, kdim, n, modmatmul.layout(a)[0],
+                       modmatmul.layout(b)[0], a.element_size())
+    got = modmatmul.ring_matmul(a, b)
+    assert getattr(modmatmul, counter) == before + 1
+    assert modmatmul.COPIES == copies + copied
+    assert modmatmul.ZERO_LAUNCHES == zeros + p.zeroed
+    assert got.is_contiguous() and tuple(got.shape) == (m, n)
+    want = modmatmul.ring_matmul_plain(a.contiguous(), b.contiguous())
+    assert torch.equal(got, want)
+
+
+def test_ring_matmul_copies_what_no_variant_reads(cuda):
+    """A broadcast (stride-0) operand is copied once and counted."""
+    a = _words((1, 24), cuda).expand(300, 24)
+    b = _words((24, 5), cuda)
+    copies = modmatmul.COPIES
+    got = modmatmul.ring_matmul(a, b)
+    assert modmatmul.COPIES == copies + 1
+    assert torch.equal(got, modmatmul.ring_matmul_plain(a.contiguous(), b))
+
+
+@pytest.mark.parametrize("d", [1, 3, 42, 129, 512])
+@pytest.mark.parametrize("k", [1, 3, 5, 8, 9, 32, 33, 128, 129])
+def test_esd_widths_equal_plain(cuda, d, k):
+    """Both kernels at every centroid slot count and d chunking, ragged
+    rows included (n = 1000 is not a multiple of 128); rtol 1e-5, atol 1e-3
+    as in the reference tests (the kernel and cuBLAS sum in different
+    orders)."""
+    n = 1000
+    x = torch.from_numpy(RNG.normal(0, 3, (n, d)).astype(np.float32)).to(cuda)
+    mu = torch.from_numpy(RNG.normal(0, 3, (k, d)).astype(np.float32)).to(cuda)
+    before = esd.LAUNCHES
+    got = esd.esd(x, mu)
+    assert esd.LAUNCHES == before + 1
+    torch.testing.assert_close(got, esd.esd_plain(x, mu), rtol=1e-5,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("n", [1, 129, 1001])
+@pytest.mark.parametrize("d", [2, 18, 42, 62])
+def test_esd_contiguous_slab_copy(cuda, n, d):
+    """d % 4 == 2 in one chunk: the narrow kernel copies each block's rows
+    as one 16-byte-aligned range; n leaves a last slab whose length is not
+    a multiple of 4 floats. An offset view (x[1:]) is not 16-byte aligned
+    and takes the word-by-word copies."""
+    x = torch.from_numpy(RNG.normal(0, 3, (n + 1, d)).astype(np.float32)).to(cuda)
+    mu = torch.from_numpy(RNG.normal(0, 3, (5, d)).astype(np.float32)).to(cuda)
+    for xs in (x[:n], x[1:].contiguous(), x[1:]):
+        torch.testing.assert_close(esd.esd(xs, mu), esd.esd_plain(xs, mu),
+                                   rtol=1e-5, atol=1e-3)
+
+
 @pytest.mark.parametrize("shape", [(2048, 42, 5), (1000, 256, 3),
                                    (777, 512, 128), (57, 129, 17), (3, 1, 40)])
 def test_esd_kernel_equals_plain(cuda, shape):

@@ -111,17 +111,138 @@ def test_ring_matmul_rejects_bad_operands():
                                    (1, 200, 7), (129, 129, 129),
                                    (2048, 42, 5), (5, 1, 3)])
 def test_ring_matmul_plan_covers_k(shape):
+    """Every K word falls in one chunk of the launch: the tall kernel's
+    stages, the long-K kernel's chunks over its blocks, or the general
+    tile's splits."""
     m, kdim, n = shape
-    tile, k_per_split, splits = modmatmul.plan(m, kdim, n)
-    bm, bn = modmatmul.TILES[tile]
-    assert k_per_split % modmatmul.BK == 0
-    assert (splits - 1) * k_per_split < kdim <= splits * k_per_split
-    tiles = -(-m // bm) * -(-n // bn)
-    assert tiles * splits <= 2 * modmatmul.TARGET_BLOCKS or splits == 1
+    p = modmatmul.plan(m, kdim, n)
+    if p.variant == "tall":
+        assert p.chunk == kdim or p.chunk == modmatmul.TALL_KC
+        assert p.blocks == -(-m // modmatmul.TALL_ROWS)
+    elif p.variant == "longk":
+        chunks = -(-kdim // p.chunk)
+        assert p.blocks <= modmatmul.LONG_MAX_BLOCKS
+        per_block = -(-chunks // p.blocks)
+        assert (p.blocks - 1) * per_block < chunks <= p.blocks * per_block
+    else:
+        bm, bn = modmatmul.TILES[p.tile]
+        assert p.chunk % modmatmul.BK == 0
+        assert (p.blocks - 1) * p.chunk < kdim <= p.blocks * p.chunk
+        tiles = -(-m // bm) * -(-n // bn)
+        assert tiles * p.blocks <= 2 * modmatmul.TARGET_BLOCKS or p.blocks == 1
     if m >= 1000 and n <= 8:
-        assert (bm, bn) == (128, 8) and splits == 1     # tall-skinny
+        assert p.variant == "tall"                       # tall-skinny
     if m <= 8 and kdim >= 1000:
-        assert (bm, bn) == (8, 32) and splits > 100     # long-K: split K
+        assert p.variant == "longk" and p.blocks > 100   # long-K: split K
+
+
+# (m, kdim, n, A transposed, B transposed, word bytes) -> (variant, operands
+# copied), for every shape the fits and phase 5 of chip_smoke.py run, and
+# the general tile's
+PLAN_CASES = [
+    ((100_000, 18, 5, False, True, 8), "tall", 0),      # X_A @ mu^T slices
+    ((100_000, 24, 5, False, False, 8), "tall", 0),     # Beaver u @ f
+    ((5, 100_000, 18, True, False, 8), "longk", 0),     # C^T X_A, c.s0.T
+    ((5, 100_000, 24, False, False, 8), "longk", 0),    # Beaver e @ (v + f)
+    ((100_000, 128, 3, False, True, 8), "tall", 0),     # sparse local X mu^T
+    ((3, 100_000, 128, True, False, 8), "longk", 0),    # sparse local C^T X
+    ((100_000, 18, 5, False, False, 4), "tall", 0),     # phase 5, u32
+    ((5, 100_000, 24, False, False, 4), "longk", 0),    # phase 5, u32
+    ((1024, 512, 128, False, False, 4), "general", 0),  # phase 5, u32
+    ((129, 129, 129, False, False, 8), "general", 0),
+    ((100_000, 18, 5, True, False, 8), "general", 1),   # tall: A row-major
+    ((5, 3000, 18, False, True, 8), "general", 1),      # long-K: B row-major
+    ((500, 256, 8, False, False, 8), "tall", 0),        # B of 2048 words
+    ((500, 257, 8, False, False, 8), "general", 0),     # ... and of 2056
+    ((300, 18, 9, False, False, 8), "general", 0),      # 9 columns
+    ((1, 200, 7, False, False, 8), "longk", 0),         # one row: long-K
+    ((1, 200, 7, False, True, 8), "tall", 0),           # ... B a view: tall
+    ((8, 4096, 256, True, False, 8), "longk", 0),       # 8 x 256 outputs
+    ((9, 4096, 24, False, False, 8), "general", 0),     # 9 rows
+    ((8, 4096, 257, False, False, 8), "general", 0),    # 257 columns
+]
+
+
+def _meta_operand(rows, cols, transposed, dtype):
+    """A (rows, cols) operand with no storage: row-major, or the transposed
+    view of a row-major (cols, rows) matrix."""
+    if transposed:
+        return torch.empty((cols, rows), dtype=dtype, device="meta").T
+    return torch.empty((rows, cols), dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("case", PLAN_CASES,
+                         ids=[f"{c[0][0]}x{c[0][1]}x{c[0][2]}"
+                              f"-{'T' if c[0][3] else 'R'}"
+                              f"{'T' if c[0][4] else 'R'}-u{8 * c[0][5]}"
+                              for c in PLAN_CASES])
+def test_ring_matmul_plan_picks_the_variant(case):
+    """The variant each shape and layout takes, and the operands `prepare`
+    copies because that variant cannot read them (the general tile reads
+    only row-major operands)."""
+    (m, kdim, n, a_t, b_t, word), variant, copied = case
+    p = modmatmul.plan(m, kdim, n, a_t, b_t, word)
+    assert p.variant == variant
+    dtype = torch.int64 if word == 8 else torch.int32
+    a = _meta_operand(m, kdim, a_t, dtype)
+    b = _meta_operand(kdim, n, b_t, dtype)
+    copies = modmatmul.COPIES
+    p2, (a2, a2_t, lda), (b2, b2_t, ldb) = modmatmul.prepare(a, b)
+    assert p2 == p and modmatmul.COPIES == copies + copied
+    assert (a2 is a) + (b2 is b) == 2 - copied
+    assert a2_t == (a_t and variant == "longk")
+    assert b2_t == (b_t and variant == "tall")
+    assert lda == (m if a2_t else kdim) and ldb == (kdim if b2_t else n)
+    if variant == "longk":           # a stage of A and B rows in budget
+        assert p.chunk * (m + n) * word <= max(
+            modmatmul.LONG_STAGE_BYTES,
+            modmatmul.LONG_MIN_KB * (m + n) * word)
+    if variant == "tall":
+        assert p.chunk <= max(modmatmul.TALL_ONE_STAGE_K, modmatmul.TALL_KC)
+
+
+def _fit_views():
+    """The views core/kmeans.py hands ring_mm (n = 1000, k = 5, d_a = 18,
+    d_b = 24): c.s0.T, mu.s0.T, mut.s0[:da], mut.s1[da:], a contiguous
+    share, and a row slice of a wider matrix."""
+    c = _t(_words((1000, 5)))
+    mu = _t(_words((5, 42)))
+    mut = mu.T
+    return {"c.s0.T": (c.T, (True, 5)), "mu.s0.T": (mu.T, (True, 42)),
+            "mut.s0[:da]": (mut[:18], (True, 42)),
+            "mut.s1[da:]": (mut[18:], (True, 42)),
+            "x": (c, (False, 5)), "x[:, 1:3]": (c[:, 1:3], (False, 5)),
+            "row": (c[:1], (False, 5))}
+
+
+@pytest.mark.parametrize("name", ["c.s0.T", "mu.s0.T", "mut.s0[:da]",
+                                  "mut.s1[da:]", "x", "x[:, 1:3]", "row"])
+def test_ring_matmul_reads_the_fits_views_in_place(name):
+    """Every layout the fit passes is described, so the wrapper hands the
+    tensor itself (storage offset included) to the kernel: no copy."""
+    t, want = _fit_views()[name]
+    assert modmatmul.layout(t) == want
+    copies = modmatmul.COPIES
+    same, trans, ld = modmatmul._operand(t, modmatmul.layout(t), True)
+    assert same is t and (trans, ld) == want
+    assert modmatmul.COPIES == copies
+    r, c = t.shape
+    base = t.data_ptr()
+    for i, j in ((r - 1, 0), (0, c - 1), (r - 1, c - 1)):
+        off = j * ld + i if trans else i * ld + j
+        assert t[i, j].data_ptr() == base + 8 * off
+
+
+def test_ring_matmul_copies_only_what_no_layout_describes():
+    """A broadcast (stride 0) and a strided column view are copied and
+    counted; nothing else is."""
+    copies = modmatmul.COPIES
+    for t in (_t(_words((1, 24))).expand(300, 24), _t(_words((40, 6)))[:, ::2]):
+        assert modmatmul.layout(t) is None
+        got, trans, ld = modmatmul._operand(t, None, True)
+        assert got.is_contiguous() and not trans and ld == t.shape[1]
+        assert torch.equal(got, t)
+    assert modmatmul.COPIES == copies + 2
 
 
 # ---------------------------------------------------------------------------

@@ -93,9 +93,44 @@ def test_esd_matches_reference(shape):
 
 @pytest.mark.parametrize("k", [1, 5, 32, 33, 128, 200])
 def test_esd_plan_picks_the_tile_by_k(k):
-    tile = esd.plan(k)
-    assert tile == (0 if k <= esd.SMALL_K else 1)
-    assert esd.TILES[tile][1] >= 8
+    p = esd.plan(42, k)
+    assert p.tile == (0 if k <= esd.SMALL_K else 1)
+    assert p.slots * p.col_tiles >= k
+    assert p.slots >= 1 and p.dc % 4 == 0
+
+
+# (d, k) -> (tile is narrow, slots, column tiles) at the boundaries k = 32/33
+# (narrow/wide) and 128/129 (one/two column tiles), and the slots below
+ESD_BOUNDARIES = [((42, 32), (True, 32, 1)), ((42, 33), (False, 128, 1)),
+                  ((512, 128), (False, 128, 1)), ((512, 129), (False, 128, 2)),
+                  ((256, 3), (True, 4, 1)), ((42, 5), (True, 8, 1)),
+                  ((42, 8), (True, 8, 1)), ((42, 9), (True, 16, 1)),
+                  ((1, 1), (True, 1, 1))]
+
+
+@pytest.mark.parametrize("case", ESD_BOUNDARIES,
+                         ids=[f"d{d}_k{k}" for (d, k), _ in ESD_BOUNDARIES])
+def test_esd_plan_at_the_boundaries(case):
+    (d, k), (narrow, slots, col_tiles) = case
+    p = esd.plan(d, k)
+    assert (p.tile == 0) == narrow
+    assert (p.slots, p.col_tiles) == (slots, col_tiles)
+
+
+@pytest.mark.parametrize("d", [0, 1, 3, 42, 64, 65, 129, 256, 512])
+def test_esd_plan_cuts_d_evenly(d):
+    """The narrow kernel's d chunks: a multiple of 4 words; all of d up to
+    NARROW_ONE_CHUNK_D, else as many chunks of at most NARROW_DC as d
+    needs, cut evenly."""
+    p = esd.plan(d, 5)
+    assert p.dc % 4 == 0 and p.dc >= 4
+    chunks = -(-d // p.dc)
+    if d <= esd.NARROW_ONE_CHUNK_D:
+        assert chunks <= 1 and p.dc <= max(4, d + 3)
+    else:
+        assert p.dc <= esd.NARROW_DC
+        assert chunks == -(-d // esd.NARROW_DC)
+        assert d - (chunks - 1) * p.dc > 0        # no empty last chunk
 
 
 # ---------------------------------------------------------------------------
