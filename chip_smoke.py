@@ -36,14 +36,16 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      u64 spmm at k=10. Then it holds each of the API's kernels against its
      plain version at those shapes (ring words exactly, float32 within
      rtol 1e-5, atol 1e-3) and times kernel, plain version and the one
-     PyTorch call for the same function where there is one;
+     PyTorch call for the same function where there is one; spmm_ell also
+     at the drive's own C^T x (the one-hot of an iteration's argmin_onehot,
+     packed as spmm_from_dense packs it, times x at each width);
   6. prints one JSON line of per-kernel launches, times and bounds, the
      nvidia-smi line, and finally {"ok": true, "device": {...}}.
 
 Phases 2 and 3 cover the sparse slice too: `spmm_ell` against its plain
 version at both main-path shapes and at odd ones, and the sparse GPU fit
-against the sparse CPU fit at k=3 and at k=10 (y wider than one launch's
-8 columns, so the kernel runs as column groups).
+against the sparse CPU fit at k=3 and at k=10. Every spmm_ell call is one
+launch for any width of y (`spmm.plan`).
 
 Every float32 plain version runs with torch.backends.cuda.matmul.
 allow_tf32 = False (set here), so it is full FP32 like the kernels.
@@ -53,9 +55,12 @@ a checkout of the repository, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --kernel-times [--src DIR]
 
-times only ring_matmul at the fits' own operand layouts and esd beside
-addmm + norms (each held to its plain version first), for the repro_torch
-package under DIR (default: this checkout's src/), and prints one JSON line.
+times only ring_matmul at the fits' own operand layouts, esd beside
+addmm + norms, and spmm_ell at every shape of the sparse fit and the
+kernel API (phase 4b's four products, f32 / u32 / u64 k=10 S1 and S3, and
+the Lloyd drive's C^T x at its three widths), each held to its plain
+version first, for the repro_torch package under DIR (default: this
+checkout's src/), and prints one JSON line.
 Run on two trees in one call, in turns (A, B, B, A), it compares their
 kernels on one card.
 """
@@ -98,6 +103,10 @@ TF32_OPS_PER_S = 495e12
 MAC_PER_S = {torch.float32: FP32_OPS_PER_S / 2,
              torch.int32: INT32_OPS_PER_S,
              torch.int64: INT64_MAC_PER_S}
+# spmm_ell: the widest Y whose product multiplies every tile word (the
+# narrow kernel, spmm.NARROW_WIDTHS); a wider Y goes to the wide kernel,
+# which skips the zero words of the tiles, so its bound counts non-zeros
+ELL_DENSE_MAX_K = 16
 
 # Launches of each kernel shape per vertical Lloyd iteration at k=5, read
 # from core/kmeans.py and core/protocol.py: S1 has 2 Beaver smatmuls
@@ -211,15 +220,22 @@ def ell_bound_ms(blocks: torch.Tensor, counts: torch.Tensor,
                  y: torch.Tensor) -> tuple[float, float]:
     """(bytes ms, operations ms) of one spmm_ell: the tiles of the slots
     this input uses (sum of counts), Y, the output and the index arrays;
-    one multiply-add of the word type per tile word and column of Y."""
+    one multiply-add of the word type per tile word and column of Y, or,
+    for Y wider than ELL_DENSE_MAX_K (the kernel skips zero words), per
+    non-zero tile word of the used slots and column of Y."""
     nrb, maxb, bm, bk = blocks.shape
     d_pad, k = y.shape
     word = blocks.element_size()
     used = int(counts.sum()) * bm * bk
     nbytes = word * (used + d_pad * k + nrb * bm * k) \
         + 4 * (nrb * maxb + nrb)
+    macs = used
+    if k > ELL_DENSE_MAX_K:
+        keep = torch.arange(maxb, device=blocks.device)[None, :] \
+            < counts[:, None].long()
+        macs = int((blocks[keep] != 0).sum())
     return (1e3 * nbytes / HBM_BYTES_PER_S,
-            1e3 * used * k / MAC_PER_S[blocks.dtype])
+            1e3 * macs * k / MAC_PER_S[blocks.dtype])
 
 
 def esd_bound_ms(n: int, d: int, k: int) -> tuple[float, float]:
@@ -422,11 +438,11 @@ def time_fit_layouts(table, mu_width: int, seed: int, label: str) -> dict:
 
 
 def library_spmm(blocks, idx, counts, y):
-    """The one PyTorch call for the same product: the ELL tiles as a sparse
-    tensor (built outside the timing) times Y with `torch.sparse.mm`; CSR
-    for float32, COO for ring words (cuSPARSE has no integer CSR product,
-    and COO refuses them with a plain NotImplementedError).
-    Returns (ms or None, note)."""
+    """The one PyTorch call for the same product: the non-zero words of the
+    used ELL tiles as a sparse tensor (built outside the timing) times Y
+    with `torch.sparse.mm`; CSR for float32, COO for ring words (cuSPARSE
+    has no integer CSR product, and COO refuses them with a plain
+    NotImplementedError). Returns (ms or None, note)."""
     nrb, maxb, bm, bk = blocks.shape
     dev = blocks.device
     keep = torch.arange(maxb, device=dev)[None, :] < counts[:, None].long()
@@ -435,10 +451,12 @@ def library_spmm(blocks, idx, counts, y):
         .expand(-1, bm, bk)
     cols = (idx[r, j].long()[:, None, None] * bk
             + torch.arange(bk, device=dev)[None, None, :]).expand(-1, bm, bk)
+    vals = blocks[r, j].reshape(-1)
+    nz = vals != 0
     try:
         sp = torch.sparse_coo_tensor(
-            torch.stack([rows.reshape(-1), cols.reshape(-1)]),
-            blocks[r, j].reshape(-1), (nrb * bm, y.shape[0])).coalesce()
+            torch.stack([rows.reshape(-1)[nz], cols.reshape(-1)[nz]]),
+            vals[nz], (nrb * bm, y.shape[0])).coalesce()
         if y.dtype == torch.float32:
             sp = sp.to_sparse_csr()
         got = torch.sparse.mm(sp, y)
@@ -453,11 +471,12 @@ def library_spmm(blocks, idx, counts, y):
     return ms, f"ran, result {'agrees' if same else 'DIFFERS'}"
 
 
-def time_spmm(label, blocks, idx, counts, y, library=False):
+def time_spmm(label, blocks, idx, counts, y, library=False, plain=True):
     """Kernel = plain version (ring words exactly; float32 within rtol 1e-5,
     atol 1e-3, since its split tile lists meet by atomicAdd in an order
-    that changes per run), then kernel, plain and (optionally) library
-    times and the bound. Returns (ms, plain_ms, bound, lib_ms, err)."""
+    that changes per run), then kernel, plain (when `plain`) and (when
+    `library`) library times and the bound. Returns (ms, plain_ms or None,
+    bound, lib_ms, err)."""
     from repro_torch.kernels import spmm
     got = spmm.spmm_ell(blocks, idx, counts, y)
     want = spmm.spmm_ell_plain(blocks, idx, counts, y)
@@ -470,14 +489,16 @@ def time_spmm(label, blocks, idx, counts, y, library=False):
              f"(max abs err {err})")
     sets = cold_copies((blocks, idx, counts, y))
     ms = device_ms(spmm.spmm_ell, sets)
-    plain_ms = device_ms(spmm.spmm_ell_plain, sets, reps=3, bursts=3)
+    plain_ms = device_ms(spmm.spmm_ell_plain, sets, reps=3, bursts=3) \
+        if plain else None
     del sets
     bound = ell_bound_ms(blocks, counts, y)
     lib_ms, lib_note = library_spmm(blocks, idx, counts, y) if library \
         else (None, "")
     print(f"spmm_ell {label}: {'within tolerance' if y.dtype == torch.float32 else 'equal'}"
-          f" (max abs err {err}); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {_fmt_bound(bound)}"
+          f" (max abs err {err}); kernel {ms:.4f} ms, "
+          + (f"plain {plain_ms:.4f} ms, " if plain else "")
+          + f"bound {_fmt_bound(bound)}"
           + (f"; torch.sparse.mm {lib_note}"
              + (f", {lib_ms:.4f} ms" if lib_ms is not None else "")
              if library else ""), flush=True)
@@ -606,10 +627,11 @@ def phase_gpu_equals_cpu():
 
 def phase_sparse_gpu_equals_cpu(k: int):
     """The sparse GPU fit = the sparse CPU fit, word for word, with the same
-    dealer counters, per-tag traffic and modelled HE seconds. At k > 8 the
-    fit's spmm_ell runs as column groups of y."""
+    dealer counters, per-tag traffic and modelled HE seconds; spmm_ell
+    makes one launch a product at any k (4 an iteration, vertical)."""
     from repro_torch.core import ring
     from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+    from repro_torch.kernels import spmm
     x = _one_hot_like(np.random.default_rng(4), 2048, SP_DA + SP_DB, k,
                       SP_SPARSITY)
     splits = {"vertical": (x[:, :SP_DA], x[:, SP_DA:]),
@@ -619,8 +641,15 @@ def phase_sparse_gpu_equals_cpu(k: int):
         for backend, device in (("cuda", "cuda"), ("torch", "cpu")):
             cfg = KMeansConfig(k=k, iters=2, partition=part, seed=3,
                                sparse=True, backend=backend, device=device)
+            before = spmm.LAUNCHES
             res[backend] = SecureKMeans(cfg).fit(xa, xb)
+            if backend == "cuda":
+                launches = spmm.LAUNCHES - before
         g, c = res["cuda"], res["torch"]
+        want = SP_PER_ITER["spmm_ell"] * g.iters_run
+        if part == "vertical" and launches != want:
+            fail(f"sparse vertical fit, k={k}: {launches} spmm_ell launches, "
+                 f"{want} expected (4 an iteration, one a product)")
         for field in ("centroids", "assignment"):
             for i in (0, 1):
                 gw = ring.to_u64_numpy(getattr(g, field)[i])
@@ -642,7 +671,8 @@ def phase_sparse_gpu_equals_cpu(k: int):
               f"{g.dealer.n_matmul}, mul {g.dealer.n_mul}, bin "
               f"{g.dealer.n_bin}), online/offline traffic per tag and "
               f"he_seconds ({g.he_seconds!r}) identical; GPU loop "
-              f"{g.loop_seconds:.3f} s, CPU loop {c.loop_seconds:.3f} s",
+              f"{g.loop_seconds:.3f} s, CPU loop {c.loop_seconds:.3f} s; "
+              f"spmm_ell launches {launches} in {g.iters_run} iterations",
               flush=True)
 
 
@@ -650,9 +680,9 @@ def phase_sparse_main_path():
     """The full-width sparse secure fit (Protocol 2) through the user's
     entry point, with the launch counters read around it; then spmm_ell
     timed on the fit's own ELL inputs."""
-    from repro_torch.core import ring, sparse
+    from repro_torch.core import sparse
     from repro_torch.core.kmeans import (KMeansConfig, SecureKMeans,
-                                         _encode_np, plaintext_kmeans)
+                                         plaintext_kmeans)
     from repro_torch.kernels import ksadder, modmatmul, spmm
     x = _one_hot_like(np.random.default_rng(SP_SEED + 7), SP_N,
                       SP_DA + SP_DB, SP_K, SP_SPARSITY)
@@ -702,11 +732,30 @@ def phase_sparse_main_path():
 
     # spmm_ell on this fit's own inputs: the four packed matrices of one
     # iteration, with random Y words of the shapes the fit gives them
+    total = [0.0, 0.0, 0.0, 0.0, 0.0]      # ms, plain, bound, bytes, ops
+    for label, args in fit_spmm_cases(x):
+        ms, plain_ms, bound, _, _ = time_spmm(label, *args)
+        for i, v in enumerate((ms, plain_ms, max(bound), *bound)):
+            total[i] += v
+    print(f"spmm_ell per sparse iteration (4 launches on the fit's data): "
+          f"kernel {total[0]:.4f} ms, plain {total[1]:.4f} ms, bound "
+          f"{total[2]:.4f} ms", flush=True)
+    by = "bytes" if total[3] >= total[4] else "operations"
+    return launches, (total[0], total[1], total[2], by)
+
+
+def fit_spmm_cases(x: np.ndarray) -> list:
+    """[(label, (blocks, idx, counts, y))] of the sparse fit's four spmm_ell
+    products of one iteration (phase 4b): X_A and X_B packed as the fit
+    packs them (S1) and their transposes (S3), with random Y words of the
+    fit's shapes (seeded)."""
+    from repro_torch.core import ring, sparse
+    from repro_torch.core.kmeans import _encode_np
     rng = np.random.default_rng(SP_SEED)
     dev = torch.device("cuda")
-    total = [0.0, 0.0, 0.0, 0.0, 0.0]      # ms, plain, bound, bytes, ops
+    cases = []
     for name, xs in (("X_A", x[:, :SP_DA]), ("X_B", x[:, SP_DA:])):
-        csr = sparse.CSRMatrix.from_dense(_encode_np(xs, cfg.f))
+        csr = sparse.CSRMatrix.from_dense(_encode_np(xs, ring.F))
         for step, mat in (("S1", csr), ("S3", csr.transpose())):
             blocks, idx, counts = mat.ell(device=dev)
             d_pad = blocks.shape[3] * -(-mat.shape[1] // blocks.shape[3])
@@ -714,15 +763,8 @@ def phase_sparse_main_path():
                 0, 1 << 64, (d_pad, SP_K), dtype=np.uint64), dev)
             label = (f"{step} on the fit's {name}{'^T' if step == 'S3' else ''}"
                      f" {tuple(blocks.shape)}, {int(counts.sum())} tiles used")
-            ms, plain_ms, bound, _, _ = time_spmm(label, blocks, idx, counts,
-                                                  y)
-            for i, v in enumerate((ms, plain_ms, max(bound), *bound)):
-                total[i] += v
-    print(f"spmm_ell per sparse iteration (4 launches on the fit's data): "
-          f"kernel {total[0]:.4f} ms, plain {total[1]:.4f} ms, bound "
-          f"{total[2]:.4f} ms", flush=True)
-    by = "bytes" if total[3] >= total[4] else "operations"
-    return launches, (total[0], total[1], total[2], by)
+            cases.append((label, (blocks, idx, counts, y)))
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -738,6 +780,7 @@ def _api_counters() -> dict:
             "spmm_ell_f32": (spmm, "LAUNCHES_F32"),
             "spmm_ell_u32": (spmm, "LAUNCHES_U32"),
             "spmm_ell": (spmm, "LAUNCHES"),
+            "spmm_ell_zero": (spmm, "ZERO_LAUNCHES"),
             "ring_matmul": (modmatmul, "LAUNCHES"),
             "ks_carry_share": (ksadder, "LAUNCHES")}
 
@@ -813,6 +856,45 @@ def api_data() -> dict:
     return {"lloyd": lloyd, "mm32": mm32, "ell": ell}
 
 
+def ctx_spmm_cases(lloyd: dict) -> list:
+    """[(label, (blocks, idx, counts, y))] of the Lloyd drive's C^T x at each
+    width: the one-hot of its first iteration's argmin_onehot, packed as
+    spmm_from_dense packs it (C^T as float32, blocked ELL on the host),
+    and x with the zero rows ops.spmm pads it with."""
+    from repro_torch.kernels import ops, spmm
+    cases = []
+    for (d, k), (_, x, init) in lloyd.items():
+        mu = x[torch.as_tensor(init, device=x.device)].clone()
+        c = ops.argmin_onehot(ops.esd(x, mu))
+        blocks, idx, counts = spmm.dense_to_ell(
+            c.T.cpu().numpy().astype(np.float32))
+        bk = blocks.shape[3]
+        y = torch.cat([x, x.new_zeros(((-x.shape[0]) % bk, d))])
+        label = (f"f32 C^T x (d={d}, k={k}) {tuple(blocks.shape)} @ "
+                 f"{tuple(y.shape)}")
+        cases.append((label, tuple(torch.from_numpy(a).to(x.device)
+                                   for a in (blocks, idx, counts)) + (y,)))
+    return cases
+
+
+def api_spmm_cases(data: dict) -> list:
+    """[(name in the kernels line, label, (blocks, idx, counts, y))] of
+    phase 5's spmm_ell shapes: f32, u32 (k=3) and u64 (k=10) on phase 4b's
+    X_A (S1) and X_A^T (S3), then the drive's C^T x (f32)."""
+    names = {torch.float32: "spmm_ell_f32", torch.int32: "spmm_ell_u32",
+             torch.int64: "spmm_ell_k10"}
+    cases = []
+    for (dtype, step), (blocks, idx, counts, y, _) in data["ell"].items():
+        name = names[dtype]
+        label = (f"{name.removeprefix('spmm_ell_')} {step} on phase 4b's X_A"
+                 f"{'^T' if step == 'S3' else ''} {tuple(blocks.shape)} @ "
+                 f"{tuple(y.shape)}")
+        cases.append((name, label, (blocks, idx, counts, y)))
+    cases += [("spmm_ell_f32", label, args)
+              for label, args in ctx_spmm_cases(data["lloyd"])]
+    return cases
+
+
 def phase_api_main_path(data: dict) -> dict:
     """The kernel API through its public entry points, with every launch
     counter set to 0 just before and read just after: API_ITERS plaintext
@@ -873,17 +955,31 @@ def phase_api_main_path(data: dict) -> dict:
             else torch.equal(got, want)
         if not ok:
             fail(f"API spmm {key} differs from its plain version")
+    # one launch per spmm call at any width (spmm.plan), and a zero kernel
+    # before each split one: C^T x at each width and iteration, then S1 and
+    # S3 in each word type
+    ell_calls = [(blocks.shape, y.shape[1], y.element_size())
+                 for blocks, _, _, y, _ in data["ell"].values()]
+    for d, k in data["lloyd"]:
+        nrb = -(-k // 8)
+        ell_calls += [((nrb, -(-API_N // 128), 8, 128), d, 4)] * API_ITERS
     expected = {
         "esd": len(API_ESD) * API_ITERS,
         "argmin_onehot": len(API_ESD) * API_ITERS,
         "ring_matmul_u32": len(API_MM32),
-        "spmm_ell_f32": API_ITERS * sum(len(spmm.column_groups(d))
-                                        for d, _ in API_ESD) + 2,
+        "spmm_ell_f32": API_ITERS * len(API_ESD) + 2,
         "spmm_ell_u32": 2,
-        "spmm_ell": 2 * len(spmm.column_groups(SP_WIDE_K)),
+        "spmm_ell": 2,
+        "spmm_ell_zero": sum(spmm.plan(*shape, k, word).zeroed
+                             for shape, k, word in ell_calls),
         "ring_matmul": 0, "ks_carry_share": 0}
     print(f"launches in the kernel API path ({wall:.3f} s wall): {launches} "
-          f"(expected from the code: {expected})", flush=True)
+          f"(expected from the code: {expected}; C^T x assumed to use all "
+          f"{-(-API_N // 128)} column tiles of each row block)", flush=True)
+    for name in ("spmm_ell_f32", "spmm_ell_u32", "spmm_ell"):
+        if launches[name] != expected[name]:
+            fail(f"{name}: {launches[name]} launches on the kernel API path, "
+                 f"{expected[name]} expected (one a call)")
     for name in ("esd", "argmin_onehot", "ring_matmul_u32", "spmm_ell_f32",
                  "spmm_ell_u32", "spmm_ell"):
         if launches[name] <= 0:
@@ -956,7 +1052,7 @@ def phase_api_kernels(data: dict):
     bound. Returns ({name: [(ms, plain_ms, bound, lib_ms)]}, {name: worst
     max abs err}); u64 spmm at k=10 is held and printed, with its worst
     error under "spmm_ell_k10"."""
-    from repro_torch.kernels import argmin, esd, modmatmul, spmm
+    from repro_torch.kernels import argmin, esd, modmatmul
     rows = {n: [] for n in ("esd", "argmin_onehot", "ring_matmul_u32",
                             "spmm_ell_f32", "spmm_ell_u32")}
     worst = dict.fromkeys([*rows, "spmm_ell_k10"], 0.0)
@@ -1018,15 +1114,9 @@ def phase_api_kernels(data: dict):
               + (f", {lib_ms:.4f} ms" if lib_ms is not None else ""),
               flush=True)
 
-    names = {torch.float32: "spmm_ell_f32", torch.int32: "spmm_ell_u32",
-             torch.int64: "spmm_ell_k10"}
-    for (dtype, step), (blocks, idx, counts, y, _) in data["ell"].items():
-        name = names[dtype]
-        label = (f"{name.removeprefix('spmm_ell_')} {step} on phase 4b's X_A"
-                 f"{'^T' if step == 'S3' else ''} {tuple(blocks.shape)} @ "
-                 f"{tuple(y.shape)}")
+    for name, label, (blocks, idx, counts, y) in api_spmm_cases(data):
         ms, plain_ms, bound, lib_ms, err = time_spmm(
-            label, blocks, idx, counts, y, library=dtype != torch.int64)
+            label, blocks, idx, counts, y, library=name != "spmm_ell_k10")
         if name in rows:                  # u64 at k=10 is printed only
             rows[name].append((ms, plain_ms, bound, lib_ms))
         worst[name] = max(worst[name], err)
@@ -1087,11 +1177,14 @@ def phase_main_path():
 
 def kernel_times(src: pathlib.Path, smi_line: str) -> None:
     """`--kernel-times`: ring_matmul at the dense and sparse fits' own
-    layouts and esd beside addmm + norms at the phase-5 shapes, each held
-    to its plain version first, for the repro_torch package under `src`.
-    Run it on two trees in one call, in turns, to compare their kernels on
-    one card. Prints one JSON line of the times."""
-    out = {"src": str(src), "card": smi_line, "ring_matmul": {}, "esd": {}}
+    layouts, esd beside addmm + norms at the phase-5 shapes, and spmm_ell
+    at every shape of the sparse fit (phase 4b) and of the kernel API
+    (phase 5, the drive's C^T x included), each held to its plain version
+    first, for the repro_torch package under `src`. Run it on two trees in
+    one call, in turns, to compare their kernels on one card. Prints one
+    JSON line of the times."""
+    out = {"src": str(src), "card": smi_line, "ring_matmul": {}, "esd": {},
+           "spmm_ell": {}}
     for label, table, width, seed in (
             ("dense", MM_FIT_PER_ITER, DA + DB, SEED),
             ("sparse", SP_MM_FIT_PER_ITER, SP_DA + SP_DB, SEED + 1)):
@@ -1110,6 +1203,16 @@ def kernel_times(src: pathlib.Path, smi_line: str) -> None:
         ms, _, bound, lib_ms, err = check_time_esd(x, mu, plain=False)
         out["esd"][f"{d}x{k}"] = {"ms": ms, "library_ms": lib_ms,
                                   "bound_ms": max(bound), "max_abs_err": err}
+    x = _one_hot_like(np.random.default_rng(SP_SEED + 7), SP_N,
+                      SP_DA + SP_DB, SP_K, SP_SPARSITY)
+    cases = [("spmm_ell", label, args) for label, args in fit_spmm_cases(x)]
+    del x
+    data = api_data()
+    cases += api_spmm_cases(data)
+    for name, label, args in cases:
+        ms, _, bound, _, err = time_spmm(label, *args, plain=False)
+        out["spmm_ell"][label] = {"ms": ms, "bound_ms": max(bound),
+                                  "max_abs_err": err}
     print(json.dumps({"kernel_times": out}))
 
 
@@ -1127,6 +1230,11 @@ def main() -> None:
     except ImportError as exc:
         fail(f"cannot import repro_torch from {src}: {exc}")
     smi_line = setup()
+    from repro_torch.kernels import spmm
+    if hasattr(spmm, "NARROW_WIDTHS") \
+            and spmm.NARROW_WIDTHS[-1] != ELL_DENSE_MAX_K:
+        fail(f"ELL_DENSE_MAX_K {ELL_DENSE_MAX_K} is not the narrow spmm "
+             f"kernel's widest Y ({spmm.NARROW_WIDTHS[-1]})")
     if "--kernel-times" in args:
         kernel_times(src, smi_line)
         return

@@ -39,7 +39,9 @@ SIGNATURES = {
     "ksadder": ("ks_carry_share_launch",
                 [_P] * 5 + [_P, _I64] * 5 + [_P, _I64, _I32, _I32, _I32, _P]),
     "spmm": ("spmm_ell_launch",
-             [_P] * 5 + [_I64, _I64, _I32, _I32, _I32, _I64, _I32, _I32, _P]),
+             [_P] * 5 + [_I64, _I64, _I32, _I32, _I32, _I64, _I32, _I32, _I32,
+                         _I32, _I32, _I32, _I64, _I32, _I32, _I32, _I32,
+                         _I32, _I32, _I32, _I64, _I64, _I32, _P]),
     "esd": ("esd_launch", [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
                            _P]),
     "argmin": ("argmin_onehot_launch", [_P, _P, _I64, _I32, _I32, _P]),

@@ -4,12 +4,12 @@ types: int64 words mod 2^64 (Protocol 2 step 2, core/sparse.py), int32
 words mod 2^32, or float32 (both through the kernel API, `kernels/ops.py`).
 
 Port of the Pallas TPU kernel `repro/kernels/spmm.py:spmm_ell` with all
-three of its tile products (`_tile_matmul`). The CUDA kernel is
-`csrc/spmm.cu`, one template on the word type; its header says what bounds
-it and how its split of the tile list answers that. The reference keeps all
-of Y in VMEM and its API asserts that Y fits a 12 MB budget
+three of its tile products (`_tile_matmul`). The CUDA kernels are in
+`csrc/spmm.cu`, templates on the word type; its header says what bounds
+each shape on an H100 and what the design does about it. The reference
+keeps all of Y in VMEM and its API asserts that Y fits a 12 MB budget
 (`repro/kernels/ops.py:spmm`); that is a TPU limit and is not ported, since
-this kernel stages Y one bk x k tile at a time. Beside it:
+these kernels stage Y one tile at a time. Beside them:
 
 * `dense_to_ell` / `csr_to_ell` — the host packers, numpy copies of the
   reference's, so the tiles the kernel reads are word for word the ones
@@ -20,37 +20,64 @@ this kernel stages Y one bk x k tile at a time. Beside it:
   broadcast multiply-and-sum over chunks of bk. Float32 takes `@` on any
   device, in full FP32 on CUDA as long as
   `torch.backends.cuda.matmul.allow_tf32` is False (PyTorch's default).
-* `column_groups` — how the wrapper cuts a Y wider than `MAX_K` columns
-  into groups: each group's columns are copied contiguous, launched once,
-  and the group outputs concatenated.
+* `plan` — the one launch of a product, for any width of Y: which kernel
+  (narrow, k <= 16: each lane sums all k columns over its words of a tile
+  row, bound by the bytes of the tiles; wide, k > 16: column tiles of 32 V
+  words over the grid, lanes over Y's columns, the zero words of the tiles
+  skipped, bound by the bytes of Y), its column tile, the row blocks a
+  block takes or the split of long tile lists, and its shared memory.
+  `Plan.work` is the block-to-work map the kernels compute, so the CPU
+  tests can check that it covers every slot and column once.
 * `spmm_ell` — the wrapper. A CPU tensor takes the plain version; a CUDA
-  tensor launches the kernel or raises. `LAUNCHES` counts launches on int64
-  words, `LAUNCHES_U32` on int32 words, `LAUNCHES_F32` on float32.
+  tensor launches the kernel or raises. Every call on the card is one
+  launch, counted by word type: `LAUNCHES` (int64), `LAUNCHES_U32` (int32),
+  `LAUNCHES_F32` (float32). A split launch zeroes its output in a small
+  kernel of its own first, counted in `ZERO_LAUNCHES`. Y is read in place,
+  row-major with its leading dimension or (narrow kernel) as the
+  transposed view of a row-major matrix; a Y that neither kernel can read
+  in place is copied contiguous once for the call, counted in `COPIES`.
 
-The f32 kernel splits long tile lists over blocks that meet by `atomicAdd`
-in an order that changes from run to run, so its sums agree with the plain
-version to rounding, not bit for bit; the ring words are exact. The
-transposed Y views of the main path (`ct.s1.T`) are copied `.contiguous()`
-by the wrapper.
+Split tile lists meet by `atomicAdd` in an order that changes from run to
+run, so f32 sums agree with the plain version to rounding, not bit for
+bit; the ring words are exact.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import modmatmul
 
 LAUNCHES = 0            # kernel launches by `spmm_ell` on int64 words
 LAUNCHES_U32 = 0        # ... on int32 words (mod 2^32)
 LAUNCHES_F32 = 0        # ... on float32
+ZERO_LAUNCHES = 0       # zero kernels launched before split products
+COPIES = 0              # Y operands copied because no kernel reads them
 WORD_CODES = {torch.float32: 0, torch.int32: 1, torch.int64: 2}  # csrc/spmm.cu
 
-MAX_K = 8               # widest Y column group one launch takes
-SMEM_BYTES = 48 * 1024  # dynamic shared memory for one staged Y tile
-TARGET_BLOCKS = 4 * 132  # enough blocks to fill an H100's 132 SMs
-# (plan() never splits a list more than TARGET_BLOCKS ways, well inside
-# CUDA's gridDim.y limit)
+# An H100 (csrc/spmm.cu, 256 threads a block): 132 SMs, 227 KB of shared
+# memory a block, 228 KB an SM (1 KB of it reserved per resident block).
+SMS = 132
+SMEM_PER_BLOCK = 227 * 1024
+SMEM_PER_SM = 228 * 1024
+NARROW_WIDTHS = (3, 4, 8, 10, 12, 16)   # K instances: sums a lane keeps
+WIDE_WIDTHS = (1, 2, 4, 8)          # V instances: Y columns a lane owns
+# narrow kernel: a block per few row blocks, or a row block's list split
+# over blocks so that about TARGET_BLOCKS are in flight, at least
+# MIN_SLOTS_PER_SPLIT slots a block
+TARGET_BLOCKS = 4 * SMS
 MIN_SLOTS_PER_SPLIT = 4
+# wide kernel: a ring of X_STAGES X tiles and Y_STAGES Y tiles; tiles of at
+# most MAX_BM x MAX_BK (a warp per tile row); the group's counts and idx
+# copied to shared memory, at most IDX_CAP ints
+X_STAGES = 4
+Y_STAGES = 3
+MAX_BM = 8
+MAX_BK = 128
+IDX_CAP = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -152,32 +179,137 @@ def _broadcast_tile_matmul(blocks: torch.Tensor,
     return out
 
 
-def plan(nrb: int, maxb: int) -> tuple[int, int]:
-    """(slots per split, number of splits) for an ELL product: the tile
-    list of each row block is cut over gridDim.y so that about
-    TARGET_BLOCKS blocks are in flight when there are few row blocks."""
-    splits = max(1, min(-(-TARGET_BLOCKS // max(1, nrb)),
-                        -(-maxb // MIN_SLOTS_PER_SPLIT)))
+
+
+# ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+class Plan(NamedTuple):
+    """One launch of csrc/spmm.cu for a product of nrb row blocks of maxb
+    slots of bm x bk tiles with a Y of k columns."""
+    wide: bool          # the wide kernel (k > 16), else the narrow one
+    width: int          # narrow: sums a lane keeps (K); wide: columns a lane
+    col_tile: int       # columns of Y a block covers
+    col_tiles: int      # column tiles, over the grid
+    rows_per_block: int  # row blocks a block takes
+    splits: int         # blocks sharing one row block's tile list
+    per_split: int      # slots of the list a block takes
+    x_words: int        # words of a staged X tile (wide)
+    y_words: int        # words of a staged Y tile
+    y_stride: int       # words between the staged Y rows (row-major Y)
+    meta_off: int       # bytes of the staged tiles before the wide block's
+                        # copy of counts and idx
+    smem: int           # dynamic shared memory, bytes
+    blocks: int         # grid size
+
+    @property
+    def zeroed(self) -> bool:
+        """A split launch meets by atomicAdd, so a zero kernel runs first."""
+        return self.splits > 1
+
+    def work(self, b: int, nrb: int, maxb: int,
+             k: int) -> tuple[int, int, int, int, int, int]:
+        """What block b computes, as csrc/spmm.cu's `Ring` decodes it: row
+        blocks [ra, rb), of each the slots [j0, min(counts[r], jcap)), and
+        the columns [col0, col0 + cols) of Y. Row blocks are innermost, so
+        neighbouring blocks read the same Y tiles."""
+        units = -(-nrb // self.rows_per_block)
+        ru, rest = b % units, b // units
+        ct, s = rest % self.col_tiles, rest // self.col_tiles
+        ra = ru * self.rows_per_block
+        j0 = s * self.per_split
+        col0 = ct * self.col_tile
+        return (ra, min(nrb, ra + self.rows_per_block), j0,
+                min(maxb, j0 + self.per_split), col0,
+                min(self.col_tile, k - col0))
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def wide_group(width: int, word: int) -> int:
+    """Row blocks a wide block takes at once (csrc/spmm.cu wide_group): its
+    sums, group x width words a lane, stay within 64 registers."""
+    return min(16, 256 // (width * word))
+
+
+def plan(nrb: int, maxb: int, bm: int, bk: int, k: int, word: int,
+         y_t: bool = False) -> Plan:
+    """The launch of one spmm_ell (word: bytes of a word; y_t: Y is the
+    transposed view of a row-major matrix, read in place by the narrow
+    kernel). Raises ValueError for tiles the wide kernel does not take
+    (bm > 8 or bk > 128)."""
+    vec = 16 // word                          # words in 16 bytes
+    if k <= NARROW_WIDTHS[-1]:
+        width = next(w for w in NARROW_WIDTHS if w >= k)
+        if y_t:       # Y^T's rows, bk words each
+            y_stride, y_words = bk, _round_up(width * bk, vec)
+        else:         # bk rows at an odd stride: no bank conflicts
+            y_stride = k | 1
+            y_words = _round_up(bk * y_stride + width, vec)
+        splits = max(1, min(-(-TARGET_BLOCKS // max(1, nrb)),
+                            -(-maxb // MIN_SLOTS_PER_SPLIT)))
+        per_split = -(-maxb // splits)
+        splits = -(-maxb // per_split)
+        # many row blocks: a block walks a few, about 2 * TARGET_BLOCKS
+        rows_per_block = max(1, nrb // (2 * TARGET_BLOCKS)) \
+            if splits == 1 else 1
+        meta_off = _round_up(word * y_words, 16)
+        smem = meta_off + 4 * rows_per_block
+        return Plan(False, width, k, 1, rows_per_block, splits, per_split, 0,
+                    y_words, y_stride, meta_off, smem,
+                    -(-nrb // rows_per_block) * splits)
+    if not 1 <= bm <= MAX_BM or not 1 <= bk <= MAX_BK:
+        raise ValueError(f"spmm_ell on the card takes y wider than "
+                         f"{NARROW_WIDTHS[-1]} columns with tiles of 1 to "
+                         f"{MAX_BM} rows and 1 to {MAX_BK} columns, not "
+                         f"{bm}x{bk}")
+    x_words = _round_up(bm * bk, vec)
+    room = SMEM_PER_BLOCK - 4 * IDX_CAP - word * X_STAGES * x_words
+    width = next((v for v in WIDE_WIDTHS if 32 * v >= k), WIDE_WIDTHS[-1])
+    while width > 1 and word * Y_STAGES * bk * 32 * width > room:
+        width //= 2
+    col_tile = y_stride = 32 * width
+    y_words = bk * col_tile
+    ring = word * (Y_STAGES * y_words + X_STAGES * x_words)
+    col_tiles = -(-k // col_tile)
+    resident = SMS * max(1, SMEM_PER_SM // (ring + 4 * IDX_CAP + 1024))
+    rows_per_block = min(nrb, wide_group(width, word))
+    base = -(-nrb // rows_per_block) * col_tiles
+    splits = 1
+    if base < resident // 2 and maxb > MIN_SLOTS_PER_SPLIT:
+        splits = min(max(1, resident // base),
+                     -(-maxb // MIN_SLOTS_PER_SPLIT))
+    # the group's copy of counts and idx: rows_per_block * (1 + per) ints
+    splits = max(splits, -(-maxb // (IDX_CAP // rows_per_block - 1)))
     per_split = -(-maxb // splits)
     splits = -(-maxb // per_split)
-    return per_split, splits
+    meta_off = _round_up(ring, 16)
+    smem = meta_off + 4 * rows_per_block * (1 + per_split)
+    return Plan(True, width, col_tile, col_tiles, rows_per_block, splits,
+                per_split, x_words, y_words, y_stride, meta_off, smem,
+                base * splits)
 
 
-def column_groups(k: int) -> list[tuple[int, int]]:
-    """[lo, hi) column ranges of y, each at most MAX_K wide and of near-equal
-    widths, that together cover its k columns: one launch each. Each
-    group's product is the same function on fewer columns, exact mod 2^l."""
-    groups = max(1, -(-k // MAX_K))
-    bounds = [g * k // groups for g in range(groups + 1)]
-    return list(zip(bounds[:-1], bounds[1:]))
+def _piece_bytes(ptr: int, *sizes: int) -> int:
+    """The widest cp.async piece (16, 8 or 4 bytes) that divides the base
+    address and every byte offset of the copies."""
+    return next(g for g in (16, 8, 4)
+                if ptr % g == 0 and all(s % g == 0 for s in sizes))
 
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
 
 def spmm_ell(blocks: torch.Tensor, idx: torch.Tensor, counts: torch.Tensor,
              y: torch.Tensor) -> torch.Tensor:
     """Blocked-ELL sparse x dense -> (nrb*bm, k), in the word type of
     blocks and y: int64 (mod 2^64), int32 (mod 2^32) or float32. CPU
-    tensors: plain version. CUDA tensors: the hand kernel, one launch per
-    column group of y (`column_groups`), or an exception.
+    tensors: plain version. CUDA tensors: the hand kernel, one launch for
+    any width of y (`plan`), or an exception.
 
     The tiles of used slots must point into y (idx[r, j] < d_pad / bk for
     j < counts[r]), as `csr_to_ell` / `dense_to_ell` make them: the kernel
@@ -214,38 +346,46 @@ def spmm_ell(blocks: torch.Tensor, idx: torch.Tensor, counts: torch.Tensor,
         return spmm_ell_plain(blocks, idx, counts, y)
     if blocks.device.type != "cuda":
         raise ValueError(f"spmm_ell runs on cpu or cuda, not {blocks.device}")
-    groups = column_groups(k)
-    widest = max(hi - lo for lo, hi in groups)
-    if bk * widest * blocks.element_size() > SMEM_BYTES:
-        raise ValueError(f"a staged Y tile of {bk}x{widest} words exceeds "
-                         f"{SMEM_BYTES} bytes of shared memory")
-    global LAUNCHES, LAUNCHES_U32, LAUNCHES_F32
+    global LAUNCHES, LAUNCHES_U32, LAUNCHES_F32, ZERO_LAUNCHES, COPIES
     if nrb * bm * k == 0 or maxb == 0:
         return torch.zeros((nrb * bm, k), dtype=blocks.dtype,
                            device=blocks.device)
-    per_split, splits = plan(nrb, maxb)
-    alloc = torch.zeros if splits > 1 else torch.empty
+    word = blocks.element_size()
+    lay = modmatmul.layout(y)
+    p = plan(nrb, maxb, bm, bk, k, word, lay is not None and lay[0])
+    if lay is None or (lay[0] and p.wide):
+        y = y.contiguous()
+        lay = (False, max(1, k))
+        COPIES += 1
+    y_t, ldy = lay
     blocks = blocks.contiguous()
     idx = idx.to(torch.int32).contiguous()
     counts = counts.to(torch.int32).contiguous()
+    out = torch.empty((nrb * bm, k), dtype=blocks.dtype, device=blocks.device)
+    if y_t:
+        yg = _piece_bytes(y.data_ptr(), ldy * word, bk * word)
+    elif not p.wide and ldy == k == p.y_stride:    # the tile is one run
+        yg = _piece_bytes(y.data_ptr(), bk * k * word)
+    else:
+        yg = _piece_bytes(y.data_ptr(), ldy * word, k * word,
+                          p.col_tile * word, p.y_stride * word)
+    xg = _piece_bytes(blocks.data_ptr(), bm * bk * word)
     fn = _build.launcher("spmm")
-    outs = []
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream(blocks.device).cuda_stream
-        for lo, hi in groups:
-            yg = y[:, lo:hi].contiguous()        # no copy for one group
-            out = alloc((nrb * bm, hi - lo), dtype=blocks.dtype,
-                        device=blocks.device)
-            err = fn(blocks.data_ptr(), idx.data_ptr(), counts.data_ptr(),
-                     yg.data_ptr(), out.data_ptr(), nrb, maxb, bm, bk,
-                     hi - lo, per_split, splits, WORD_CODES[blocks.dtype],
-                     stream)
-            _build.check(err, "spmm_ell")
-            if blocks.dtype == torch.int64:
-                LAUNCHES += 1
-            elif blocks.dtype == torch.int32:
-                LAUNCHES_U32 += 1
-            else:
-                LAUNCHES_F32 += 1
-            outs.append(out)
-    return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
+        err = fn(blocks.data_ptr(), idx.data_ptr(), counts.data_ptr(),
+                 y.data_ptr(), out.data_ptr(), nrb, maxb, bm, bk, k, ldy,
+                 int(y_t), int(p.wide), p.width, p.col_tile, p.col_tiles,
+                 p.rows_per_block, p.per_split, p.splits, p.x_words,
+                 p.y_words, p.y_stride, yg, xg, p.meta_off, p.blocks, p.smem,
+                 WORD_CODES[blocks.dtype], stream)
+    _build.check(err, "spmm_ell")
+    if p.zeroed:
+        ZERO_LAUNCHES += 1
+    if blocks.dtype == torch.int64:
+        LAUNCHES += 1
+    elif blocks.dtype == torch.int32:
+        LAUNCHES_U32 += 1
+    else:
+        LAUNCHES_F32 += 1
+    return out

@@ -244,22 +244,32 @@ LAUNCH_COUNTERS = {torch.float32: "LAUNCHES_F32", torch.int32: "LAUNCHES_U32",
                    torch.int64: "LAUNCHES"}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.int64],
-                         ids=["f32", "u32", "u64"])
+WORD_TYPES = pytest.mark.parametrize(
+    "dtype", [torch.float32, torch.int32, torch.int64],
+    ids=["f32", "u32", "u64"])
+
+
+@WORD_TYPES
 @pytest.mark.parametrize("case", [((1250, 1, 8, 128), 128, 3),
                                   ((16, 80, 8, 128), 10240, 3),
                                   ((64, 20, 8, 128), 2560, 10),
-                                  ((33, 9, 4, 64), 640, 5)],
-                         ids=["S1", "S3", "k10", "bm4_bk64"])
+                                  ((33, 9, 4, 64), 640, 5),
+                                  ((40, 12, 8, 128), 1536, 9),
+                                  ((16, 30, 8, 128), 3840, 42),
+                                  ((8, 24, 8, 128), 3072, 128),
+                                  ((3, 40, 8, 128), 5120, 512)],
+                         ids=["S1", "S3", "k10", "bm4_bk64", "k9", "k42",
+                              "k128", "k512"])
 def test_spmm_ell_word_types_equal_plain(cuda, case, dtype):
     """Ring words exactly; float32 within rtol 1e-5, atol 1e-3, because the
-    split tile lists meet by atomicAdd in an order that changes per run."""
+    split tile lists meet by atomicAdd in an order that changes per run.
+    One launch per call, whatever the width of y."""
     (nrb, maxb, bm, bk), d_pad, k = case
     blocks, idx, counts, y = _ell(nrb, maxb, bm, bk, d_pad, k, dtype, cuda)
     counter = LAUNCH_COUNTERS[dtype]
     before = getattr(spmm, counter)
     got = ops.spmm(blocks, idx, counts, y)
-    assert getattr(spmm, counter) == before + len(spmm.column_groups(k))
+    assert getattr(spmm, counter) == before + 1
     want = spmm.spmm_ell_plain(blocks, idx, counts, y)
     assert got.dtype == dtype
     if dtype == torch.float32:
@@ -268,13 +278,51 @@ def test_spmm_ell_word_types_equal_plain(cuda, case, dtype):
         assert torch.equal(got, want)
 
 
-def test_spmm_from_dense_lloyd_update(cuda):
-    """C^T X of a plaintext Lloyd step through the API on the card."""
-    x = RNG.normal(0, 3, (5000, 42)).astype(np.float32)
-    lab = RNG.integers(0, 5, 5000)
-    c = np.eye(5, dtype=np.int32)[lab]
+@WORD_TYPES
+@pytest.mark.parametrize("k", [3, 9, 42, 128, 512])
+def test_spmm_ell_zero_words_beside_inf_and_nan(cuda, k, dtype):
+    """Tiles mostly zero (whole zero rows and columns, the wide kernel's
+    skipped words) against a y holding inf and NaN in some rows (float32)
+    or all-ones words (ring words): the kernel equals the plain version,
+    NaN where it has NaN (0 * inf is NaN), ring words exactly."""
+    nrb, maxb, bm, bk = 6, 10, 8, 128
+    d_pad = 12 * bk
+    blocks, idx, counts, y = _ell(nrb, maxb, bm, bk, d_pad, k, dtype, cuda)
+    keep = torch.from_numpy(RNG.random((nrb, maxb, bm, bk)) < 0.05)
+    keep[:, :, :, :64] = False                       # zero columns
+    keep[:, :, 3] = False                            # zero rows
+    blocks = torch.where(keep.to(cuda), blocks, torch.zeros_like(blocks))
+    if dtype == torch.float32:
+        y[5 * bk + 3] = float("inf")                 # tile 5: inf row
+        y[7 * bk + 70, : (k + 1) // 2] = float("nan")   # tile 7: NaN
+        y[9 * bk + 1, -1] = -float("inf")
+    else:
+        y[5 * bk: 6 * bk] = -1                       # all-ones words
+    idx[:, 0] = 5
+    idx[:, 1] = 7
+    idx[:, 2] = 9
+    idx[:, 3] = 0                                    # a finite tile
+    got = spmm.spmm_ell(blocks, idx, counts, y)
+    want = spmm.spmm_ell_plain(blocks, idx, counts, y)
+    if dtype == torch.float32:
+        assert torch.isnan(want).any()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3,
+                                   equal_nan=True)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d,k", [(42, 5), (300, 3), (520, 128)])
+def test_spmm_from_dense_lloyd_update(cuda, d, k):
+    """C^T X of a plaintext Lloyd step through the API on the card: one
+    launch at any width d."""
+    x = RNG.normal(0, 3, (5000, d)).astype(np.float32)
+    lab = RNG.integers(0, k, 5000)
+    c = np.eye(k, dtype=np.int32)[lab]
+    before = spmm.LAUNCHES_F32
     got = ops.spmm_from_dense(torch.from_numpy(c.T).to(cuda),
                               torch.from_numpy(x).to(cuda))
+    assert spmm.LAUNCHES_F32 == before + 1
     want = c.T.astype(np.float64) @ x
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-5, atol=1e-3)
 
@@ -312,11 +360,32 @@ def test_spmm_ell_kernel_equals_plain(cuda, case):
     got = spmm.spmm_ell(blocks, idx, counts, y)
     assert spmm.LAUNCHES == before + 1
     assert torch.equal(got, spmm.spmm_ell_plain(blocks, idx, counts, y))
-    # a transposed Y view, as S3 passes it
+    # a transposed Y view, as S1 passes it (mu.s1.T), read in place
     yt = _words((k, d_pad), cuda)
+    copies = spmm.COPIES
     assert torch.equal(spmm.spmm_ell(blocks, idx, counts, yt.T),
                        spmm.spmm_ell_plain(blocks, idx, counts,
                                            yt.T.contiguous()))
+    assert spmm.COPIES == copies
+    # and a row-major view with a leading dimension and an offset
+    wide = _words((d_pad, k + 5), cuda)
+    assert torch.equal(spmm.spmm_ell(blocks, idx, counts, wide[:, 2:2 + k]),
+                       spmm.spmm_ell_plain(blocks, idx, counts,
+                                           wide[:, 2:2 + k].contiguous()))
+    assert spmm.COPIES == copies
+
+
+@pytest.mark.parametrize("k", [42, 128])
+def test_spmm_ell_wide_transposed_y_copied_once(cuda, k):
+    """The wide kernel reads Y row-major: a transposed view is copied
+    contiguous once for the call, and counted."""
+    blocks, idx, counts, _ = _ell(9, 6, 8, 128, 1024, k, torch.int64, cuda)
+    yt = _words((k, 1024), cuda)
+    copies, launches = spmm.COPIES, spmm.LAUNCHES
+    got = spmm.spmm_ell(blocks, idx, counts, yt.T)
+    assert spmm.COPIES == copies + 1 and spmm.LAUNCHES == launches + 1
+    assert torch.equal(got, spmm.spmm_ell_plain(blocks, idx, counts,
+                                                yt.T.contiguous()))
 
 
 @pytest.mark.parametrize("partition", ["vertical", "horizontal"])
@@ -341,7 +410,7 @@ def test_sparse_gpu_fit_equals_cpu_fit(cuda, partition):
 
 @pytest.mark.parametrize("partition", ["vertical", "horizontal"])
 def test_sparse_gpu_fit_equals_cpu_fit_k10(cuda, partition):
-    """k = 10 > MAX_K: the fit's spmm_ell runs as two column groups."""
+    """k = 10: the fit's spmm_ell is one launch of the narrow kernel."""
     x = RNG.normal(size=(160, 8)) + RNG.integers(0, 10, (160, 1)) * 4.0
     x *= RNG.random(x.shape) >= 0.7
     a, b = (x[:, :4], x[:, 4:]) if partition == "vertical" else (x[:70], x[70:])

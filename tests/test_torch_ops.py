@@ -261,23 +261,71 @@ def test_spmm_refuses_mixed_and_unsupported_words():
         ops.spmm_from_dense(x, torch.from_numpy(y).to(torch.int16))
 
 
-@pytest.mark.parametrize("k", [1, 3, 8, 9, 10, 16, 17, 42, 128])
-def test_spmm_column_groups_cover_k(k):
-    """The k > MAX_K repair: y's columns are cut into groups of at most
-    MAX_K, one launch each, that tile [0, k) in order."""
-    groups = spmm.column_groups(k)
-    assert len(groups) == -(-k // spmm.MAX_K)
-    assert groups[0][0] == 0 and groups[-1][1] == k
-    for (lo, hi), (lo2, _) in zip(groups, groups[1:]):
-        assert hi == lo2
-    widths = [hi - lo for lo, hi in groups]
-    assert max(widths) <= spmm.MAX_K and max(widths) - min(widths) <= 1
+# (nrb, maxb, bm, bk, k, word bytes): the fit's S1 / S3 at k = 3 and 10,
+# the API's f32 / u32 ones, odd shapes, and the Lloyd drive's C^T x
+PLAN_CASES = [(12500, 1, 8, 128, 3, 8), (16, 782, 8, 128, 3, 8),
+              (12500, 1, 8, 128, 10, 8), (16, 782, 8, 128, 10, 8),
+              (12500, 1, 8, 128, 3, 4), (16, 782, 8, 128, 3, 4),
+              (7, 5, 8, 128, 5, 8), (1, 1, 8, 128, 1, 4),
+              (600, 3, 8, 128, 16, 8), (2, 10_000, 8, 128, 9, 4),
+              (33, 9, 4, 64, 5, 8), (40, 12, 8, 128, 17, 8)] + \
+    [(nrb, 782, 8, 128, k, 4) for nrb in (1, 16) for k in (42, 256, 512, 1024)]\
+    + [(16, 782, 8, 128, 512, 8), (16, 782, 8, 128, 1024, 8)]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES,
+                         ids=["-".join(map(str, c)) for c in PLAN_CASES])
+def test_spmm_plan_covers_every_slot_and_column_once(case):
+    """One launch for any width of y: its blocks (`Plan.work`, the map the
+    kernel decodes) cover every (row block, slot) once in each column tile
+    and every column of y once; the 3-stage ring fits an H100's shared
+    memory; long lists are split only where row blocks are too few."""
+    nrb, maxb, bm, bk, k, word = case
+    p = spmm.plan(nrb, maxb, bm, bk, k, word)
+    assert p.wide == (k > spmm.NARROW_WIDTHS[-1])
+    assert p.width in (spmm.WIDE_WIDTHS if p.wide else spmm.NARROW_WIDTHS)
+    if not p.wide:
+        assert p.col_tiles == 1 and k <= p.width
+    assert p.smem <= spmm.SMEM_PER_BLOCK
+    slots = np.zeros((p.col_tiles, nrb, maxb), np.int64)
+    cols = np.zeros(k, np.int64)
+    for b in range(p.blocks):
+        ra, rb, j0, jcap, col0, ncols = p.work(b, nrb, maxb, k)
+        assert ra < rb and j0 < jcap and ncols > 0
+        if p.wide:
+            assert rb - ra <= spmm.wide_group(p.width, word)
+        else:
+            assert p.splits == 1 or rb - ra == 1
+        ct = col0 // p.col_tile
+        slots[ct, ra:rb, j0:jcap] += 1
+        if ra == 0 and j0 == 0:
+            cols[col0:col0 + ncols] += 1
+    assert (slots == 1).all()
+    assert (cols == 1).all()
+    assert p.zeroed == (p.splits > 1)
+    if p.wide:
+        assert p.smem >= p.meta_off + 4 * p.rows_per_block * (1 + p.per_split)
+        assert p.rows_per_block * (1 + p.per_split) <= spmm.IDX_CAP
+    else:
+        assert p.splits == 1 or p.rows_per_block == 1
+    if p.splits > 1:
+        assert nrb * p.col_tiles < spmm.TARGET_BLOCKS
+        assert p.splits <= -(-maxb // spmm.MIN_SLOTS_PER_SPLIT)
+
+
+def test_spmm_plan_refuses_tiles_the_kernels_do_not_take():
+    """The narrow kernel takes any tile; the wide one (y wider than 16
+    columns) a warp per tile row and 4 words a lane of it."""
+    assert not spmm.plan(4, 4, 16, 256, 3, 8).wide
+    with pytest.raises(ValueError, match="rows"):
+        spmm.plan(4, 4, 16, 128, 42, 8)
+    with pytest.raises(ValueError, match="columns"):
+        spmm.plan(4, 4, 8, 256, 42, 8)
 
 
 def test_spmm_ell_k10_matches_numpy_backend():
-    """The sparse fit's product at k = 10 (two column groups on the card)
-    against the reference's host backend, word for word, whole and group
-    by group."""
+    """The sparse fit's product at k = 10 (one launch of the narrow kernel
+    on the card) against the reference's host backend, word for word."""
     x = RNG.integers(0, 1 << 64, (40, 300), dtype=np.uint64)
     x *= (RNG.random(x.shape) >= 0.8).astype(np.uint64)
     blocks, idx, counts = spmm.dense_to_ell(x)
@@ -290,11 +338,44 @@ def test_spmm_ell_k10_matches_numpy_backend():
     np.testing.assert_array_equal(ring.to_u64_numpy(got), want)
     np.testing.assert_array_equal(
         ring.to_u64_numpy(ops.spmm(*args, ty[:300])), want)
-    groups = spmm.column_groups(10)
-    assert len(groups) == 2
-    parts = [spmm.spmm_ell_plain(*args, ty[:, lo:hi]) for lo, hi in groups]
-    np.testing.assert_array_equal(ring.to_u64_numpy(torch.cat(parts, 1)),
-                                  want)
+    p = spmm.plan(*blocks.shape, 10, 8)
+    assert not p.wide and p.col_tiles == 1
+
+
+@pytest.mark.parametrize("k", [42, 130, 512])
+@pytest.mark.parametrize("dtype", [np.float32, np.uint32, np.uint64])
+def test_spmm_ell_plain_wide_y_matches_reference(k, dtype):
+    """spmm_ell_plain (what the wide kernel is held to on the card) at y
+    wider than the narrow kernel, against `repro.kernels.ref.spmm_ell`:
+    ring words exactly, float32 within rtol 1e-5, atol 1e-3. Tiles mostly
+    zero, as the C^T x one-hot's are."""
+    n, d = 12, 300
+    mask = RNG.random((n, d)) < 0.1
+    if dtype == np.float32:
+        x = (RNG.normal(0, 2, (n, d)) * mask).astype(np.float32)
+        y = RNG.normal(0, 2, (384, k)).astype(np.float32)
+        to_t, back = torch.from_numpy, (lambda t: t.numpy())
+    elif dtype == np.uint32:
+        x = (RNG.integers(0, 1 << 32, (n, d), dtype=np.uint32)
+             * mask).astype(np.uint32)
+        y = RNG.integers(0, 1 << 32, (384, k), dtype=np.uint32)
+        to_t, back = _u32, _as_u32
+    else:
+        x = RNG.integers(0, 1 << 64, (n, d), dtype=np.uint64) \
+            * mask.astype(np.uint64)
+        y = RNG.integers(0, 1 << 64, (384, k), dtype=np.uint64)
+        to_t, back = ring.from_u64_numpy, ring.to_u64_numpy
+    blocks, idx, counts = spmm.dense_to_ell(x)
+    want = np.asarray(jref.spmm_ell(jnp.asarray(blocks), jnp.asarray(idx),
+                                    jnp.asarray(counts), jnp.asarray(y),
+                                    blocks.shape[0] * blocks.shape[2]))
+    got = back(spmm.spmm_ell_plain(to_t(blocks), torch.from_numpy(idx),
+                                   torch.from_numpy(counts), to_t(y)))
+    assert got.shape == (blocks.shape[0] * blocks.shape[2], k)
+    if dtype == np.float32:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------

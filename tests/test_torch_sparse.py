@@ -257,18 +257,6 @@ def test_spmm_ell_rejects_other_dtypes_and_shapes():
         spmm.spmm_ell(_t(blocks), i[:, :0], c, _t(y))
 
 
-@pytest.mark.parametrize("shape", [(12500, 1), (16, 782), (7, 5), (1, 1),
-                                   (600, 3), (2, 10_000)])
-def test_spmm_plan_covers_every_slot(shape):
-    nrb, maxb = shape
-    per_split, splits = spmm.plan(nrb, maxb)
-    assert (splits - 1) * per_split < maxb <= splits * per_split
-    if nrb >= spmm.TARGET_BLOCKS:
-        assert splits == 1                       # enough row blocks already
-    if nrb <= 16 and maxb >= 700:
-        assert nrb * splits >= spmm.TARGET_BLOCKS // 2   # long lists split
-
-
 @pytest.mark.parametrize("shape", [(64, 200, 3), (10, 5, 1), (130, 40, 8)])
 def test_ring_spmm_csr_matches_reference(shape):
     n, d, k = shape
