@@ -16,17 +16,26 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      contiguous ones), the wrapper's work included;
   3. runs the secure fit on the GPU (backend="cuda") and on the CPU
      (backend="torch") at a small size, both partitions, and requires the
-     same share words, dealer counters and per-tag traffic;
+     same share words, dealer counters, per-tag traffic and he_seconds; on
+     the GPU with the on-demand, the pooled and the streamed dealer
+     (`offline=`) for the dense fit and the sparse one at k=3;
   4. runs the main path — SecureKMeans.fit, vertical, d_a=18, d_b=24, k=5,
      10 iterations at n=100,000 (the paper's fraud-detection deployment
      shape) — with the launch counters set to 0 just before and read just
      after, and requires agreement >= 0.98 with plaintext K-means and no
      ring_matmul operand copy (`modmatmul.COPIES`); it prints the device
-     launches ring_matmul made (products and zero kernels);
+     launches ring_matmul made (products and zero kernels); then the same
+     fit with offline="pooled" and "streamed" (the offline planner, the
+     pooled / streaming dealer and the S1/S3 programs), each from cold
+     caches and held word for word to the on-demand fit, printing their
+     loop, online, dealer and plan seconds, pool bytes, the streaming
+     worker's gen and wait seconds, and the kernels their loops launched
+     per iteration, which must equal the on-demand fit's;
   4b. runs the sparse main path the same way — SecureKMeans.fit with
      sparse=True (Protocol 2), vertical, d_a=d_b=128, k=3, 90 % zeros,
      5 iterations at n=100,000 — requires agreement >= 0.98 and all three
-     kernels launched, and times `spmm_ell` on that fit's own ELL inputs;
+     kernels launched, then the pooled and streamed fits as in phase 4, and
+     times `spmm_ell` on that fit's own ELL inputs;
   5. drives the kernel API (`repro_torch.kernels.ops`) the same way, with
      the launch counters set to 0 just before and read just after:
      plaintext Lloyd iterations (esd -> argmin_onehot -> C^T x through
@@ -590,90 +599,187 @@ def _blobs(rng, n, d, k, spread=5.0, noise=0.3):
     return centers[lab] + rng.normal(0, noise, (n, d))
 
 
+def same_fit(label: str, got, want) -> None:
+    """Fail unless two fits agree word for word: centroid and assignment
+    shares, dealer counters, CommLog bytes and rounds per tag and phase,
+    and the modelled he_seconds."""
+    from repro_torch.core import ring
+    for field in ("centroids", "assignment"):
+        for i in (0, 1):
+            gw = ring.to_u64_numpy(getattr(got, field)[i])
+            ww = ring.to_u64_numpy(getattr(want, field)[i])
+            if not np.array_equal(gw, ww):
+                fail(f"{label}: {field} s{i} words differ")
+    for attr in ("n_matmul", "n_mul", "n_bin"):
+        if getattr(got.dealer, attr) != getattr(want.dealer, attr):
+            fail(f"{label}: dealer {attr} {getattr(got.dealer, attr)} vs "
+                 f"{getattr(want.dealer, attr)}")
+    for phase in ("online", "offline"):
+        if got.log.by_tag(phase) != want.log.by_tag(phase):
+            fail(f"{label}: {phase} CommLog differs: "
+                 f"{got.log.by_tag(phase)} vs {want.log.by_tag(phase)}")
+    if got.he_seconds != want.he_seconds:
+        fail(f"{label}: he_seconds {got.he_seconds!r} vs "
+             f"{want.he_seconds!r}")
+    if got.iters_run != want.iters_run:
+        fail(f"{label}: {got.iters_run} iterations vs {want.iters_run}")
+
+
+def gpu_fits_equal_cpu(label: str, xa, xb, offline_modes, **cfg_kw) -> dict:
+    """The CPU fit (torch backend, on demand) and the GPU fit (cuda
+    backend) in each of `offline_modes`, each GPU fit held to the CPU one
+    word for word. Returns {mode: (GPU result, its kernel launches)} and
+    prints one line."""
+    from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+    cpu = SecureKMeans(KMeansConfig(backend="torch", device="cpu",
+                                    **cfg_kw)).fit(xa, xb)
+    out = {}
+    for mode in offline_modes:
+        before = _launch_counters()
+        res = SecureKMeans(KMeansConfig(offline=mode, **cfg_kw)).fit(xa, xb)
+        after = _launch_counters()
+        out[mode] = (res, {n: after[n] - before[n] for n in after})
+        same_fit(f"{label}, GPU {mode} vs CPU on demand", res, cpu)
+    g = out[offline_modes[0]][0]
+    loops = ", ".join(f"{m} {r.loop_seconds:.3f} s"
+                      for m, (r, _) in out.items())
+    print(f"GPU fit = CPU fit ({label}): GPU {', '.join(offline_modes)} "
+          f"fits each equal the CPU on-demand fit in share words, dealer "
+          f"counters (matmul {g.dealer.n_matmul}, mul {g.dealer.n_mul}, bin "
+          f"{g.dealer.n_bin}), online/offline traffic per tag and "
+          f"he_seconds ({g.he_seconds!r}); GPU loop {loops}, CPU loop "
+          f"{cpu.loop_seconds:.3f} s", flush=True)
+    return out
+
+
+OFFLINE_MODES = ("on_demand", "pooled", "streamed")
+
+
 def phase_gpu_equals_cpu():
     """The GPU fit (cuda backend) = the CPU fit (torch backend), word for
-    word, with the same dealer counters and per-tag traffic."""
-    from repro_torch.core import ring
-    from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+    word, with the same dealer counters and per-tag traffic; on the GPU
+    with the on-demand, the pooled and the streamed dealer."""
     x = _blobs(np.random.default_rng(1), 2048, DA + DB, K)
     splits = {"vertical": (x[:, :DA], x[:, DA:]),
               "horizontal": (x[:1024], x[1024:])}
     for part, (xa, xb) in splits.items():
-        res = {}
-        for backend, device in (("cuda", "cuda"), ("torch", "cpu")):
-            cfg = KMeansConfig(k=K, iters=2, partition=part, seed=3,
-                               backend=backend, device=device)
-            res[backend] = SecureKMeans(cfg).fit(xa, xb)
-        g, c = res["cuda"], res["torch"]
-        for field in ("centroids", "assignment"):
-            for i in (0, 1):
-                gw = ring.to_u64_numpy(getattr(g, field)[i])
-                cw = ring.to_u64_numpy(getattr(c, field)[i])
-                if not np.array_equal(gw, cw):
-                    fail(f"{part}: GPU and CPU {field} s{i} words differ")
-        for attr in ("n_matmul", "n_mul", "n_bin"):
-            if getattr(g.dealer, attr) != getattr(c.dealer, attr):
-                fail(f"{part}: dealer {attr} differs")
-        for phase in ("online", "offline"):
-            if g.log.by_tag(phase) != c.log.by_tag(phase):
-                fail(f"{part}: {phase} CommLog differs: "
-                     f"{g.log.by_tag(phase)} vs {c.log.by_tag(phase)}")
-        print(f"GPU fit = CPU fit ({part}, n=2048, k={K}, 2 iters): share "
-              f"words, dealer counters (matmul {g.dealer.n_matmul}, mul "
-              f"{g.dealer.n_mul}, bin {g.dealer.n_bin}) and online/offline "
-              f"traffic per tag identical; GPU loop {g.loop_seconds:.3f} s, "
-              f"CPU loop {c.loop_seconds:.3f} s", flush=True)
+        gpu_fits_equal_cpu(f"{part}, n=2048, k={K}, 2 iters", xa, xb,
+                           OFFLINE_MODES, k=K, iters=2, partition=part,
+                           seed=3)
 
 
-def phase_sparse_gpu_equals_cpu(k: int):
+def phase_sparse_gpu_equals_cpu(k: int, offline_modes=("on_demand",)):
     """The sparse GPU fit = the sparse CPU fit, word for word, with the same
     dealer counters, per-tag traffic and modelled HE seconds; spmm_ell
     makes one launch a product at any k (4 an iteration, vertical)."""
-    from repro_torch.core import ring
-    from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
     from repro_torch.kernels import spmm
     x = _one_hot_like(np.random.default_rng(4), 2048, SP_DA + SP_DB, k,
                       SP_SPARSITY)
     splits = {"vertical": (x[:, :SP_DA], x[:, SP_DA:]),
               "horizontal": (x[:1024], x[1024:])}
     for part, (xa, xb) in splits.items():
-        res = {}
-        for backend, device in (("cuda", "cuda"), ("torch", "cpu")):
-            cfg = KMeansConfig(k=k, iters=2, partition=part, seed=3,
-                               sparse=True, backend=backend, device=device)
-            before = spmm.LAUNCHES
-            res[backend] = SecureKMeans(cfg).fit(xa, xb)
-            if backend == "cuda":
-                launches = spmm.LAUNCHES - before
-        g, c = res["cuda"], res["torch"]
+        res = gpu_fits_equal_cpu(
+            f"sparse {part}, n=2048, d={SP_DA}+{SP_DB}, k={k}, 2 iters",
+            xa, xb, offline_modes, k=k, iters=2, partition=part, seed=3,
+            sparse=True)
+        g, launches = res["on_demand"]
         want = SP_PER_ITER["spmm_ell"] * g.iters_run
-        if part == "vertical" and launches != want:
-            fail(f"sparse vertical fit, k={k}: {launches} spmm_ell launches, "
-                 f"{want} expected (4 an iteration, one a product)")
-        for field in ("centroids", "assignment"):
-            for i in (0, 1):
-                gw = ring.to_u64_numpy(getattr(g, field)[i])
-                cw = ring.to_u64_numpy(getattr(c, field)[i])
-                if not np.array_equal(gw, cw):
-                    fail(f"sparse {part}, k={k}: GPU and CPU {field} s{i} differ")
-        for attr in ("n_matmul", "n_mul", "n_bin"):
-            if getattr(g.dealer, attr) != getattr(c.dealer, attr):
-                fail(f"sparse {part}, k={k}: dealer {attr} differs")
-        for phase in ("online", "offline"):
-            if g.log.by_tag(phase) != c.log.by_tag(phase):
-                fail(f"sparse {part}, k={k}: {phase} CommLog differs: "
-                     f"{g.log.by_tag(phase)} vs {c.log.by_tag(phase)}")
-        if g.he_seconds != c.he_seconds:
-            fail(f"sparse {part}, k={k}: he_seconds {g.he_seconds} vs "
-                 f"{c.he_seconds}")
-        print(f"sparse GPU fit = CPU fit ({part}, n=2048, d={SP_DA}+{SP_DB},"
-              f" k={k}, 2 iters): share words, dealer counters (matmul "
-              f"{g.dealer.n_matmul}, mul {g.dealer.n_mul}, bin "
-              f"{g.dealer.n_bin}), online/offline traffic per tag and "
-              f"he_seconds ({g.he_seconds!r}) identical; GPU loop "
-              f"{g.loop_seconds:.3f} s, CPU loop {c.loop_seconds:.3f} s; "
-              f"spmm_ell launches {launches} in {g.iters_run} iterations",
+        if part == "vertical" and launches["spmm_ell"] != want:
+            fail(f"sparse vertical fit, k={k}: {launches['spmm_ell']} "
+                 f"spmm_ell launches, {want} expected (4 an iteration, one "
+                 f"a product)")
+        print(f"  spmm_ell launches of the on-demand GPU fit: "
+              f"{launches['spmm_ell']} in {g.iters_run} iterations",
               flush=True)
+        del res
+
+
+def _launch_counters() -> dict:
+    from repro_torch.kernels import ksadder, modmatmul, spmm
+    return {"ring_matmul": modmatmul.LAUNCHES,
+            "ks_carry_share": ksadder.LAUNCHES, "spmm_ell": spmm.LAUNCHES}
+
+
+def _zero_launch_counters() -> None:
+    from repro_torch.kernels import ksadder, modmatmul, spmm
+    modmatmul.LAUNCHES = 0
+    modmatmul.COPIES = 0
+    modmatmul.ZERO_LAUNCHES = 0
+    ksadder.LAUNCHES = 0
+    spmm.LAUNCHES = 0
+
+
+def phase_offline_fits(label: str, cfg, xa, xb, ref,
+                       ref_launches: dict) -> dict:
+    """The main-path fit `cfg` again with offline="pooled" and "streamed",
+    each from cold plan and program caches, held word for word to the
+    on-demand fit `ref`. Prints each fit's loop, online, dealer and plan
+    seconds, its pool bytes (the streaming dealer's peak), the streaming
+    worker's gen and wait seconds, and the kernels its loop launched per
+    iteration: the fit's launches less those of the planning alone (the
+    dry-run trace and the programs' recording), which must equal the
+    on-demand fit's. Returns {mode: per-iteration launches}."""
+    import dataclasses
+    from repro_torch.core import kmeans as KM
+    from repro_torch.core import sparse
+    from repro_torch.core.kmeans import SecureKMeans
+    from repro_torch.launch import kmeans_step as KS
+
+    def cold():
+        KM.clear_plan_cache()
+        KS.clear_program_cache()
+
+    totals = {}
+    for mode in ("pooled", "streamed"):
+        cold()
+        _zero_launch_counters()
+        sparse.ELL_PACK_SECONDS = 0.0
+        res = SecureKMeans(dataclasses.replace(cfg, offline=mode)).fit(xa, xb)
+        totals[mode] = _launch_counters()
+        same_fit(f"{label} {mode} vs on demand", res, ref)
+        d = res.dealer
+        extra = (f", worker gen_seconds {d.gen_seconds:.3f}, wait_seconds "
+                 f"{d.wait_seconds:.3f}, tranches of {d.group} iteration(s)"
+                 if mode == "streamed" else "")
+        pack = (f", ELL packing and upload {sparse.ELL_PACK_SECONDS:.3f} s "
+                f"(the planning trace's included)" if cfg.sparse else "")
+        print(f"{label} fit, offline={mode}: equal to the on-demand fit word "
+              f"for word (share words, dealer counters, traffic per tag and "
+              f"phase, he_seconds); loop_seconds {res.loop_seconds:.3f}, "
+              f"online_seconds {res.online_seconds:.3f}, "
+              f"offline_dealer_seconds {res.offline_dealer_seconds:.3f} "
+              f"(of which offline_plan_seconds "
+              f"{res.offline_plan_seconds:.3f}), pool "
+              f"{'peak ' if mode == 'streamed' else ''}"
+              f"{d.pool_bytes / 1e9:.3f} GB{extra}{pack}", flush=True)
+        del res, d
+        torch.cuda.empty_cache()
+    cold()
+    _zero_launch_counters()
+    sparse.ELL_PACK_SECONDS = 0.0
+    t0 = time.perf_counter()
+    SecureKMeans(cfg).plan_offline(xa.shape, xb.shape)
+    KS.fit_programs(cfg.partition, cfg.sparse, xa.shape, xb.shape, cfg.k,
+                    backend=cfg.backend, device=cfg.device)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    planning = _launch_counters()
+    cold()
+    per_iter = {}
+    for mode, total in totals.items():
+        loop = {n: total[n] - planning[n] for n in total}
+        if loop != ref_launches:
+            fail(f"{label} {mode}: the loop launched {loop}, the on-demand "
+                 f"fit {ref_launches}")
+        per_iter[mode] = {n: v / ref.iters_run for n, v in loop.items()}
+    print(f"{label}: kernels launched per iteration by the pooled and the "
+          f"streamed loop {per_iter['pooled']} = the on-demand fit's "
+          f"{ {n: v / ref.iters_run for n, v in ref_launches.items()} }; the "
+          f"planning alone (trace and program recording, {plan_s:.3f} s) "
+          f"launched {planning}"
+          + (f", ELL packing {sparse.ELL_PACK_SECONDS:.3f} s"
+             if cfg.sparse else ""), flush=True)
+    return per_iter
 
 
 def phase_sparse_main_path():
@@ -689,11 +795,7 @@ def phase_sparse_main_path():
     zeros = float((x == 0).mean())
     cfg = KMeansConfig(k=SP_K, iters=SP_ITERS, partition="vertical",
                        seed=SP_SEED, sparse=True)
-    modmatmul.LAUNCHES = 0
-    modmatmul.COPIES = 0
-    modmatmul.ZERO_LAUNCHES = 0
-    ksadder.LAUNCHES = 0
-    spmm.LAUNCHES = 0
+    _zero_launch_counters()
     sparse.ELL_PACK_SECONDS = 0.0
     res = SecureKMeans(cfg).fit(x[:, :SP_DA], x[:, SP_DA:])
     launches = {"spmm_ell": spmm.LAUNCHES, "ring_matmul": modmatmul.LAUNCHES,
@@ -729,6 +831,10 @@ def phase_sparse_main_path():
     for name, count in launches.items():
         if count <= 0:
             fail(f"{name} was not launched on the sparse main path")
+    phase_offline_fits(f"sparse main path (vertical, n={SP_N}, "
+                       f"d={SP_DA}+{SP_DB}, k={SP_K})", cfg, x[:, :SP_DA],
+                       x[:, SP_DA:], res, launches)
+    del res
 
     # spmm_ell on this fit's own inputs: the four packed matrices of one
     # iteration, with random Y words of the shapes the fit gives them
@@ -1131,11 +1237,7 @@ def phase_main_path():
     from repro_torch.kernels import ksadder, modmatmul, spmm
     x = _blobs(np.random.default_rng(SEED + 7), N, DA + DB, K)
     cfg = KMeansConfig(k=K, iters=ITERS, partition="vertical", seed=SEED)
-    modmatmul.LAUNCHES = 0
-    modmatmul.COPIES = 0
-    modmatmul.ZERO_LAUNCHES = 0
-    ksadder.LAUNCHES = 0
-    spmm.LAUNCHES = 0
+    _zero_launch_counters()
     res = SecureKMeans(cfg).fit(x[:, :DA], x[:, DA:])
     launches = {"ring_matmul": modmatmul.LAUNCHES,
                 "ks_carry_share": ksadder.LAUNCHES}
@@ -1172,6 +1274,9 @@ def phase_main_path():
     for name, count in launches.items():
         if count <= 0:
             fail(f"{name} was not launched on the main path")
+    phase_offline_fits(f"main path (vertical, n={N}, d={DA}+{DB}, k={K})",
+                       cfg, x[:, :DA], x[:, DA:], res,
+                       {**launches, "spmm_ell": dense_spmm})
     return launches
 
 
@@ -1243,7 +1348,7 @@ def main() -> None:
     time_fit_layouts(SP_MM_FIT_PER_ITER, SP_DA + SP_DB, SEED + 1, "sparse")
     sp_rows, worst["spmm_ell"] = phase_spmm(np.random.default_rng(SEED + 1))
     phase_gpu_equals_cpu()
-    phase_sparse_gpu_equals_cpu(SP_K)
+    phase_sparse_gpu_equals_cpu(SP_K, OFFLINE_MODES)
     phase_sparse_gpu_equals_cpu(SP_WIDE_K)
     launches = phase_main_path()
     sp_launches, sp_iter = phase_sparse_main_path()

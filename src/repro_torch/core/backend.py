@@ -128,16 +128,22 @@ _CLASSES = {"torch": TorchBackend, "cuda": CudaBackend}
 _INSTANCES: dict[str, RingBackend] = {}
 
 
-def get_backend(name: "str | RingBackend" = "cuda") -> RingBackend:
-    """Resolve a backend name ('torch' | 'cuda') or pass an instance
-    through. 'cuda' raises when no GPU is available."""
+def get_backend(name: "str | RingBackend | None" = "cuda",
+                device="cuda") -> RingBackend:
+    """Resolve a backend name ('auto' | 'torch' | 'cuda'; None means
+    'auto') or pass an instance through. 'auto' resolves by `device`, the
+    device the shares live on: 'cuda' on a CUDA device, 'torch' otherwise —
+    never by whether a GPU happens to be present. 'cuda' raises when no GPU
+    is available."""
     if isinstance(name, RingBackend):
         return name
+    if name is None or name == "auto":
+        name = "cuda" if torch.device(device).type == "cuda" else "torch"
     if name not in _INSTANCES:
         try:
             cls = _CLASSES[name]
         except KeyError:
             raise ValueError(f"unknown ring backend {name!r}; "
-                             "expected 'torch' or 'cuda'") from None
+                             "expected 'auto', 'torch' or 'cuda'") from None
         _INSTANCES[name] = cls()
     return _INSTANCES[name]

@@ -21,8 +21,16 @@ blocked-ELL spmm.
 way the pre-vectorization protocol would ship it (one interaction per scalar
 product / per comparison, Sec 4.2) — the Fig. 3 baseline.
 
-This is the eager, on-demand-dealer path of the JAX package's SecureKMeans;
-the options that belong to later slices raise NotImplementedError naming
+`offline="pooled"` / `"streamed"` split the fit into the paper's offline
+and online phases: one iteration is traced on zeros to plan the
+data-independent triple schedule (cached across same-shape fits), the
+pooled or streaming dealer generates it ahead of the loop, and each
+iteration runs as two programs, S1 and S3 (launch/kmeans_step.py), with the
+sparse combos' Protocol-2 exchanges on the host before S1 and between the
+two. A custom `f` or `vectorized=False` runs the eager loop against the
+pooled dealer instead.
+
+The options that belong to later slices raise NotImplementedError naming
 their ROADMAP.md item. Entry points run on the GPU unless the config asks
 for the CPU (`backend="torch", device="cpu"`).
 """
@@ -41,10 +49,12 @@ from repro_torch.core.channel import CommLog, NetModel
 from repro_torch.core.he import OU_COST_S, SimulatedPHE
 from repro_torch.core.sharing import AShare, rec, rec_real, share
 from repro_torch.core.sparse import CSRMatrix, secure_sparse_matmul
-from repro_torch.core.triples import TrustedDealer
+from repro_torch.core.triples import (PlanningDealer, PooledDealer,
+                                      StreamingPooledDealer, TriplePlan,
+                                      TrustedDealer)
+from repro_torch.launch import kmeans_step as KS
 
 _LATER = {
-    "offline": "ROADMAP.md Queue 1 item 6 (offline planner and pooled fast path)",
     "batch_size": "ROADMAP.md Queue 1 item 8 (minibatch and pipelining)",
     "dealer": "ROADMAP.md Queue 1 item 9 (predict, bank and serving)",
     "wire": "ROADMAP.md Queue 1 item 10 (durability, wire and runtime)",
@@ -65,12 +75,20 @@ class KMeansConfig:
     vectorized: bool = True
     f: int = ring.F
     seed: int = 0
+    init: Literal["random_data", "random_uniform"] = "random_data"
     tol: float | None = None        # if set, F_CSC early-stops
     he_backend: object | None = None  # default: SimulatedPHE()
-    backend: str = "cuda"           # ring-compute backend (core/backend.py)
+    backend: str = "cuda"           # ring-compute backend (core/backend.py);
+    # "auto" / None resolve by `device`
     device: str = "cuda"            # where shares and triples live
+    # "pooled": plan the data-independent triple schedule up front and run
+    # the online loop against a PooledDealer (the paper's offline/online
+    # split). "streamed": same split, each iteration's tranche generated on
+    # a background worker while the previous one runs — peak pool residency
+    # O(1 iteration). "on_demand": synthesize triples inside the loop.
     offline: Literal["on_demand", "pooled", "streamed"] = "on_demand"
     batch_size: int | None = None
+    pipeline: bool = True           # minibatch pipelining (item 8); inert
 
     def __post_init__(self):
         if self.iters < 1:
@@ -82,8 +100,10 @@ class KMeansConfig:
             raise ValueError(
                 f"KMeansConfig.offline must be 'on_demand', 'pooled' or "
                 f"'streamed', got {self.offline!r}")
-        if self.offline != "on_demand":
-            raise _not_ported(f"offline={self.offline!r}", "offline")
+        if self.init not in ("random_data", "random_uniform"):
+            raise ValueError(
+                f"KMeansConfig.init must be 'random_data' or "
+                f"'random_uniform', got {self.init!r}")
         if self.batch_size is not None:
             raise _not_ported("batch_size", "batch_size")
         if self.partition not in ("vertical", "horizontal"):
@@ -102,13 +122,16 @@ class KMeansResult:
     assignment: AShare                # (n, k) one-hot shares, scale 1
     iters_run: int
     log: CommLog
-    dealer: TrustedDealer | None
+    dealer: "TrustedDealer | PooledDealer | StreamingPooledDealer | None"
     online_seconds: float             # loop wall minus in-loop dealer work
-    offline_dealer_seconds: float     # triple synthesis + upload
+    offline_dealer_seconds: float     # triple synthesis + upload (+ plan)
     offline_modelled_ot_seconds: float
     he_seconds: float = 0.0           # modelled HE time (Protocol 2 only)
     loop_seconds: float = 0.0         # raw Lloyd-loop wall-clock: with the
-    # on-demand dealer this INCLUDES triple synthesis
+    # on-demand dealer this INCLUDES triple synthesis; pooled, it equals
+    # online_seconds
+    offline_plan_seconds: float = 0.0  # dry-run trace + program recording
+    # (pooled / streamed only; a plan-cache hit skips the trace)
 
     # -- convenience reconstructions (the protocol's single final Rec) -----
     def centroids_plain(self, f: int = ring.F) -> np.ndarray:
@@ -124,6 +147,16 @@ class KMeansResult:
             + self.offline_modelled_ot_seconds
         return {"online_s": online, "offline_s": offline,
                 "total_s": online + offline}
+
+
+# (shapes, cfg-key) -> (one-iteration TriplePlan, one-iteration CommLog).
+# The schedule is data-independent, so identical-shape fits share it; see
+# SecureKMeans._plan_offline_iter.
+_PLAN_CACHE: dict[tuple, tuple] = {}
+
+
+def clear_plan_cache() -> None:
+    _PLAN_CACHE.clear()
 
 
 class SecureKMeans:
@@ -172,43 +205,189 @@ class SecureKMeans:
         csr_b = CSRMatrix.from_dense(enc_b_np) if cfg.sparse else None
         mu = self._init_centroids(ctx, rng, x_a, x_b)
 
+        # pooled / streamed offline phase: trace the schedule (cached across
+        # same-shape fits), bulk-generate the pools, upload them, and record
+        # the S1/S3 program pair that consumes them. All of it is data-
+        # independent; the loop then runs with no dealer work, the sparse
+        # combos' Protocol-2 exchanges on the host around S1.
+        plan_s = 0.0
+        fast = None
+        if cfg.offline in ("pooled", "streamed"):
+            t0 = time.perf_counter()
+            iter_plan, iter_comm = self._plan_offline_iter(x_a.shape,
+                                                           x_b.shape)
+            # the programs hardcode f = ring.F, and the unvectorized
+            # accounting is the eager loop's: those configs run the eager
+            # loop against the pooled dealer
+            if cfg.vectorized and cfg.f == ring.F:
+                progs = KS.fit_programs(cfg.partition, cfg.sparse,
+                                        enc_a.shape, enc_b.shape, cfg.k,
+                                        backend=ctx.backend, device=device)
+                # the exchange on the assignment shares consumes the
+                # pre-transposed CSRs
+                csr_at = csr_a.transpose() if cfg.sparse else None
+                csr_bt = csr_b.transpose() if cfg.sparse else None
+                fast = (progs, iter_comm, csr_at, csr_bt)
+            plan_s = time.perf_counter() - t0
+            if cfg.offline == "pooled":
+                ctx.dealer = PooledDealer(iter_plan.repeat(cfg.iters),
+                                          seed=cfg.seed, log=ctx.log,
+                                          device=device)
+            else:
+                # group="auto": tiny k*d tranches share one worker wakeup
+                ctx.dealer = StreamingPooledDealer(
+                    iter_plan, cfg.iters, seed=cfg.seed, log=ctx.log,
+                    group="auto", device=device)
+
         sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
         sync()
         t_start = time.perf_counter()
         dealer_s_pre = ctx.dealer.dealer_seconds
         it = 0
-        for it in range(1, cfg.iters + 1):
-            mu_old = mu
-            ctx.tag = "S1"
-            dist = self._distances(ctx, enc_a, enc_b, csr_a, csr_b, mu)
-            ctx.tag = "S2"
-            r_before = ctx.log.total_rounds("online")
-            c = P.argmin_onehot(ctx, dist)                    # (n, k) scale 1
-            if not cfg.vectorized:
-                # pre-vectorization: each of the n samples runs its own
-                # tournament (n separate interaction chains per round)
-                dr = ctx.log.total_rounds("online") - r_before
-                _naive_extra_rounds(ctx, (n - 1) * dr + 1)
-            ctx.tag = "S3"
-            mu = self._update(ctx, enc_a, enc_b, csr_a, csr_b, c, mu_old, n)
-            if cfg.tol is not None:
-                ctx.tag = "CSC"
-                if self._converged(ctx, mu_old, mu, cfg.tol):
-                    break
-        sync()
-        wall = time.perf_counter() - t_start
+        try:
+            for it in range(1, cfg.iters + 1):
+                mu_old = mu
+                if fast is not None:
+                    mu, c = self._fast_iteration(ctx, fast, enc_a, enc_b,
+                                                 csr_a, csr_b, mu)
+                else:
+                    ctx.tag = "S1"
+                    dist = self._distances(ctx, enc_a, enc_b, csr_a, csr_b,
+                                           mu)
+                    ctx.tag = "S2"
+                    r_before = ctx.log.total_rounds("online")
+                    c = P.argmin_onehot(ctx, dist)            # (n, k) scale 1
+                    if not cfg.vectorized:
+                        # pre-vectorization: each of the n samples runs its
+                        # own tournament (n interaction chains per round)
+                        dr = ctx.log.total_rounds("online") - r_before
+                        _naive_extra_rounds(ctx, (n - 1) * dr + 1)
+                    ctx.tag = "S3"
+                    mu = self._update(ctx, enc_a, enc_b, csr_a, csr_b, c,
+                                      mu_old, n)
+                if cfg.tol is not None:
+                    ctx.tag = "CSC"
+                    if self._converged(ctx, mu_old, mu, cfg.tol):
+                        break
+            sync()
+            wall = time.perf_counter() - t_start
+        finally:
+            if isinstance(ctx.dealer, StreamingPooledDealer):
+                # an early stop, or an exception unwinding the loop, leaves
+                # prefetched tranches and the worker thread alive
+                ctx.dealer.close()
         dealer = ctx.dealer
         in_loop_dealer_s = dealer.dealer_seconds - dealer_s_pre
         self.result_ = KMeansResult(
             centroids=mu, assignment=c, iters_run=it, log=ctx.log,
             dealer=dealer,
             online_seconds=max(0.0, wall - in_loop_dealer_s),
-            offline_dealer_seconds=dealer.dealer_seconds,
+            offline_dealer_seconds=dealer.dealer_seconds + plan_s,
             offline_modelled_ot_seconds=dealer.modelled_ot_seconds,
             he_seconds=ctx.he_seconds,
             loop_seconds=wall,
+            offline_plan_seconds=plan_s,
         )
         return self.result_
+
+    def _fast_iteration(self, ctx, fast, enc_a, enc_b, csr_a, csr_b,
+                        mu: AShare) -> tuple:
+        """One iteration as the S1 and S3 programs over the pool's tensors
+        (ListDealer discipline). The sparse combos run Protocol 2 on the
+        host on a forked ctx: exchange #1 needs only the centroid shares,
+        exchange #2 the assignment shares S1 just produced; the results
+        enter the programs as share inputs. Returns (mu', c)."""
+        progs, iter_comm, csr_at, csr_bt = fast
+        he1 = he3 = []
+        hx = None
+        if self.cfg.sparse:
+            # scratch log: the iteration's shape-determined traffic (the
+            # exchanges' included) is replayed from iter_comm below; the
+            # modelled HE time flows into ctx
+            hx = ctx.fork(tag="S1")
+            he1 = self._s1_he_inputs(hx, enc_a, enc_b, csr_a, csr_b, mu)
+        flat1 = KS.materialize_offline(progs.s1_requests, ctx.dealer)
+        c0, c1 = progs.s1(enc_a, enc_b, mu.s0, mu.s1, *he1, *flat1)
+        c = AShare(c0, c1)
+        if self.cfg.sparse:
+            hx.tag = "S3"
+            he3 = self._s3_he_inputs(hx, csr_at, csr_bt, c)
+        flat3 = KS.materialize_offline(progs.s3_requests, ctx.dealer)
+        mu0, mu1 = progs.s3(enc_a, enc_b, mu.s0, mu.s1, c0, c1, *he3, *flat3)
+        # the traced iteration's online tallies (sends inside the programs
+        # go to a scratch log)
+        ctx.log.merge(iter_comm, phase="online")
+        return AShare(mu0, mu1), c
+
+    # ------------------------------------------------------------------ #
+    def plan_offline(self, shape_a, shape_b) -> TriplePlan:
+        """The exact correlated-randomness schedule of `fit` for party-input
+        shapes (shape_a, shape_b) — without seeing any data.
+
+        One Lloyd iteration (+ the CSC check when `tol` is set) runs on
+        zero-filled inputs on the config's device with a `PlanningDealer`;
+        every triple shape is data-independent, so the full-fit schedule is
+        that trace repeated `iters` times. A `tol` early stop only leaves
+        pool surplus. The trace runs the real protocol ops, so on a GPU it
+        also launches the kernels at the online shapes — offline warm-up.
+        """
+        return self._plan_offline_iter(shape_a, shape_b)[0] \
+            .repeat(self.cfg.iters)
+
+    def _plan_cache_key(self, shape_a, shape_b) -> tuple:
+        cfg = self.cfg
+        key = (tuple(shape_a), tuple(shape_b), cfg.k, cfg.partition,
+               cfg.sparse, cfg.vectorized, cfg.f, cfg.tol is not None)
+        if cfg.sparse:
+            # the HE backend's sizes shape Protocol 2's logged traffic
+            he = self.he
+            key += (getattr(he, "name", type(he).__name__),
+                    getattr(he, "ct_bytes", 0), getattr(he, "plain_bits", 0))
+        return key
+
+    def _plan_offline_iter(self, shape_a, shape_b):
+        """(iter_plan, iter_comm): ONE iteration's TriplePlan plus a CommLog
+        of its online traffic (S1/S2/S3, without CSC) — the tallies the
+        program fast path replays per iteration. Cached across fits by
+        (shapes, config key), so a second same-shape fit skips the trace.
+        Returns copies; cached state is never handed out mutable."""
+        key = self._plan_cache_key(shape_a, shape_b)
+        hit = _PLAN_CACHE.get(key)
+        if hit is None:
+            hit = _PLAN_CACHE[key] = self._trace_iteration(shape_a, shape_b)
+        plan, comm = hit
+        return TriplePlan(list(plan.requests)), comm.copy()
+
+    def _trace_iteration(self, shape_a, shape_b):
+        """Dry-run trace of one Lloyd iteration (+CSC when tol is set) with
+        a PlanningDealer on zero-filled inputs on the config's device."""
+        cfg = self.cfg
+        device = torch.device(cfg.device)
+        ctx = P.Ctx(dealer=PlanningDealer(device), log=CommLog(),
+                    backend=cfg.backend)
+        enc_a = torch.zeros(tuple(shape_a), dtype=ring.DTYPE, device=device)
+        enc_b = torch.zeros(tuple(shape_b), dtype=ring.DTYPE, device=device)
+        n = enc_a.shape[0] if cfg.partition == "vertical" \
+            else enc_a.shape[0] + enc_b.shape[0]
+        d = enc_a.shape[1] + enc_b.shape[1] if cfg.partition == "vertical" \
+            else enc_a.shape[1]
+        zeros_np = [np.zeros(tuple(s), np.uint64) for s in (shape_a, shape_b)]
+        csr_a, csr_b = ([CSRMatrix.from_dense(z) for z in zeros_np]
+                        if cfg.sparse else (None, None))
+        mu = AShare(torch.zeros((cfg.k, d), dtype=ring.DTYPE, device=device),
+                    torch.zeros((cfg.k, d), dtype=ring.DTYPE, device=device))
+        ctx.tag = "S1"
+        dist = self._distances(ctx, enc_a, enc_b, csr_a, csr_b, mu)
+        ctx.tag = "S2"
+        c = P.argmin_onehot(ctx, dist)
+        ctx.tag = "S3"
+        mu_new = self._update(ctx, enc_a, enc_b, csr_a, csr_b, c, mu, n)
+        iter_comm = CommLog()
+        iter_comm.merge(ctx.log, phase="online")
+        if cfg.tol is not None:
+            ctx.tag = "CSC"
+            self._converged(ctx, mu, mu_new, cfg.tol)
+        return ctx.dealer.plan(), iter_comm
 
     # ------------------------------------------------------------------ #
     def _init_centroids(self, ctx, rng, x_a, x_b) -> AShare:
@@ -318,33 +497,9 @@ class SecureKMeans:
         """F_SCU: mu = C^T X / 1^T C with empty-cluster MUX guard."""
         num = self._ct_x(ctx, enc_a, enc_b, csr_a, csr_b, c)   # (k, d) scale f
         den = AShare(c.s0.sum(0), c.s1.sum(0))                 # (k,) scale 1
-        return self._update_final(ctx, num, den, mu_old, n)
-
-    def _update_final(self, ctx, num: AShare, den: AShare, mu_old: AShare,
-                      n: int) -> AShare:
-        """The S3 tail: empty-cluster guard + balanced-split division + MUX.
-
-        Balanced split: computing num * (2^f/den) naively either loses
-        den*2^-f relative precision or pushes the pre-truncation product to
-        ~2^(2f+m) bits, where SecureML local truncation fails often. So the
-        2^m rescale is split: num is shifted down by s = m//2 and 2^s/den is
-        kept in the reciprocal; the product (num/2^s)*(2^s/den) stays at
-        ~2^(2f+4) bits."""
-        cfg = self.cfg
-        k = cfg.k
-        dev = num.s0.device
-        one = AShare(torch.ones((k,), dtype=ring.DTYPE, device=dev),
-                     torch.zeros((k,), dtype=ring.DTYPE, device=dev))
-        is_empty = P.cmp_lt(ctx, den, one)                     # [den < 1]
-        den_safe = P.mux(ctx, is_empty, one, den)
-        m = int(np.ceil(np.log2(max(2, n))))
-        s = m // 2
-        num_s = P.trunc(num, s)
-        r = P.reciprocal(ctx, den_safe, max_den=n, f=cfg.f, extra_bits=s)
-        mu_new = P.smul(ctx, num_s, AShare(r.s0[:, None], r.s1[:, None]),
-                        trunc_f=cfg.f)
-        guard = AShare(is_empty.s0[:, None], is_empty.s1[:, None])
-        return P.mux(ctx, guard, mu_old, mu_new)
+        # the S3 program's tail, at the config's f
+        return KS._s3_final_body(ctx, self.cfg.k, n, mu_old, num, den,
+                                 f=self.cfg.f)
 
     def _ct_x(self, ctx, enc_a, enc_b, csr_a, csr_b, c: AShare) -> AShare:
         """C^T X -> (k, d) shares at scale f (C is scale-1 one-hot)."""
@@ -397,6 +552,33 @@ class SecureKMeans:
         z = secure_sparse_matmul(ctx, csr_t, ct.s0.T, self.he,
                                  time_model=OU_COST_S)
         return AShare(z.s1.T, z.s0.T)
+
+    # -- Protocol-2 host exchanges for the split-program fast path -------- #
+    def _s1_he_inputs(self, ctx, enc_a, enc_b, csr_a, csr_b,
+                      mu: AShare) -> list:
+        """Host exchange #1 (before S1): the distance-phase joint products
+        of X mu^T, computable from the centroid shares alone. Returns the
+        flat [s0, s1, ...] share list the S1 program takes as inputs, in
+        the FitGeometry.he_shapes_s1 order."""
+        mut = AShare(mu.s0.T, mu.s1.T)
+        j1, j2 = self._joint_x_mut(ctx, enc_a, enc_b, csr_a, csr_b, mut)
+        return [t for h in (j1, j2) for t in (h.s0, h.s1)]
+
+    def _s3_he_inputs(self, ctx, csr_at, csr_bt, c: AShare) -> list:
+        """Host exchange #2 (after S1): the update-phase joint products of
+        C^T X on the assignment shares S1 produced. Flat share list in the
+        FitGeometry.he_shapes_s3 order."""
+        ct = AShare(c.s0.T, c.s1.T)
+        if self.cfg.partition == "vertical":
+            ja = self._joint_share_times_pub(ctx, ct, csr_at, owner="A")
+            jb = self._joint_share_times_pub(ctx, ct, csr_bt, owner="B")
+        else:
+            na = csr_at.shape[1]                 # csr_at is X_A^T: (d, na)
+            ct_a = AShare(ct.s0[:, :na], ct.s1[:, :na])
+            ct_b = AShare(ct.s0[:, na:], ct.s1[:, na:])
+            ja = self._joint_share_times_pub(ctx, ct_a, csr_at, owner="A")
+            jb = self._joint_share_times_pub(ctx, ct_b, csr_bt, owner="B")
+        return [t for h in (ja, jb) for t in (h.s0, h.s1)]
 
     # ------------------------------------------------------------------ #
     def _converged(self, ctx, mu_old: AShare, mu_new: AShare, tol: float) -> bool:

@@ -38,11 +38,14 @@ class Ctx:
     dealer: TrustedDealer
     log: CommLog
     tag: str = "misc"  # current Lloyd step: S1 / S2 / S3
-    backend: RingBackend | str = "cuda"  # local ring-compute dispatch
+    backend: RingBackend | str | None = "cuda"  # local ring-compute
+    # dispatch; "auto" / None resolve by the dealer's device
     he_seconds: float = 0.0  # modelled HE wall-time accumulated by Protocol 2
+    parent: "Ctx | None" = dataclasses.field(default=None, repr=False)
+    # a fork's parent: its modelled HE time is added there (see `fork`)
 
     def __post_init__(self):
-        self.backend = get_backend(self.backend)
+        self.backend = get_backend(self.backend, self.device)
 
     @property
     def device(self) -> torch.device:
@@ -52,7 +55,25 @@ class Ctx:
         self.log.send(nbytes, tag=self.tag, phase="online", rounds=rounds)
 
     def add_he_seconds(self, t: float) -> None:
-        self.he_seconds += t
+        if self.parent is not None:
+            self.parent.add_he_seconds(t)
+        else:
+            self.he_seconds += t
+
+    def fork(self, tag: str | None = None) -> "Ctx":
+        """Child ctx sharing the dealer and backend but with a SCRATCH log.
+        Used by the split-program fast path's Protocol-2 host exchanges:
+        the programs' shape-determined traffic (the exchanges' included) is
+        replayed from the planning trace, so the live exchange must consume
+        the dealer streams without logging its bytes twice. Its modelled HE
+        time goes straight to this ctx, exchange by exchange, in the order
+        the on-demand loop adds it, so a pooled fit's `he_seconds` is the
+        on-demand fit's to the last bit. (The JAX package sums an
+        iteration's exchanges on the child first, which can round the last
+        bit differently.)"""
+        return Ctx(dealer=self.dealer, log=CommLog(),
+                   tag=self.tag if tag is None else tag,
+                   backend=self.backend, parent=self)
 
 
 def make_ctx(seed: int = 0, backend: RingBackend | str = "cuda",
@@ -98,12 +119,12 @@ def neg(a: AShare) -> AShare:
 
 def matmul_pub_l(x_pub, a: AShare, backend: RingBackend | str = "cuda") -> AShare:
     """Public X @ shared A — local at the party that owns X."""
-    mm = get_backend(backend).ring_mm
+    mm = get_backend(backend, x_pub.device).ring_mm
     return AShare(mm(x_pub, a.s0), mm(x_pub, a.s1))
 
 
 def matmul_pub_r(a: AShare, y_pub, backend: RingBackend | str = "cuda") -> AShare:
-    mm = get_backend(backend).ring_mm
+    mm = get_backend(backend, y_pub.device).ring_mm
     return AShare(mm(a.s0, y_pub), mm(a.s1, y_pub))
 
 

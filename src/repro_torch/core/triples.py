@@ -1,11 +1,26 @@
 """Beaver triple generation — the data-independent OFFLINE phase (paper Sec 4.1).
 
-`TrustedDealer` generates correct triples on demand. Generation stays in
-numpy on the host, on the same per-class PCG64 streams as the JAX package,
-so a seed gives the same words; the dealer then hands the shares out as
-int64 tensors on its `device`. On-demand generation puts the dealer's host
-work (and the host-to-device copy) on the online critical path — it is the
-oracle and the no-preprocessing baseline.
+Generation stays in numpy on the host, on the same per-class PCG64 streams
+as the JAX package, so a seed gives the same words; the dealers hand the
+shares out as int64 tensors on their `device`. Provider flavours:
+
+* `TrustedDealer` — generates correct triples on demand. Its host work (and
+  the host-to-device copy) lands on the online critical path — it is the
+  oracle and the no-preprocessing baseline.
+* `PlanningDealer` + `TriplePlan` — a dry-run trace on zeros that records
+  the exact (kind, shape, tag) schedule a protocol run consumes. The
+  schedule is data-independent, which is why an offline phase exists.
+* `PooledDealer` — executes a `TriplePlan` ahead of time with stacked
+  draws and batched ring ops over many requests of a shape-class at once,
+  writes each class into one device tensor, and serves the online phase by
+  list index over views of it. Word for word equal to `TrustedDealer` under
+  the same seed: a stacked full-range uint64 draw is the concatenation of
+  the per-request draws.
+* `StreamingPooledDealer` — the pooled dealer's generation cut into
+  per-iteration tranches, generated on a background worker while the
+  previous iteration runs (on CUDA: pinned staging and a side stream, the
+  consumer waiting on an event), so peak pool residency is `prefetch`
+  tranches, independent of `iters`.
 
 OT-based generation is cost-modelled: per 64-bit scalar product the
 Gilboa/ABY protocol transfers l correlated OTs of (kappa + l)-bit strings per
@@ -15,7 +30,10 @@ dealer wall-time.
 """
 from __future__ import annotations
 
+import dataclasses
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -44,6 +62,11 @@ class BinTriple(NamedTuple):
     u: BShare
     v: BShare
     z: BShare  # bit-packed, z = u & v
+
+
+class PoolExhaustedError(RuntimeError):
+    """The online phase asked for correlated randomness the plan did not
+    include (wrong shape-class, or more requests than planned)."""
 
 
 # ---------------------------------------------------------------------------
@@ -307,3 +330,568 @@ class TrustedDealer:
         """Seed for a host-side statistical-mask stream (Protocol 2 HE2SS)."""
         key = _class_key("seed", ())
         return int(_gen_seed(self._rng_for(key), (), 1)[0][0])
+
+
+# ---------------------------------------------------------------------------
+# Planner — derive the exact offline schedule by dry-run trace
+# ---------------------------------------------------------------------------
+
+class PlanRequest(NamedTuple):
+    kind: str    # matmul | mul | bin | rand | seed
+    shape: tuple  # (sa, sb) for matmul, the tensor shape otherwise
+    tag: str
+
+
+@dataclasses.dataclass
+class TriplePlan:
+    """The correlated-randomness schedule of a protocol run, in consumption
+    order. Data-independent: derived once per (n, k, d, iters, partition,
+    sparsity) config and valid for every input of those shapes."""
+
+    requests: list
+
+    def repeat(self, reps: int) -> "TriplePlan":
+        """Schedule of `reps` identical passes (e.g. Lloyd iterations)."""
+        return TriplePlan(list(self.requests) * int(reps))
+
+    def __add__(self, other: "TriplePlan") -> "TriplePlan":
+        return TriplePlan(list(self.requests) + list(other.requests))
+
+    def __len__(self) -> int:
+        return len(self.requests)
+
+    def class_counts(self) -> dict:
+        """{class_key: count} — the shape-class histogram the bulk dealer
+        generates, one stacked draw each."""
+        out: dict[tuple, int] = {}
+        for r in self.requests:
+            key = _class_key(r.kind, r.shape)
+            out[key] = out.get(key, 0) + 1
+        return out
+
+    def pool_words(self) -> int:
+        """Words a generated pool/tranche of this plan holds (six share
+        tensors per triple, one tensor per rand, one word per seed)."""
+        words = 0
+        for r in self.requests:
+            if r.kind == "matmul":
+                (n, d), (_, k) = r.shape
+                words += 2 * (n * d + d * k + n * k)
+            elif r.kind in ("mul", "bin"):
+                words += 6 * _nelem(r.shape)
+            elif r.kind == "rand":
+                words += _nelem(r.shape)
+            else:  # seed
+                words += 1
+        return words
+
+
+class _TripleServing:
+    """Shared dealer-interface surface for pool-backed providers: validate
+    the request, draw its word tuple from ``self._next(kind, shape)``, wrap
+    into the triple type, bump the counters. Only `_next` differs between
+    the pooled and the streaming dealer."""
+
+    def matmul_triple(self, shape_a, shape_b, *,
+                      tag: str = "misc") -> MatmulTriple:
+        _check_matmul_dims(shape_a, shape_b)
+        u0, u1, v0, v1, z0, z1 = self._next(
+            "matmul", (tuple(shape_a), tuple(shape_b)))
+        self.n_matmul += 1
+        return MatmulTriple(AShare(u0, u1), AShare(v0, v1), AShare(z0, z1))
+
+    def mul_triple(self, shape, *, tag: str = "misc") -> MulTriple:
+        _check_elemwise_shape("mul", shape)
+        u0, u1, v0, v1, z0, z1 = self._next("mul", shape)
+        self.n_mul += 1
+        return MulTriple(AShare(u0, u1), AShare(v0, v1), AShare(z0, z1))
+
+    def bin_triple(self, shape, *, tag: str = "misc") -> BinTriple:
+        _check_elemwise_shape("bin", shape)
+        u0, u1, v0, v1, z0, z1 = self._next("bin", shape)
+        self.n_bin += 1
+        return BinTriple(BShare(u0, u1), BShare(v0, v1), BShare(z0, z1))
+
+    def rand(self, shape) -> torch.Tensor:
+        return self._next("rand", shape)[0]
+
+    def mask_seed(self) -> int:
+        return int(self._next("seed", ())[0])
+
+
+class PlanningDealer:
+    """Records the (kind, shape, tag) schedule while the traced code runs on
+    zeros on `device`. The trace executes the real protocol (eagerly, on
+    zero data), so control flow that depends on tensor *shapes* is followed
+    exactly — and on a GPU it launches the online path's kernels at their
+    online shapes, as offline warm-up."""
+
+    def __init__(self, device="cpu"):
+        self.requests: list[PlanRequest] = []
+        self.device = torch.device(device)
+
+    def _z(self, shape):
+        return torch.zeros(shape, dtype=ring.DTYPE, device=self.device)
+
+    def plan(self) -> TriplePlan:
+        return TriplePlan(list(self.requests))
+
+    def matmul_triple(self, shape_a, shape_b, *, tag: str = "misc"):
+        _check_matmul_dims(shape_a, shape_b)
+        (n, d), (_, k) = tuple(shape_a), tuple(shape_b)
+        self.requests.append(
+            PlanRequest("matmul", (tuple(shape_a), tuple(shape_b)), tag))
+        return MatmulTriple(AShare(self._z((n, d)), self._z((n, d))),
+                            AShare(self._z((d, k)), self._z((d, k))),
+                            AShare(self._z((n, k)), self._z((n, k))))
+
+    def mul_triple(self, shape, *, tag: str = "misc"):
+        _check_elemwise_shape("mul", shape)
+        self.requests.append(PlanRequest("mul", tuple(shape), tag))
+        z = self._z(shape)
+        return MulTriple(AShare(z, z), AShare(z, z), AShare(z, z))
+
+    def bin_triple(self, shape, *, tag: str = "misc"):
+        _check_elemwise_shape("bin", shape)
+        self.requests.append(PlanRequest("bin", tuple(shape), tag))
+        z = self._z(shape)
+        return BinTriple(BShare(z, z), BShare(z, z), BShare(z, z))
+
+    def rand(self, shape):
+        self.requests.append(PlanRequest("rand", tuple(shape), "misc"))
+        return self._z(shape)
+
+    def mask_seed(self) -> int:
+        self.requests.append(PlanRequest("seed", (), "misc"))
+        return 0
+
+
+# ---------------------------------------------------------------------------
+# PooledDealer — planned bulk generation, zero-host-work serving
+# ---------------------------------------------------------------------------
+
+def _account_offline_plan(plan: TriplePlan, log: CommLog) -> float:
+    """Log a plan's modelled OT generation traffic (identical totals to the
+    on-demand dealer serving the same schedule); returns the modelled OT
+    wall-time. Shared by the pooled and streaming dealers."""
+    modelled_s = 0.0
+    groups: dict[tuple, int] = {}
+    for r in plan.requests:
+        key = (r.kind, _class_key(r.kind, r.shape), r.tag)
+        groups[key] = groups.get(key, 0) + 1
+    for (kind, key, tag), count in groups.items():
+        if kind == "matmul":
+            (n, d), (_, k) = key[1], key[2]
+            sp = n * d * k
+            log.send(count * ot_mul_triple_bytes(sp), tag=tag,
+                     phase="offline", rounds=2 * count)
+            modelled_s += count * sp / OT_TRIPLES_PER_SEC
+        elif kind == "mul":
+            sp = _nelem(key[1])
+            log.send(count * ot_mul_triple_bytes(sp), tag=tag,
+                     phase="offline", rounds=2 * count)
+            modelled_s += count * sp / OT_TRIPLES_PER_SEC
+        elif kind == "bin":
+            n_bits = _nelem(key[1]) * 64
+            log.send(count * ot_bin_triple_bytes(n_bits), tag=tag,
+                     phase="offline", rounds=2 * count)
+            modelled_s += count * n_bits / OT_BIN_TRIPLES_PER_SEC
+    return modelled_s
+
+
+class _Tranche(NamedTuple):
+    pools: dict    # class key -> [per-request word tuples]
+    nbytes: int    # words held, times 8
+    stacks: list   # the class tensors the entries are views of
+    ready: object  # CUDA event recorded after the uploads, or None
+
+
+DRAW_WORDS = 1 << 22
+# A stacked draw covers at most this many PCG64 words (32 MB): a class is
+# drawn a few requests at a time, and consecutive draws concatenate to one
+# draw of the class (the same words). Arrays this size are reused by the
+# host allocator; one draw per class made multi-GB arrays that are faulted
+# in page by page, which left the pooled dealer slower than the on-demand
+# one (PERF.md §6).
+STAGE_WORDS = 1 << 23
+# pinned staging on the way to a GPU: two buffers of this many words (64
+# MB), reused across classes and tranches
+
+
+class _Staging:
+    """Two pinned host buffers that take turns carrying generated words to
+    the device on the current stream. A buffer is refilled only after the
+    copy that last read it has run (its event), so no buffer is faulted in
+    or pinned more than once."""
+
+    def __init__(self):
+        self.bufs = [torch.empty(STAGE_WORDS, dtype=ring.DTYPE,
+                                 pin_memory=True) for _ in range(2)]
+        self.views = [b.numpy().view(np.uint64) for b in self.bufs]
+        self.done = [None, None]
+        self.turn = 0
+
+    def put(self, words: np.ndarray, dst: torch.Tensor) -> None:
+        """Copy uint64 `words` into the contiguous device tensor `dst` of
+        as many words."""
+        dst = dst.reshape(-1)
+        if words.size > STAGE_WORDS:
+            words = np.ascontiguousarray(words).reshape(-1)
+        for lo in range(0, words.size, STAGE_WORDS):
+            part = words if words.size <= STAGE_WORDS \
+                else words[lo:lo + STAGE_WORDS]
+            i = self.turn
+            self.turn ^= 1
+            if self.done[i] is not None:
+                self.done[i].synchronize()
+            self.views[i][:part.size].reshape(part.shape)[...] = part
+            dst[lo:lo + part.size].copy_(self.bufs[i][:part.size],
+                                         non_blocking=True)
+            self.done[i] = torch.cuda.Event()
+            self.done[i].record()
+
+
+def _request_shapes(kind: str, shape) -> list:
+    """Shapes of the word tensors one request of a class is served as."""
+    if kind == "matmul":
+        (n, d), (_, k) = shape
+        return [(n, d), (n, d), (d, k), (d, k), (n, k), (n, k)]
+    if kind in ("mul", "bin"):
+        return [tuple(shape)] * 6
+    return [tuple(shape)]                       # rand
+
+
+def _gen_tranche(rngs: dict, counts: dict, device,
+                 staging: _Staging | None = None) -> _Tranche:
+    """Generate one tranche from persistent per-class RNG streams: per
+    class, stacked numpy draws and batched ring ops (`_gen_class`) of up to
+    DRAW_WORDS words each, written into ONE tensor on `device` (through
+    `staging`'s pinned buffers when it is a GPU), and per-request entries
+    that are views into that tensor. Because a class's stream advances by
+    exactly count * words-per-request words per call, the draws of
+    consecutive tranches concatenate to the one draw of the whole fit. Seed
+    classes stay on the host: their words seed host-side mask streams
+    (Protocol 2)."""
+    device = torch.device(device)
+    pools: dict[tuple, list] = {}
+    nbytes = 0
+    stacks = []
+    for key, count in counts.items():
+        kind = key[0]
+        shape = key[1:] if kind == "matmul" else key[1]
+        if kind == "seed":
+            words = _gen_seed(rngs[key], shape, count)[0]
+            pools[key] = [(w,) for w in words]
+            nbytes += 8 * count
+            continue
+        shapes = _request_shapes(kind, shape)
+        sizes = [_nelem(s) for s in shapes]
+        stack = torch.empty(count * sum(sizes), dtype=ring.DTYPE,
+                            device=device)
+        parts, off = [], 0
+        for s, size in zip(shapes, sizes):
+            parts.append(stack[off:off + count * size].view((count,) + s))
+            off += count * size
+        chunk = max(1, DRAW_WORDS // _class_words(key))
+        for c0 in range(0, count, chunk):
+            arrays = _gen_class(rngs[key], kind, shape,
+                                min(chunk, count - c0))
+            for words, part in zip(arrays, parts):
+                dst = part[c0:c0 + len(words)]
+                if staging is None:
+                    dst.numpy().view(np.uint64)[...] = words
+                else:
+                    staging.put(words, dst)
+        stacks.append(stack)
+        nbytes += 8 * stack.numel()
+        pools[key] = [tuple(p[i] for p in parts) for i in range(count)]
+    ready = None
+    if staging is not None:
+        ready = torch.cuda.Event()
+        ready.record()
+    return _Tranche(pools, nbytes, stacks, ready)
+
+
+def _take(tranche: _Tranche, device) -> None:
+    """Make the current stream wait for a tranche's upload, and keep its
+    memory from being reused by the uploading stream before the work queued
+    here on it has run (the caching allocator reuses memory per stream)."""
+    if tranche.ready is None:
+        return
+    cur = torch.cuda.current_stream(device)
+    cur.wait_event(tranche.ready)
+    for t in tranche.stacks:
+        t.record_stream(cur)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class PooledDealer(_TripleServing):
+    """Executes a `TriplePlan` up front and serves it back with list
+    indexing over device views only.
+
+    Generation batches each shape-class into stacked RNG draws and batched
+    ring ops (`np.einsum` over the stacked operands for matmul triples,
+    elementwise `*`/`&` otherwise) of up to DRAW_WORDS words, written into
+    one tensor per class on `device` (`_gen_tranche`). Word for word equal
+    to `TrustedDealer(seed)` serving the same request sequence.
+
+    Serving past the planned count — or requesting a shape-class the plan
+    never mentioned — raises `PoolExhaustedError`: the trace and the online
+    run disagreed, which is a planner bug, not a condition to paper over.
+    `advance` ({class key: requests already consumed}) starts each class
+    stream past them.
+    """
+
+    def __init__(self, plan: TriplePlan, seed: int = 0,
+                 log: CommLog | None = None, advance: dict | None = None,
+                 device="cpu"):
+        t0 = time.perf_counter()
+        self.plan = plan
+        self.seed = seed
+        self.log = log if log is not None else CommLog()
+        self.device = torch.device(device)
+        self.n_matmul = 0
+        self.n_mul = 0
+        self.n_bin = 0
+        counts = plan.class_counts()
+        advance = advance or {}
+        rngs = {key: _advanced_rng(seed, key, advance.get(key, 0))
+                for key in counts}
+        staging = _Staging() if self.device.type == "cuda" else None
+        tranche = _gen_tranche(rngs, counts, self.device, staging)
+        self._pools, self.pool_bytes = tranche.pools, tranche.nbytes
+        self._served = {key: 0 for key in counts}
+        self.modelled_ot_seconds = _account_offline_plan(plan, self.log)
+        _sync(self.device)
+        self.dealer_seconds = time.perf_counter() - t0
+
+    # -- serving ---------------------------------------------------------
+    def _next(self, kind: str, shape) -> tuple:
+        key = _class_key(kind, shape)
+        pool = self._pools.get(key)
+        if pool is None:
+            raise PoolExhaustedError(
+                f"no pool for {kind} {shape}: the offline plan never "
+                "scheduled this shape-class (planner/online mismatch)")
+        i = self._served[key]
+        if i >= len(pool):
+            raise PoolExhaustedError(
+                f"pool exhausted for {kind} {shape}: planned "
+                f"{len(pool)} requests, online asked for more")
+        self._served[key] = i + 1
+        return pool[i]
+
+    def remaining(self) -> dict:
+        """{class_key: unserved} — surplus after e.g. tol early-stop."""
+        return {k: len(p) - self._served[k] for k, p in self._pools.items()}
+
+
+# ---------------------------------------------------------------------------
+# StreamingPooledDealer — double-buffered per-iteration pool generation
+# ---------------------------------------------------------------------------
+
+GROUP_TRANCHE_BYTES = 4 << 20
+# auto-grouping target: when one iteration's tranche is tiny (small k*d),
+# group consecutive iterations until a tranche reaches ~this many bytes, so
+# the worker does not wake up per iteration for microseconds of work (the
+# served words are the same either way).
+
+
+class StreamingPooledDealer(_TripleServing):
+    """`PooledDealer` semantics with O(1-iteration) residency.
+
+    The plan of ONE iteration is generated as a tranche (`_gen_tranche`,
+    one device tensor per shape-class), and tranche t+1 is
+    generated on a background worker while iteration t consumes tranche t.
+    At most `prefetch` tranches are alive, so peak residency is independent
+    of `iters`. Word for word equal to
+    ``PooledDealer(iter_plan.repeat(iters), seed)``: each class keeps one
+    persistent PCG64 stream across tranches.
+
+    On CUDA the worker uploads each tranche through reused pinned staging
+    buffers on a stream of its own; the consumer's stream waits on an event
+    recorded after the uploads, and the tranche's memory is marked in use
+    by the consumer's stream until the work queued on it has run.
+
+    Tranche advance is request-counted: when ``len(iter_plan)`` requests
+    (times the group) have been served, the tranche is dropped and the next
+    generation is dispatched; the prefetched one becomes current at the
+    next request. Serving past the plan — or an unplanned class — raises
+    `PoolExhaustedError`. An exception in the worker reaches the consumer
+    at the request that needs its tranche.
+
+    Timing: ``dealer_seconds`` is construction (first-tranche) time;
+    ``gen_seconds`` is the worker's wall-time, ``wait_seconds`` the time
+    the online loop blocked on a tranche that was not ready (left in the
+    online clock on purpose); ``pool_bytes`` is the peak residency.
+    """
+
+    def __init__(self, iter_plan: TriplePlan, iters: int, seed: int = 0,
+                 log: CommLog | None = None, prefetch: int = 2,
+                 async_gen: bool = True, group: int | str = 1,
+                 advance: dict | None = None, device="cpu"):
+        t0 = time.perf_counter()
+        self.iter_plan = TriplePlan(list(iter_plan.requests))
+        self.iters = int(iters)
+        self.seed = seed
+        self.log = log if log is not None else CommLog()
+        self.device = torch.device(device)
+        self.n_matmul = 0
+        self.n_mul = 0
+        self.n_bin = 0
+        self._iter_counts = self.iter_plan.class_counts()
+        self._per_iter = len(self.iter_plan)
+        if group == "auto":
+            words = max(1, self.iter_plan.pool_words())
+            group = max(1, GROUP_TRANCHE_BYTES // (8 * words))
+        self.group = max(1, min(int(group), max(1, self.iters)))
+        self._tranche_iters = 1      # iterations covered by _current
+        advance = advance or {}
+        self._rngs = {key: _advanced_rng(seed, key, advance.get(key, 0))
+                      for key in self._iter_counts}
+        self.modelled_ot_seconds = _account_offline_plan(
+            self.iter_plan.repeat(self.iters), self.log)
+        self.gen_seconds = 0.0
+        self.wait_seconds = 0.0
+        self.pool_bytes = 0          # PEAK concurrent residency
+        self._live_bytes = 0
+        self._lock = threading.Lock()
+        self._executor = None
+        self._stream = None
+        self._staging = None
+        if self.device.type == "cuda":
+            self._staging = _Staging()
+        if async_gen:
+            self._executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="triple-dealer")
+            if self.device.type == "cuda":
+                self._stream = torch.cuda.Stream(self.device)
+        self._pending: list = []     # generated-or-in-flight tranches, FIFO
+        self._next_gen = 0           # next tranche index to dispatch
+        self._current: _Tranche | None = None
+        self._cursors: dict[tuple, int] = {}
+        self._served_in_tranche = 0
+        self.served_iters = 0
+        for _ in range(max(1, prefetch)):
+            self._dispatch()
+        if self._per_iter and self.iters:
+            self._advance()
+        # the first-tranche wait is construction (offline) time, already in
+        # dealer_seconds — wait_seconds reports ONLINE stalls only
+        self.wait_seconds = 0.0
+        _sync(self.device)
+        self.dealer_seconds = time.perf_counter() - t0
+
+    # -- tranche lifecycle ----------------------------------------------
+    def _generate(self, counts) -> _Tranche:
+        t0 = time.perf_counter()
+        if self._stream is not None:
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self._stream):
+                tranche = _gen_tranche(self._rngs, counts, self.device,
+                                       self._staging)
+        else:
+            tranche = _gen_tranche(self._rngs, counts, self.device,
+                                   self._staging)
+        with self._lock:
+            self.gen_seconds += time.perf_counter() - t0
+            self._live_bytes += tranche.nbytes
+            self.pool_bytes = max(self.pool_bytes, self._live_bytes)
+        return tranche
+
+    def _dispatch(self) -> None:
+        """Queue generation of the next tranche (on the worker) covering
+        `group` iterations (fewer for the tail). The single worker
+        serializes tranches, so the per-class streams advance in tranche
+        order."""
+        if self._next_gen >= self.iters:
+            return
+        g = min(self.group, self.iters - self._next_gen)
+        self._next_gen += g
+        counts = self._iter_counts if g == 1 else \
+            {k: c * g for k, c in self._iter_counts.items()}
+        if self._executor is None:
+            self._pending.append((g, "done", self._generate(counts)))
+        else:
+            self._pending.append(
+                (g, "fut", self._executor.submit(self._generate, counts)))
+
+    def _advance(self) -> None:
+        g, kind, payload = self._pending.pop(0)
+        t0 = time.perf_counter()
+        tranche = payload.result() if kind == "fut" else payload
+        self.wait_seconds += time.perf_counter() - t0
+        _take(tranche, self.device)
+        self._current = tranche
+        self._tranche_iters = g
+        self._cursors = {}
+        self._served_in_tranche = 0
+
+    def _drop_current(self) -> None:
+        nbytes = self._current.nbytes
+        self._current = None
+        with self._lock:
+            self._live_bytes -= nbytes
+
+    def _finish_tranche(self) -> None:
+        """Drop the consumed tranche and queue the next generation. The
+        advance to the prefetched tranche waits for the next request, so
+        the last iteration of an early-stopped fit never stalls on
+        randomness it throws away."""
+        self.served_iters += self._tranche_iters
+        self._drop_current()
+        self._cursors = {}
+        self._served_in_tranche = 0
+        self._dispatch()
+        if self.served_iters >= self.iters and self._executor is not None:
+            self._executor.shutdown(wait=False)
+
+    # -- serving ---------------------------------------------------------
+    def _next(self, kind: str, shape) -> tuple:
+        key = _class_key(kind, shape)
+        per_iter = self._iter_counts.get(key)
+        if per_iter is None:
+            raise PoolExhaustedError(
+                f"no pool for {kind} {shape}: the offline plan never "
+                "scheduled this shape-class (planner/online mismatch)")
+        if self._current is None and self.served_iters < self.iters:
+            self._advance()                  # lazy: first request of an iter
+        i = self._cursors.get(key, 0)
+        if self._current is None or i >= per_iter * self._tranche_iters:
+            raise PoolExhaustedError(
+                f"pool exhausted for {kind} {shape}: planned {per_iter} "
+                f"requests/iteration x {self.iters} iterations, online "
+                "asked for more")
+        self._cursors[key] = i + 1
+        out = self._current.pools[key][i]
+        self._served_in_tranche += 1
+        if self._served_in_tranche == self._per_iter * self._tranche_iters:
+            self._finish_tranche()
+        return out
+
+    def remaining(self) -> dict:
+        """{class_key: unserved across ALL remaining iterations} — surplus
+        after e.g. a tol early-stop (undispatched tranches are never
+        generated)."""
+        rem_tranches = self.iters - self.served_iters
+        return {key: rem_tranches * c - self._cursors.get(key, 0)
+                for key, c in self._iter_counts.items()}
+
+    def close(self) -> None:
+        """Drop buffers and stop the worker (idempotent). Called by a fit
+        in a `finally`, so prefetched tranches and the worker thread never
+        outlive the loop; `remaining()` stays valid after close."""
+        if self._executor is not None:
+            self._executor.shutdown(wait=True)   # let in-flight gen finish
+        pending, self._pending = self._pending, []
+        for _g, kind, payload in pending:
+            tranche = payload.result() if kind == "fut" else payload
+            with self._lock:
+                self._live_bytes -= tranche.nbytes
+        if self._current is not None:
+            self._drop_current()
+        self._staging = None

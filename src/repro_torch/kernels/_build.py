@@ -41,7 +41,8 @@ SIGNATURES = {
     "spmm": ("spmm_ell_launch",
              [_P] * 5 + [_I64, _I64, _I32, _I32, _I32, _I64, _I32, _I32, _I32,
                          _I32, _I32, _I32, _I64, _I32, _I32, _I32, _I32,
-                         _I32, _I32, _I32, _I64, _I64, _I32, _P]),
+                         _I32, _I32, _I32, _I64, _I64, _I32, _I32, _I32,
+                         _P]),
     "esd": ("esd_launch", [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
                            _P]),
     "argmin": ("argmin_onehot_launch", [_P, _P, _I64, _I32, _I32, _P]),

@@ -61,7 +61,10 @@
 //     (results agree to rounding).
 // Operands: blocks, idx and counts contiguous; Y row-major with a leading
 // dimension, or (narrow only) the transposed view of a row-major matrix;
-// out (nrb*bm, k) contiguous. The wide kernel takes bm <= 8, bk <= 128.
+// out (nrb*bm, k) contiguous. A tile whose staged Y rows (narrow) or X
+// and Y rows (wide) do not fit in shared memory is staged in pieces of bkp
+// columns, each piece a pair of its own; a wide warp takes 2 or 4 tile
+// rows when bm > 8 (kernels/spmm.py:plan says which tiles it refuses).
 // The indices of used slots must point into Y (idx[r, j] < d_pad / bk for
 // j < counts[r]), as the packers make them; they are not checked here.
 #include <cuda_runtime.h>
@@ -213,6 +216,10 @@ struct Params {
   int xg;               // cp.async piece bytes for X (wide)
   int meta_off;         // byte offset of the block's counts (and, wide,
                         // idx) copy in shared memory
+  int bkp;              // tile columns (Y rows) staged at once: bk, or a
+                        // piece of it when a whole tile does not fit
+  int pieces;           // ceil(bk / bkp)
+  int rpw_shift;        // wide: log2 of the tile rows a warp takes
 };
 
 // The work of block b: row blocks [ra, ra + rows), of each the slots
@@ -254,21 +261,21 @@ __device__ __forceinline__ void put(T* o, T v, bool split) {
 
 constexpr int kPrefetch = 4;    // X words a lane loads ahead of the barrier
 
-// Y row e, word c, of the staged tile: YT stages [k][bk] (rows of Y^T's
-// original, copied contiguous), else [bk][y_stride]
+// Y row e, word c, of the staged tile (piece): YT stages [k][bkp] (rows of
+// Y^T's original, copied contiguous), else [bkp][y_stride]
 template <typename T, bool YT>
 __device__ __forceinline__ T y_at(const T* ys, int e, int c, int bk,
                                   int stride) {
   return YT ? ys[c * bk + e] : ys[e * stride + c];
 }
 
-// Few sums a lane (K words <= 32 bytes, the fit's k = 3): 5 blocks an SM,
-// for more X loads in flight
-template <typename T, int K, bool YT>
-__global__ void __launch_bounds__(kThreads, K * sizeof(T) <= 32 ? 5 : 1)
-narrow_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
-              const int* __restrict__ counts, const T* __restrict__ y,
-              T* __restrict__ out, const __grid_constant__ Params p) {
+// The narrow product. PIECED: a tile's Y rows are staged bkp at a time
+// (p.pieces pieces); else whole tiles, with the piece loop compiled away.
+template <typename T, int K, bool YT, bool PIECED>
+__device__ __forceinline__ void narrow_body(
+    const T* __restrict__ blocks, const int* __restrict__ idx,
+    const int* __restrict__ counts, const T* __restrict__ y,
+    T* __restrict__ out, const Params& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* ys = reinterpret_cast<T*>(smem);
   int* s_end = reinterpret_cast<int*>(smem + p.meta_off);   // [rows]
@@ -284,7 +291,9 @@ narrow_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
   for (int i = threadIdx.x; i < rows; i += kThreads)
     s_end[i] = (int)min((long long)counts[ra + i], jcap);
   __syncthreads();
-  int staged = -1;                          // the Y tile in ys (uniform)
+  const int pieces = PIECED ? p.pieces : 1;
+  const int bkp = PIECED ? p.bkp : bk;      // staged Y rows a piece
+  int staged = -1;            // the Y tile (piece) in ys (uniform)
 
   for (int i = 0; i < rows; ++i) {
     const long long r = ra + i, j1 = s_end[i];
@@ -299,55 +308,59 @@ narrow_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
       for (int c = 0; c < K; ++c) acc[c] = T(0);
 
       for (long long j = j0; j < j1; ++j) {
-        const T* xrow = rb + j * tile + (long long)row * bk;
-        T xv[kPrefetch];
-#pragma unroll
-        for (int w = 0; w < kPrefetch; ++w) {
-          const int e = lane + 32 * w;
-          xv[w] = (active && e < bk) ? xrow[e] : T(0);
-        }
         const int yi = ri[j];
-        if (yi != staged) {                 // uniform: a new Y tile
-          __syncthreads();                  // readers of the last tile done
-          if (YT) {   // k rows of bk words of Y^T's original
-            copy_rows(smem, (long long)bk * sizeof(T),
-                      reinterpret_cast<const unsigned char*>(
-                          y + (long long)yi * bk),
-                      p.ldy * (long long)sizeof(T), k,
-                      (int)(bk * sizeof(T)), p.yg);
-          } else if (ys_stride == k && p.ldy == k) {
-            // odd k, Y contiguous: the tile is one run of bk * k words
-            copy_run(smem,
-                     reinterpret_cast<const unsigned char*>(
-                         y + (long long)yi * bk * k),
-                     (int)(bk * k * sizeof(T)), p.yg);
-          } else {    // bk rows of k words, at an odd stride
-            copy_rows(smem, (long long)ys_stride * sizeof(T),
-                      reinterpret_cast<const unsigned char*>(
-                          y + (long long)yi * bk * p.ldy),
-                      p.ldy * (long long)sizeof(T), bk,
-                      (int)(k * sizeof(T)), p.yg);
-          }
-          cp_commit();
-          cp_wait<0>();
-          __syncthreads();
-          staged = yi;
-        }
-        if (!active) continue;
+        // the tile in pieces of bkp columns (one piece when it fits)
+        for (int q = 0; q < pieces; ++q) {
+          const int e0 = q * bkp, wq = PIECED ? min(bkp, bk - e0) : bk;
+          const T* xrow = rb + j * tile + (long long)row * bk + e0;
+          T xv[kPrefetch];
 #pragma unroll
-        for (int w = 0; w < kPrefetch; ++w) {
-          const int e = lane + 32 * w;
-          if (e < bk) {
+          for (int w = 0; w < kPrefetch; ++w) {
+            const int e = lane + 32 * w;
+            xv[w] = (active && e < wq) ? xrow[e] : T(0);
+          }
+          const int key = yi * pieces + q;
+          if (key != staged) {              // uniform: a new Y tile (piece)
+            __syncthreads();                // readers of the last tile done
+            const long long yr = (long long)yi * bk + e0;   // its first row
+            if (YT) {   // k rows of wq words of Y^T's original
+              copy_rows(smem, (long long)bkp * sizeof(T),
+                        reinterpret_cast<const unsigned char*>(y + yr),
+                        p.ldy * (long long)sizeof(T), k,
+                        (int)(wq * sizeof(T)), p.yg);
+            } else if (ys_stride == k && p.ldy == k) {
+              // odd k, Y contiguous: the piece is one run of wq * k words
+              copy_run(smem,
+                       reinterpret_cast<const unsigned char*>(y + yr * k),
+                       (int)(wq * k * sizeof(T)), p.yg);
+            } else {    // wq rows of k words, at an odd stride
+              copy_rows(smem, (long long)ys_stride * sizeof(T),
+                        reinterpret_cast<const unsigned char*>(
+                            y + yr * p.ldy),
+                        p.ldy * (long long)sizeof(T), wq,
+                        (int)(k * sizeof(T)), p.yg);
+            }
+            cp_commit();
+            cp_wait<0>();
+            __syncthreads();
+            staged = key;
+          }
+          if (!active) continue;
+#pragma unroll
+          for (int w = 0; w < kPrefetch; ++w) {
+            const int e = lane + 32 * w;
+            if (e < wq) {
+#pragma unroll
+              for (int c = 0; c < K; ++c)
+                acc[c] += xv[w] * y_at<T, YT>(ys, e, c, bkp, ys_stride);
+            }
+          }
+          for (int e = lane + 32 * kPrefetch; e < wq; e += 32) {
+            const T x = xrow[e];
 #pragma unroll
             for (int c = 0; c < K; ++c)
-              acc[c] += xv[w] * y_at<T, YT>(ys, e, c, bk, ys_stride);
+              acc[c] += x * y_at<T, YT>(ys, e, c, bkp, ys_stride);
           }
-        }
-        for (int e = lane + 32 * kPrefetch; e < bk; e += 32) {
-          const T x = xrow[e];
-#pragma unroll
-          for (int c = 0; c < K; ++c)
-            acc[c] += x * y_at<T, YT>(ys, e, c, bk, ys_stride);
         }
       }
 
@@ -369,6 +382,28 @@ narrow_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
   }
 }
 
+// Few sums a lane (K words <= 32 bytes, the fit's k = 3): 5 blocks an SM,
+// for more X loads in flight
+template <typename T, int K, bool YT>
+__global__ void __launch_bounds__(kThreads, K * sizeof(T) <= 32 ? 5 : 1)
+narrow_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
+              const int* __restrict__ counts, const T* __restrict__ y,
+              T* __restrict__ out, const __grid_constant__ Params p) {
+  narrow_body<T, K, YT, false>(blocks, idx, counts, y, out, p);
+}
+
+// Tiles whose Y rows do not fit in shared memory, in pieces: one instance
+// a word type and Y layout, 16 sums a lane
+template <typename T, bool YT>
+__global__ void __launch_bounds__(kThreads)
+narrow_pieces_kernel(const T* __restrict__ blocks,
+                     const int* __restrict__ idx,
+                     const int* __restrict__ counts,
+                     const T* __restrict__ y, T* __restrict__ out,
+                     const __grid_constant__ Params p) {
+  narrow_body<T, 16, YT, true>(blocks, idx, counts, y, out, p);
+}
+
 // ---------------------------------------------------------------------------
 // wide Y: a column tile of 32 V words, lanes over its columns; a block
 // takes up to G row blocks at once, slot by slot, so that row blocks whose
@@ -384,7 +419,10 @@ __host__ __device__ constexpr int wide_group() {
   return 256 / (V * (int)sizeof(T)) < 16 ? 256 / (V * (int)sizeof(T)) : 16;
 }
 
-template <typename T, int V>
+// MULTI: tiles in pieces (p.pieces > 1) or tile rows 2 or 4 a warp
+// (p.rpw_shift > 0), one instance a word type at V = 1; else whole tiles,
+// a row a warp, with that arithmetic compiled away
+template <typename T, int V, bool MULTI>
 __global__ void __launch_bounds__(kThreads)
 wide_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
             const int* __restrict__ counts, const T* __restrict__ y,
@@ -394,18 +432,22 @@ wide_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
   extern __shared__ __align__(16) unsigned char smem[];
   T* ybuf = reinterpret_cast<T*>(smem);                  // [kYStages]
   T* xbuf = ybuf + kYStages * p.y_words;                 // [kXStages]
-  int* s_n = reinterpret_cast<int*>(smem + p.meta_off);  // [G]
+  int* s_n = reinterpret_cast<int*>(smem + p.meta_off);  // [rows]
   int* s_idx = s_n + p.rows_per_block;                   // [rows][per]
   const Work w(p);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bk = p.bk, ys_stride = p.y_stride;
+  const int bk = p.bk;
+  const int bkp = MULTI ? p.bkp : bk, pieces = MULTI ? p.pieces : 1;
+  const int ys_stride = p.y_stride;
+  const int rsh = MULTI ? p.rpw_shift : 0, rmask = (1 << rsh) - 1;
   const bool split = p.splits > 1;
-  const bool active = warp < p.bm;
   const long long tile = (long long)p.bm * bk;
 
+  // a pair (g, t) is piece t % pieces of used slot t / pieces of row
+  // block g (one piece a slot when the tiles fit)
   for (int i = tid; i < w.rows; i += kThreads)
-    s_n[i] = (int)max(0LL, min((long long)counts[w.ra + i], w.j0 + w.per) -
-                                w.j0);
+    s_n[i] = pieces * (int)max(0LL, min((long long)counts[w.ra + i],
+                                        w.j0 + w.per) - w.j0);
   for (int f = tid; f < w.rows * w.per; f += kThreads) {
     const int i = f / w.per, t = f - i * w.per;
     s_idx[i * w.per + t] = idx[(w.ra + i) * p.maxb + w.j0 + t];
@@ -413,6 +455,16 @@ wide_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
   __syncthreads();
   int tmax = 0;
   for (int i = 0; i < w.rows; ++i) tmax = max(tmax, s_n[i]);
+  // the slot of pair t and its piece q
+  auto slot_of = [&](int t, int& q) {
+    if (pieces == 1) {
+      q = 0;
+      return t;
+    }
+    const int j = t / pieces;
+    q = t - j * pieces;
+    return j;
+  };
 
   // the pairs, slot by slot over the group: (g, t) after (g0, t0)
   auto advance = [&](int& g, int& t) {
@@ -429,27 +481,33 @@ wide_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
   // producer: the next pair whose X tile to stage, its Y tiles
   int xg_ = -1, xt = 0, x_slot = 0;
   bool x_ok = advance(xg_, xt);
-  int yg_ = -1, yt = 0, y_last = -1, y_loads = 0;
+  int yg_ = -1, yt = 0, y_loads = 0;
+  long long y_last = -1;
   bool y_ok = advance(yg_, yt);
-  int c_last = -1, c_load = -1;
+  long long c_last = -1;
+  int c_load = -1;
   int commits = 0;              // cp.async groups committed so far
   int y_group[kYStages];        // the group each staged Y tile joined
-  // stage Y tiles (one cp.async piece set each) up to kYStages - 1 ahead
-  // of the consumer's; they join the current cp.async group
+  // stage Y tiles (pieces) up to kYStages - 1 ahead of the consumer's;
+  // they join the current cp.async group
   auto stage_y = [&]() {
     while (y_ok) {
-      const int yi = s_idx[yg_ * w.per + yt];
-      if (yi != y_last) {
+      int q;
+      const int j = slot_of(yt, q);
+      const int yi = s_idx[yg_ * w.per + j];
+      const long long key = (long long)yi * pieces + q;
+      if (key != y_last) {
         if (y_loads >= c_load + kYStages) return;
+        const int e0 = q * bkp;
         copy_rows(reinterpret_cast<unsigned char*>(
                       ybuf + (y_loads % kYStages) * p.y_words),
                   (long long)ys_stride * sizeof(T),
                   reinterpret_cast<const unsigned char*>(
-                      y + (long long)yi * bk * p.ldy + w.col0),
-                  p.ldy * (long long)sizeof(T), bk,
+                      y + ((long long)yi * bk + e0) * p.ldy + w.col0),
+                  p.ldy * (long long)sizeof(T), min(bkp, bk - e0),
                   (int)(w.cols * sizeof(T)), p.yg);
         y_group[y_loads % kYStages] = commits;
-        y_last = yi;
+        y_last = key;
         ++y_loads;
       }
       y_ok = advance(yg_, yt);
@@ -457,10 +515,19 @@ wide_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
   };
   auto stage_x = [&]() {
     if (!x_ok) return;
+    int q;
+    const int j = slot_of(xt, q);
     const unsigned char* src = reinterpret_cast<const unsigned char*>(
-        blocks + ((w.ra + xg_) * p.maxb + w.j0 + xt) * tile);
-    copy_run(reinterpret_cast<unsigned char*>(xbuf + x_slot * p.x_words),
-             src, (int)(tile * sizeof(T)), p.xg);
+        blocks + ((w.ra + xg_) * p.maxb + w.j0 + j) * tile + q * bkp);
+    unsigned char* dst = reinterpret_cast<unsigned char*>(
+        xbuf + x_slot * p.x_words);
+    if (pieces == 1) {
+      copy_run(dst, src, (int)(tile * sizeof(T)), p.xg);
+    } else {      // bm rows of the piece, at the tile's row stride
+      copy_rows(dst, (long long)bkp * sizeof(T), src,
+                (long long)bk * sizeof(T), p.bm,
+                (int)(min(bkp, bk - q * bkp) * sizeof(T)), p.xg);
+    }
     x_slot = x_slot + 1 == kXStages ? 0 : x_slot + 1;
     x_ok = advance(xg_, xt);
   };
@@ -472,24 +539,30 @@ wide_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
     ++commits;
   }
 
+  // acc[a]: tile row warp + 8 (a & rmask) of row block a >> rsh
   T acc[G][V];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int a = 0; a < G; ++a) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) acc[g][v] = T(0);
+    for (int v = 0; v < V; ++v) acc[a][v] = T(0);
   }
   bool finite = true;
   int c_slot = 0;
-  // the product of pair (g, t) into acc[g]: a warp ballot over each 32
-  // words of its tile row finds the words to multiply
-  auto pair = [&](T (&a)[V], int g, int t) {
-    const int yi = s_idx[g * w.per + t];
-    const bool fresh = yi != c_last;           // uniform
+  const T* xs = xbuf;           // the current pair's X tile (piece)
+  const T* ys = ybuf;           // and its Y tile (piece)
+  int wq = bkp;                 // its columns
+  // wait for pair (g, t) and stage ahead: the block's step of the rings
+  auto step = [&](int g, int t) {
+    int q;
+    const int j = slot_of(t, q);
+    const long long key = (long long)s_idx[g * w.per + j] * pieces + q;
+    const bool fresh = key != c_last;           // uniform
+    wq = min(bkp, bk - q * bkp);
     // wait for the pair's X tile (kXStages - 2 groups may stay pending)
     // and, for a fresh tile, for the group its Y tile joined
     int pending = kXStages - 2;
     if (fresh) {
-      c_last = yi;
+      c_last = key;
       ++c_load;
       pending = min(pending, commits - y_group[c_load % kYStages] - 1);
     }
@@ -500,11 +573,11 @@ wide_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
     } else {
       cp_wait<0>();
     }
-    const T* ys = ybuf + (c_load % kYStages) * p.y_words;
+    ys = ybuf + (c_load % kYStages) * p.y_words;
     if (kF32 && fresh) {
       // the stage's barrier also ORs the finiteness of the new Y tile
       finite = !__syncthreads_or(copied_nonfinite(
-          reinterpret_cast<const float*>(ys), ys_stride, bk,
+          reinterpret_cast<const float*>(ys), ys_stride, wq,
           (int)(w.cols * sizeof(T)), p.yg));
     } else {
       __syncthreads();       // pair landed; the previous X slot is free
@@ -513,15 +586,18 @@ wide_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
     stage_x();
     cp_commit();
     ++commits;
-    const T* xr = xbuf + c_slot * p.x_words + warp * bk;
+    xs = xbuf + c_slot * p.x_words;
     c_slot = c_slot + 1 == kXStages ? 0 : c_slot + 1;
-    if (!active) return;
+  };
+  // one tile row of the current pair into a: a warp ballot over each 32
+  // words of the row finds the words to multiply
+  auto row_product = [&](T (&a)[V], const T* xr) {
     const bool skip = !kF32 || finite;
     const T* yl = ys + lane * V;
-    for (int e0 = 0; e0 < bk; e0 += 32) {
+    for (int e0 = 0; e0 < wq; e0 += 32) {
       const int e = e0 + lane;
-      const T xv = e < bk ? xr[e] : T(0);
-      unsigned m = __ballot_sync(0xffffffffu, skip ? xv != T(0) : e < bk);
+      const T xv = e < wq ? xr[e] : T(0);
+      unsigned m = __ballot_sync(0xffffffffu, skip ? xv != T(0) : e < wq);
       while (m) {
         const int b = __ffs(m) - 1;
         m &= m - 1;
@@ -541,20 +617,24 @@ wide_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
   };
   for (int t = 0; t < tmax; ++t) {
 #pragma unroll
-    for (int g = 0; g < G; ++g)
-      if (g < w.rows && t < s_n[g]) pair(acc[g], g, t);
+    for (int a = 0; a < G; ++a) {
+      const int g = a >> rsh, r = a & rmask;
+      if (g >= w.rows || t >= s_n[g]) continue;     // uniform
+      if (r == 0) step(g, t);
+      const int row = warp + kWarps * r;
+      if (row < p.bm) row_product(acc[a], xs + row * bkp);
+    }
   }
   cp_wait<0>();
-  if (active) {
-    if (split) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (split) asm volatile("griddepcontrol.wait;\n" ::: "memory");
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (g >= w.rows || (split && s_n[g] == 0)) continue;
-      T* o = out + ((w.ra + g) * p.bm + warp) * p.k + w.col0 + lane * V;
+  for (int a = 0; a < G; ++a) {
+    const int g = a >> rsh, row = warp + kWarps * (a & rmask);
+    if (g >= w.rows || row >= p.bm || (split && s_n[g] == 0)) continue;
+    T* o = out + ((w.ra + g) * p.bm + row) * p.k + w.col0 + lane * V;
 #pragma unroll
-      for (int v = 0; v < V; ++v)
-        if (lane * V + v < w.cols) put(o + v, acc[g][v], split);
-    }
+    for (int v = 0; v < V; ++v)
+      if (lane * V + v < w.cols) put(o + v, acc[a][v], split);
   }
 }
 
@@ -618,6 +698,11 @@ cudaError_t launch_narrow(int width, const void* blocks, const void* idx,
                           const Params& p, size_t smem, cudaStream_t s) {
   const dim3 g((unsigned)((p.nrb + p.rows_per_block - 1) / p.rows_per_block),
                (unsigned)p.splits);         // row blocks, split
+  if (p.pieces > 1)
+    return width == 16
+               ? launch_kernel<T>(narrow_pieces_kernel<T, YT>, blocks, idx,
+                                  counts, y, out, p, g, smem, s)
+               : cudaErrorInvalidValue;
   switch (width) {
     case 3: return launch_kernel<T>(narrow_kernel<T, 3, YT>, blocks, idx,
                                     counts, y, out, p, g, smem, s);
@@ -641,15 +726,20 @@ cudaError_t launch_wide(int width, const void* blocks, const void* idx,
                         const Params& p, long long blocks_, size_t smem,
                         cudaStream_t s) {
   const dim3 grid((unsigned)blocks_);
+  if (p.pieces > 1 || p.rpw_shift > 0)
+    return width == 1 ? launch_kernel<T>(wide_kernel<T, 1, true>, blocks,
+                                         idx, counts, y, out, p, grid, smem,
+                                         s)
+                      : cudaErrorInvalidValue;
   switch (width) {
-    case 1: return launch_kernel<T>(wide_kernel<T, 1>, blocks, idx, counts,
-                                    y, out, p, grid, smem, s);
-    case 2: return launch_kernel<T>(wide_kernel<T, 2>, blocks, idx, counts,
-                                    y, out, p, grid, smem, s);
-    case 4: return launch_kernel<T>(wide_kernel<T, 4>, blocks, idx, counts,
-                                    y, out, p, grid, smem, s);
-    case 8: return launch_kernel<T>(wide_kernel<T, 8>, blocks, idx, counts,
-                                    y, out, p, grid, smem, s);
+    case 1: return launch_kernel<T>(wide_kernel<T, 1, false>, blocks, idx,
+                                    counts, y, out, p, grid, smem, s);
+    case 2: return launch_kernel<T>(wide_kernel<T, 2, false>, blocks, idx,
+                                    counts, y, out, p, grid, smem, s);
+    case 4: return launch_kernel<T>(wide_kernel<T, 4, false>, blocks, idx,
+                                    counts, y, out, p, grid, smem, s);
+    case 8: return launch_kernel<T>(wide_kernel<T, 8, false>, blocks, idx,
+                                    counts, y, out, p, grid, smem, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -676,11 +766,13 @@ cudaError_t launch_word(int wide, int width, int y_t, const void* blocks,
 // kernel (width = K, 3/4/8/10/12/16 sums a lane), 1 -> the wide kernel
 // (width = V, columns a lane). y_t: Y is the transposed view of a row-major matrix
 // with leading dimension ldy (narrow only); else row-major with ldy. With
-// splits > 1 a zero kernel runs first (out need not be zeroed). The wide
-// kernel stages X tiles of x_words words in pieces of xg bytes and keeps
-// the group's slot counts (rows_per_block ints) and indices
-// (rows_per_block * per_split ints) at byte meta_off of shared memory; it
-// takes bm <= 8 and bk <= 128.
+// splits > 1 a zero kernel runs first (out need not be zeroed). Both
+// kernels stage a tile's Y rows (and the wide one its X columns) bkp at a
+// time, bkp = bk unless a whole tile does not fit. The wide kernel stages
+// X tiles (pieces) of x_words words in pieces of xg bytes, gives each warp
+// 2^rpw_shift tile rows (bm > 8) and keeps the group's slot counts
+// (rows_per_block ints) and indices (rows_per_block * per_split ints) at
+// byte meta_off of shared memory.
 // word: 0 -> float32, 1 -> 32-bit words mod 2^32, 2 -> 64-bit words mod 2^64.
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int spmm_ell_launch(
@@ -689,10 +781,12 @@ extern "C" int spmm_ell_launch(
     long long ldy, int y_t, int wide, int width, int col_tile,
     int col_tiles, int rows_per_block, long long per_split, int splits,
     int x_words, int y_words, int y_stride, int yg, int xg, int meta_off,
-    long long grid, long long smem, int word, void* stream) {
+    long long grid, long long smem, int bkp, int rpw_shift, int word,
+    void* stream) {
   const Params p{nrb, maxb, bm, bk, k, ldy, col_tile, col_tiles,
                  rows_per_block, per_split, splits, x_words, y_words,
-                 y_stride, yg, xg, meta_off};
+                 y_stride, yg, xg, meta_off, bkp, (bk + bkp - 1) / bkp,
+                 rpw_shift};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (word) {
     case 0: return (int)launch_word<float>(wide, width, y_t, blocks, idx,

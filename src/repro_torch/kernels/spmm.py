@@ -25,7 +25,12 @@ these kernels stage Y one tile at a time. Beside them:
   row, bound by the bytes of the tiles; wide, k > 16: column tiles of 32 V
   words over the grid, lanes over Y's columns, the zero words of the tiles
   skipped, bound by the bytes of Y), its column tile, the row blocks a
-  block takes or the split of long tile lists, and its shared memory.
+  block takes or the split of long tile lists, and its shared memory. A
+  tile too wide for shared memory is staged in pieces of `bkp` columns; a
+  wide warp takes 2 or 4 tile rows when bm > 8. Both run on one instance
+  of each kernel (16 sums a lane narrow, one column a lane wide). What no
+  plan can stage (wide tiles of more than 32 rows, or too tall for one
+  piece of 32 columns) is refused with a ValueError before any launch.
   `Plan.work` is the block-to-work map the kernels compute, so the CPU
   tests can check that it covers every slot and column once.
 * `spmm_ell` — the wrapper. A CPU tensor takes the plain version; a CUDA
@@ -70,14 +75,16 @@ WIDE_WIDTHS = (1, 2, 4, 8)          # V instances: Y columns a lane owns
 # MIN_SLOTS_PER_SPLIT slots a block
 TARGET_BLOCKS = 4 * SMS
 MIN_SLOTS_PER_SPLIT = 4
-# wide kernel: a ring of X_STAGES X tiles and Y_STAGES Y tiles; tiles of at
-# most MAX_BM x MAX_BK (a warp per tile row); the group's counts and idx
-# copied to shared memory, at most IDX_CAP ints
+# wide kernel: a ring of X_STAGES X tiles and Y_STAGES Y tiles; a warp per
+# tile row, or 2 or 4 rows (tiles of at most WARPS * MAX_ROWS_PER_WARP
+# rows); the group's counts and idx copied to shared memory, at most
+# IDX_CAP ints
 X_STAGES = 4
 Y_STAGES = 3
-MAX_BM = 8
-MAX_BK = 128
+WARPS = 8
+MAX_ROWS_PER_WARP = 4
 IDX_CAP = 4096
+PIECE_ALIGN = 32        # a piece of a tile holds a multiple of 32 columns
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +209,10 @@ class Plan(NamedTuple):
                         # copy of counts and idx
     smem: int           # dynamic shared memory, bytes
     blocks: int         # grid size
+    bkp: int            # tile columns (Y rows) staged at once: bk, or a
+                        # piece of it when a whole tile does not fit
+    pieces: int         # pieces a tile is staged in, ceil(bk / bkp)
+    rpw_shift: int      # wide: log2 of the tile rows a warp takes
 
     @property
     def zeroed(self) -> bool:
@@ -235,20 +246,28 @@ def wide_group(width: int, word: int) -> int:
     return min(16, 256 // (width * word))
 
 
+def _narrow_piece(bk: int, row_words: int, fixed: int, word: int) -> int:
+    """Tile columns the narrow kernel stages at once: all bk when their
+    Y rows (row_words words each, plus `fixed` bytes) fit in a block's
+    shared memory, else the most that fit, a multiple of PIECE_ALIGN."""
+    if word * row_words * bk + fixed <= SMEM_PER_BLOCK:
+        return bk
+    return (SMEM_PER_BLOCK - fixed) // (word * row_words) \
+        // PIECE_ALIGN * PIECE_ALIGN
+
+
 def plan(nrb: int, maxb: int, bm: int, bk: int, k: int, word: int,
          y_t: bool = False) -> Plan:
     """The launch of one spmm_ell (word: bytes of a word; y_t: Y is the
     transposed view of a row-major matrix, read in place by the narrow
-    kernel). Raises ValueError for tiles the wide kernel does not take
-    (bm > 8 or bk > 128)."""
+    kernel). A tile whose staged rows do not fit in shared memory is staged
+    in pieces of `bkp` columns. Raises ValueError, before any launch, for
+    tiles no plan can stage: with Y wider than 16 columns, tiles of more
+    than WARPS * MAX_ROWS_PER_WARP rows, or so tall that a piece of
+    PIECE_ALIGN columns does not fit."""
     vec = 16 // word                          # words in 16 bytes
     if k <= NARROW_WIDTHS[-1]:
         width = next(w for w in NARROW_WIDTHS if w >= k)
-        if y_t:       # Y^T's rows, bk words each
-            y_stride, y_words = bk, _round_up(width * bk, vec)
-        else:         # bk rows at an odd stride: no bank conflicts
-            y_stride = k | 1
-            y_words = _round_up(bk * y_stride + width, vec)
         splits = max(1, min(-(-TARGET_BLOCKS // max(1, nrb)),
                             -(-maxb // MIN_SLOTS_PER_SPLIT)))
         per_split = -(-maxb // splits)
@@ -256,27 +275,60 @@ def plan(nrb: int, maxb: int, bm: int, bk: int, k: int, word: int,
         # many row blocks: a block walks a few, about 2 * TARGET_BLOCKS
         rows_per_block = max(1, nrb // (2 * TARGET_BLOCKS)) \
             if splits == 1 else 1
+        # a tile staged in pieces takes the one instance that keeps 16 sums
+        widest = NARROW_WIDTHS[-1]
+        fixed = 4 * rows_per_block + 16 + word * (vec + widest)
+        if y_t:       # Y^T's rows, bkp words each
+            bkp = _narrow_piece(bk, width, fixed, word)
+            if bkp < bk:
+                width = widest
+                bkp = _narrow_piece(bk, width, fixed, word)
+            y_stride, y_words = bkp, _round_up(width * bkp, vec)
+        else:         # bkp rows at an odd stride: no bank conflicts
+            y_stride = k | 1
+            bkp = _narrow_piece(bk, y_stride, fixed, word)
+            if bkp < bk:
+                width = widest
+            y_words = _round_up(bkp * y_stride + width, vec)
         meta_off = _round_up(word * y_words, 16)
         smem = meta_off + 4 * rows_per_block
         return Plan(False, width, k, 1, rows_per_block, splits, per_split, 0,
                     y_words, y_stride, meta_off, smem,
-                    -(-nrb // rows_per_block) * splits)
-    if not 1 <= bm <= MAX_BM or not 1 <= bk <= MAX_BK:
+                    -(-nrb // rows_per_block) * splits, bkp, -(-bk // bkp), 0)
+    rpw = next((r for r in (1, 2, 4) if r <= MAX_ROWS_PER_WARP
+                and bm <= WARPS * r), None)
+    if not 1 <= bm or rpw is None:
         raise ValueError(f"spmm_ell on the card takes y wider than "
                          f"{NARROW_WIDTHS[-1]} columns with tiles of 1 to "
-                         f"{MAX_BM} rows and 1 to {MAX_BK} columns, not "
-                         f"{bm}x{bk}")
+                         f"{WARPS * MAX_ROWS_PER_WARP} rows, not {bm}")
+    budget = SMEM_PER_BLOCK - 4 * IDX_CAP - 16
     x_words = _round_up(bm * bk, vec)
-    room = SMEM_PER_BLOCK - 4 * IDX_CAP - word * X_STAGES * x_words
+    room = budget - word * X_STAGES * x_words
+    bkp = bk
+    if room < word * Y_STAGES * bk * 32:
+        # not even 32 columns of whole tiles fit: stage them in pieces
+        bkp = budget // (word * (Y_STAGES * 32 + X_STAGES * bm + vec)) \
+            // PIECE_ALIGN * PIECE_ALIGN
+        if bkp < PIECE_ALIGN:
+            raise ValueError(
+                f"spmm_ell on the card cannot stage {bm}x{bk} tiles of "
+                f"{word}-byte words with y wider than {NARROW_WIDTHS[-1]} "
+                f"columns: a piece of {PIECE_ALIGN} columns needs more "
+                f"than {SMEM_PER_BLOCK} bytes of shared memory")
+        x_words = _round_up(bm * bkp, vec)
+        room = budget - word * X_STAGES * x_words
     width = next((v for v in WIDE_WIDTHS if 32 * v >= k), WIDE_WIDTHS[-1])
-    while width > 1 and word * Y_STAGES * bk * 32 * width > room:
+    if bkp < bk or rpw > 1:       # the one instance that takes these: V = 1
+        width = 1
+    while width > 1 and word * Y_STAGES * bkp * 32 * width > room:
         width //= 2
     col_tile = y_stride = 32 * width
-    y_words = bk * col_tile
+    y_words = bkp * col_tile
     ring = word * (Y_STAGES * y_words + X_STAGES * x_words)
     col_tiles = -(-k // col_tile)
     resident = SMS * max(1, SMEM_PER_SM // (ring + 4 * IDX_CAP + 1024))
-    rows_per_block = min(nrb, wide_group(width, word))
+    rpw_shift = rpw.bit_length() - 1
+    rows_per_block = min(nrb, wide_group(width, word) >> rpw_shift)
     base = -(-nrb // rows_per_block) * col_tiles
     splits = 1
     if base < resident // 2 and maxb > MIN_SLOTS_PER_SPLIT:
@@ -290,7 +342,7 @@ def plan(nrb: int, maxb: int, bm: int, bk: int, k: int, word: int,
     smem = meta_off + 4 * rows_per_block * (1 + per_split)
     return Plan(True, width, col_tile, col_tiles, rows_per_block, splits,
                 per_split, x_words, y_words, y_stride, meta_off, smem,
-                base * splits)
+                base * splits, bkp, -(-bk // bkp), rpw_shift)
 
 
 def _piece_bytes(ptr: int, *sizes: int) -> int:
@@ -363,13 +415,15 @@ def spmm_ell(blocks: torch.Tensor, idx: torch.Tensor, counts: torch.Tensor,
     counts = counts.to(torch.int32).contiguous()
     out = torch.empty((nrb * bm, k), dtype=blocks.dtype, device=blocks.device)
     if y_t:
-        yg = _piece_bytes(y.data_ptr(), ldy * word, bk * word)
-    elif not p.wide and ldy == k == p.y_stride:    # the tile is one run
-        yg = _piece_bytes(y.data_ptr(), bk * k * word)
+        yg = _piece_bytes(y.data_ptr(), ldy * word, bk * word, p.bkp * word)
+    elif not p.wide and ldy == k == p.y_stride:    # the piece is one run
+        yg = _piece_bytes(y.data_ptr(), bk * k * word, p.bkp * k * word)
     else:
         yg = _piece_bytes(y.data_ptr(), ldy * word, k * word,
                           p.col_tile * word, p.y_stride * word)
-    xg = _piece_bytes(blocks.data_ptr(), bm * bk * word)
+    # X: whole tiles, or bm rows of a piece at the tile's row stride
+    xg = _piece_bytes(blocks.data_ptr(), bm * bk * word, bk * word,
+                      p.bkp * word)
     fn = _build.launcher("spmm")
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream(blocks.device).cuda_stream
@@ -378,7 +432,7 @@ def spmm_ell(blocks: torch.Tensor, idx: torch.Tensor, counts: torch.Tensor,
                  int(y_t), int(p.wide), p.width, p.col_tile, p.col_tiles,
                  p.rows_per_block, p.per_split, p.splits, p.x_words,
                  p.y_words, p.y_stride, yg, xg, p.meta_off, p.blocks, p.smem,
-                 WORD_CODES[blocks.dtype], stream)
+                 p.bkp, p.rpw_shift, WORD_CODES[blocks.dtype], stream)
     _build.check(err, "spmm_ell")
     if p.zeroed:
         ZERO_LAUNCHES += 1

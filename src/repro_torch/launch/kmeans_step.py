@@ -1,0 +1,427 @@
+"""The paper's online Lloyd iteration as two programs over pre-materialized
+offline tensors.
+
+The offline phase (Beaver triples, B2A randomness) enters as *function
+inputs*: a RecordingDealer first runs each program body once on zeros to
+enumerate every correlated-randomness tensor it consumes (their shapes are
+data-independent — that is why the offline phase exists), then each call
+consumes them from its argument list through a ListDealer.
+
+Program split — one online iteration is TWO programs with an optional host
+exchange between them:
+
+  S1  distances + tournament argmin, ending at the assignment shares. The
+      joint public-x-share products are Beaver matmuls inside the program
+      (dense) or Protocol-2 results entering as share INPUTS (sparse); the
+      distance-phase results depend only on the centroid shares, so the
+      host computes them before S1.
+  S2  (sparse only, not a program) the mid-iteration Protocol-2 exchange on
+      the assignment shares S1 produced, run by the host between the two.
+  S3  centroid update: C^T X, empty-cluster guard, Newton-Raphson division,
+      MUX — taking the S2 results as inputs (sparse) or Beaver matmuls
+      (dense).
+
+Every partition x sparsity combo runs through the same two bodies,
+parameterized by a `FitGeometry`; `fit_programs` records the pair's
+schedules once per (geometry, backend, device) and caches it. PyTorch runs
+the bodies eagerly: a program is a plain function that launches the ring
+backend's kernels, with no ahead-of-time compilation.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import protocol as P
+from repro_torch.core import ring
+from repro_torch.core.backend import get_backend
+from repro_torch.core.channel import CommLog
+from repro_torch.core.sharing import AShare, BShare
+from repro_torch.core.triples import BinTriple, MatmulTriple, MulTriple
+
+
+class RecordingDealer:
+    """Enumerates the offline-phase tensors (kind, shape) in consumption
+    order; hands back zeros on `device` so the body runs on."""
+
+    def __init__(self, device="cpu"):
+        self.requests: list[tuple[str, tuple]] = []
+        self.device = torch.device(device)
+
+    def _z(self, shape):
+        return torch.zeros(shape, dtype=ring.DTYPE, device=self.device)
+
+    def matmul_triple(self, sa, sb, *, tag="x"):
+        self.requests.append(("matmul", (tuple(sa), tuple(sb))))
+        n, d = sa
+        _, k = sb
+        return MatmulTriple(AShare(self._z((n, d)), self._z((n, d))),
+                            AShare(self._z((d, k)), self._z((d, k))),
+                            AShare(self._z((n, k)), self._z((n, k))))
+
+    def mul_triple(self, shape, *, tag="x"):
+        self.requests.append(("mul", tuple(shape)))
+        z = self._z(shape)
+        return MulTriple(AShare(z, z), AShare(z, z), AShare(z, z))
+
+    def bin_triple(self, shape, *, tag="x"):
+        self.requests.append(("bin", tuple(shape)))
+        z = self._z(shape)
+        return BinTriple(BShare(z, z), BShare(z, z), BShare(z, z))
+
+    def rand(self, shape):
+        self.requests.append(("rand", tuple(shape)))
+        return self._z(shape)
+
+
+class ListDealer:
+    """Consumes pre-materialized offline tensors in order."""
+
+    def __init__(self, flat: list, device="cpu"):
+        self.flat = list(flat)
+        self.i = 0
+        self.device = torch.device(device)
+
+    def _pop(self):
+        v = self.flat[self.i]
+        self.i += 1
+        return v
+
+    def matmul_triple(self, sa, sb, *, tag="x"):
+        return MatmulTriple(AShare(self._pop(), self._pop()),
+                            AShare(self._pop(), self._pop()),
+                            AShare(self._pop(), self._pop()))
+
+    def mul_triple(self, shape, *, tag="x"):
+        return MulTriple(AShare(self._pop(), self._pop()),
+                         AShare(self._pop(), self._pop()),
+                         AShare(self._pop(), self._pop()))
+
+    def bin_triple(self, shape, *, tag="x"):
+        return BinTriple(BShare(self._pop(), self._pop()),
+                         BShare(self._pop(), self._pop()),
+                         BShare(self._pop(), self._pop()))
+
+    def rand(self, shape):
+        return self._pop()
+
+
+# ---------------------------------------------------------------------------
+# FitGeometry — static shape info of one partition x sparsity combo
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FitGeometry:
+    """Shapes of one secure-fit combo. Vertical: X = [X_A | X_B]; horizontal:
+    X = [X_A ; X_B]. Hashable — it keys the program cache."""
+
+    partition: str     # "vertical" | "horizontal"
+    sparse: bool
+    shape_a: tuple     # party A's encoded-data shape
+    shape_b: tuple
+    k: int
+
+    def __post_init__(self):
+        if self.partition not in ("vertical", "horizontal"):
+            raise ValueError(f"unknown partition {self.partition!r}")
+        if self.partition == "vertical" and self.shape_a[0] != self.shape_b[0]:
+            raise ValueError("vertical partition requires equal sample counts")
+        if self.partition == "horizontal" and self.shape_a[1] != self.shape_b[1]:
+            raise ValueError("horizontal partition requires equal feature counts")
+
+    @property
+    def n(self) -> int:
+        return self.shape_a[0] if self.partition == "vertical" \
+            else self.shape_a[0] + self.shape_b[0]
+
+    @property
+    def d(self) -> int:
+        return self.shape_a[1] + self.shape_b[1] \
+            if self.partition == "vertical" else self.shape_a[1]
+
+    @property
+    def d_a(self) -> int:
+        return self.shape_a[1]
+
+    def he_shapes_s1(self) -> list:
+        """Protocol-2 result shapes entering S1 (the X mu^T joint blocks)."""
+        if not self.sparse:
+            return []
+        if self.partition == "vertical":
+            return [(self.n, self.k), (self.n, self.k)]
+        return [(self.shape_a[0], self.k), (self.shape_b[0], self.k)]
+
+    def he_shapes_s3(self) -> list:
+        """Protocol-2 result shapes entering S3 (the C^T X joint blocks)."""
+        if not self.sparse:
+            return []
+        if self.partition == "vertical":
+            return [(self.k, self.shape_a[1]), (self.k, self.shape_b[1])]
+        return [(self.k, self.d), (self.k, self.d)]
+
+
+def _zeros(shape, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=ring.DTYPE, device=device)
+
+
+def _zero_he(shapes, device):
+    if not shapes:
+        return None
+    return tuple(AShare(_zeros(s, device), _zeros(s, device)) for s in shapes)
+
+
+def _split_he(flat, shapes):
+    """(he tuple | None, remaining flat) from a program's trailing args."""
+    flat = list(flat)
+    if not shapes:
+        return None, flat
+    n_he = 2 * len(shapes)
+    he = tuple(AShare(flat[2 * i], flat[2 * i + 1])
+               for i in range(len(shapes)))
+    return he, flat[n_he:]
+
+
+# ---------------------------------------------------------------------------
+# Program bodies — ONE implementation per online stage, all combos
+# ---------------------------------------------------------------------------
+
+def _s1_body(ctx, geo: FitGeometry, xa, xb, mu: AShare, he):
+    """S1: vectorized distances D' = U - 2 X mu^T + tournament argmin, up to
+    the Protocol-2 boundary. Returns the (n, k) assignment shares.
+
+    he=None -> dense: the joint public-x-share blocks are Beaver matmuls
+    consuming pool triples inside the program.
+    he=(j1, j2) -> sparse: the blocks were computed on the host by Protocol
+    2 from the centroid shares and enter as share inputs."""
+    mm = ctx.backend.ring_mm
+    mu_sq = P.smul(ctx, mu, mu)
+    u = AShare(mu_sq.s0.sum(1), mu_sq.s1.sum(1))
+    mut = AShare(mu.s0.T, mu.s1.T)
+    zl = torch.zeros_like
+    if geo.partition == "vertical":
+        da = geo.d_a
+        loc_a = mm(xa, mut.s0[:da])
+        loc_b = mm(xb, mut.s1[da:])
+        if he is None:
+            j1 = P.smatmul(ctx, AShare(xa, zl(xa)),
+                           AShare(zl(mut.s1[:da]), mut.s1[:da]))
+            j2 = P.smatmul(ctx, AShare(zl(xb), xb),
+                           AShare(mut.s0[da:], zl(mut.s0[da:])))
+        else:
+            j1, j2 = he
+        xmu = AShare(loc_a + j1.s0 + j2.s0, loc_b + j1.s1 + j2.s1)
+    else:
+        # horizontal: rows split; each party's rows hit BOTH mu shares
+        loc_a = mm(xa, mut.s0)
+        loc_b = mm(xb, mut.s1)
+        if he is None:
+            j_a = P.smatmul(ctx, AShare(xa, zl(xa)),
+                            AShare(zl(mut.s1), mut.s1))
+            j_b = P.smatmul(ctx, AShare(zl(xb), xb),
+                            AShare(mut.s0, zl(mut.s0)))
+        else:
+            j_a, j_b = he
+        xmu = AShare(torch.cat([loc_a + j_a.s0, j_b.s0], 0),
+                     torch.cat([j_a.s1, loc_b + j_b.s1], 0))
+    d2 = P.sub(AShare(u.s0[None, :], u.s1[None, :]), P.lshift(xmu, 1))
+    return P.argmin_onehot(ctx, P.trunc(d2, ring.F))
+
+
+def _s3_partial_body(ctx, geo: FitGeometry, xa, xb, c: AShare, he):
+    """S3 head: the (k, d) numerator C^T X and (k,) denominator 1^T C —
+    local and Beaver products, no division.
+
+    he=None -> dense Beaver joint blocks; he=(ja, jb) -> the Protocol-2
+    results of the mid-iteration host exchange on the assignment shares S1
+    produced."""
+    mm = ctx.backend.ring_mm
+    k = geo.k
+    dev = c.s0.device
+    ct = AShare(c.s0.T, c.s1.T)
+    zl = torch.zeros_like
+    if geo.partition == "vertical":
+        da, db = geo.shape_a[1], geo.shape_b[1]
+        za = AShare(mm(ct.s0, xa), _zeros((k, da), dev))
+        zb = AShare(_zeros((k, db), dev), mm(ct.s1, xb))
+        if he is None:
+            ja = P.smatmul(ctx, AShare(zl(ct.s1), ct.s1), AShare(xa, zl(xa)))
+            jb = P.smatmul(ctx, AShare(ct.s0, zl(ct.s0)), AShare(zl(xb), xb))
+        else:
+            ja, jb = he
+        num = AShare(torch.cat([za.s0 + ja.s0, zb.s0 + jb.s0], 1),
+                     torch.cat([za.s1 + ja.s1, zb.s1 + jb.s1], 1))
+    else:
+        na = geo.shape_a[0]
+        ct_a = AShare(ct.s0[:, :na], ct.s1[:, :na])
+        ct_b = AShare(ct.s0[:, na:], ct.s1[:, na:])
+        loc_a = mm(ct_a.s0, xa)
+        if he is None:
+            ja = P.smatmul(ctx, AShare(zl(ct_a.s1), ct_a.s1),
+                           AShare(xa, zl(xa)))
+        else:
+            ja = he[0]
+        za = AShare(loc_a + ja.s0, ja.s1)
+        loc_b = mm(ct_b.s1, xb)
+        if he is None:
+            jb = P.smatmul(ctx, AShare(ct_b.s0, zl(ct_b.s0)),
+                           AShare(zl(xb), xb))
+        else:
+            jb = he[1]
+        zb = AShare(jb.s0, loc_b + jb.s1)
+        num = P.add(za, zb)
+    den = AShare(c.s0.sum(0), c.s1.sum(0))
+    return num, den
+
+
+def _s3_final_body(ctx, k: int, n: int, mu: AShare, num: AShare,
+                   den: AShare, f: int = ring.F):
+    """S3 tail: mu' = num / den at scale f with the empty-cluster guard
+    (CMP + MUX keep the old centroid) and a balanced-split division. `n` is
+    the total sample count; it sizes the division constants.
+
+    Balanced split: computing num * (2^f/den) naively either loses
+    den*2^-f relative precision or pushes the pre-truncation product to
+    ~2^(2f+m) bits, where SecureML local truncation fails often. So the
+    2^m rescale is split: num is shifted down by s = m//2 and 2^s/den is
+    kept in the reciprocal; the product (num/2^s)*(2^s/den) stays at
+    ~2^(2f+4) bits."""
+    dev = num.s0.device
+    one = AShare(torch.ones((k,), dtype=ring.DTYPE, device=dev),
+                 _zeros((k,), dev))
+    is_empty = P.cmp_lt(ctx, den, one)
+    den_safe = P.mux(ctx, is_empty, one, den)
+    m = int(np.ceil(np.log2(max(2, n))))
+    s = m // 2
+    num_s = P.trunc(num, s)
+    r = P.reciprocal(ctx, den_safe, max_den=n, f=f, extra_bits=s)
+    mu_new = P.smul(ctx, num_s, AShare(r.s0[:, None], r.s1[:, None]),
+                    trunc_f=f)
+    guard = AShare(is_empty.s0[:, None], is_empty.s1[:, None])
+    return P.mux(ctx, guard, mu, mu_new)
+
+
+def _s3_body(ctx, geo: FitGeometry, xa, xb, mu: AShare, c: AShare, he):
+    """S3: centroid update mu' = C^T X / 1^T C — the partial-sum head and
+    the finalize tail back to back."""
+    num, den = _s3_partial_body(ctx, geo, xa, xb, c, he)
+    return _s3_final_body(ctx, geo.k, geo.n, mu, num, den)
+
+
+def materialize_offline(requests, dealer) -> list:
+    """Flat tensor list the ListDealer consumes, in recorded order.
+    `dealer` is any triple provider (TrustedDealer on demand, PooledDealer
+    or StreamingPooledDealer for the planned offline phase)."""
+    flat = []
+    for kind, shape in requests:
+        if kind == "matmul":
+            t = dealer.matmul_triple(*shape)
+        elif kind == "mul":
+            t = dealer.mul_triple(shape)
+        elif kind == "bin":
+            t = dealer.bin_triple(shape)
+            flat += [t.u.b0, t.u.b1, t.v.b0, t.v.b1, t.z.b0, t.z.b1]
+            continue
+        else:  # rand
+            flat.append(dealer.rand(shape))
+            continue
+        flat += [t.u.s0, t.u.s1, t.v.s0, t.v.s1, t.z.s0, t.z.s1]
+    return flat
+
+
+def pooled_offline_arrays(requests, seed: int, iters: int = 1,
+                          tag: str = "launch", device="cpu"):
+    """Bulk-generate `iters` iterations' worth of a recorded schedule with
+    ONE stacked draw, one batched ring op and one upload per shape-class,
+    and return ([flat_per_iteration...], dealer). Each flat list feeds one
+    program call via its ListDealer. Word for word equal to
+    `materialize_offline` against a same-seeded TrustedDealer."""
+    from repro_torch.core.triples import PlanRequest, PooledDealer, TriplePlan
+    plan = TriplePlan([PlanRequest(kind, tuple(shape) if kind != "matmul"
+                                   else shape, tag)
+                       for kind, shape in requests]).repeat(iters)
+    dealer = PooledDealer(plan, seed=seed, device=device)
+    return [materialize_offline(requests, dealer) for _ in range(iters)], \
+        dealer
+
+
+# ---------------------------------------------------------------------------
+# fit_programs — the per-iteration S1/S3 pair, all fit shapes
+# ---------------------------------------------------------------------------
+
+class FitPrograms(NamedTuple):
+    """The S1/S3 pair plus the offline schedule each call consumes. Per
+    online iteration:
+
+        he1 = host Protocol-2 on the centroid shares        (sparse only)
+        c   = s1(xa, xb, mu0, mu1, *he1, *flat_s1)          program 1
+        he3 = host Protocol-2 on the assignment shares      (sparse only)
+        mu' = s3(xa, xb, mu0, mu1, c0, c1, *he3, *flat_s3)  program 2
+
+    where flat_s1/flat_s3 = materialize_offline(s{1,3}_requests, pool)."""
+
+    geo: FitGeometry
+    s1: Any
+    s3: Any
+    s1_requests: list
+    s3_requests: list
+
+
+_PROGRAM_CACHE: dict[tuple, FitPrograms] = {}
+
+
+def fit_programs(partition: str, sparse: bool, shape_a, shape_b, k: int,
+                 backend="cuda", device="cuda") -> FitPrograms:
+    """Build (or fetch from the cross-fit cache) the S1/S3 pair for one fit
+    combo. Each body runs once on zeros on `device` with a RecordingDealer
+    to record its schedule (on a GPU this launches its kernels at their
+    online shapes); the programs then run the same bodies over a
+    ListDealer. Hardcodes f = ring.F; the schedules consume the same
+    per-class dealer streams as the eager loop, so pooled serving is word
+    for word the on-demand fit."""
+    device = torch.device(device)
+    ring_backend = get_backend(backend, device)
+    geo = FitGeometry(partition, bool(sparse),
+                      tuple(int(s) for s in shape_a),
+                      tuple(int(s) for s in shape_b), int(k))
+    key = (geo, ring_backend.name, str(device))
+    hit = _PROGRAM_CACHE.get(key)
+    if hit is not None:
+        return hit
+
+    n, d = geo.n, geo.d
+    xa, xb = _zeros(geo.shape_a, device), _zeros(geo.shape_b, device)
+    mu = AShare(_zeros((k, d), device), _zeros((k, d), device))
+
+    def ctx_over(dealer):
+        return P.Ctx(dealer=dealer, log=CommLog(), backend=ring_backend)
+
+    rec1 = RecordingDealer(device)
+    _s1_body(ctx_over(rec1), geo, xa, xb, mu,
+             _zero_he(geo.he_shapes_s1(), device))
+    rec3 = RecordingDealer(device)
+    c = AShare(_zeros((n, k), device), _zeros((n, k), device))
+    _s3_body(ctx_over(rec3), geo, xa, xb, mu, c,
+             _zero_he(geo.he_shapes_s3(), device))
+
+    def s1(xa, xb, mu0, mu1, *rest):
+        he, flat = _split_he(rest, geo.he_shapes_s1())
+        ctx = ctx_over(ListDealer(flat, mu0.device))
+        c = _s1_body(ctx, geo, xa, xb, AShare(mu0, mu1), he)
+        return c.s0, c.s1
+
+    def s3(xa, xb, mu0, mu1, c0, c1, *rest):
+        he, flat = _split_he(rest, geo.he_shapes_s3())
+        ctx = ctx_over(ListDealer(flat, mu0.device))
+        out = _s3_body(ctx, geo, xa, xb, AShare(mu0, mu1), AShare(c0, c1), he)
+        return out.s0, out.s1
+
+    progs = FitPrograms(geo, s1, s3, list(rec1.requests), list(rec3.requests))
+    _PROGRAM_CACHE[key] = progs
+    return progs
+
+
+def clear_program_cache() -> None:
+    _PROGRAM_CACHE.clear()

@@ -388,6 +388,158 @@ def test_spmm_ell_wide_transposed_y_copied_once(cuda, k):
                                                 yt.T.contiguous()))
 
 
+@WORD_TYPES
+@pytest.mark.parametrize("case", [((9, 6, 16, 128), 1024, 42),
+                                  ((5, 7, 16, 128), 896, 300),
+                                  ((4, 5, 32, 128), 768, 100),
+                                  ((6, 4, 12, 64), 512, 17),
+                                  ((5, 3, 8, 256), 1024, 42),
+                                  ((3, 4, 16, 2048), 8192, 42)],
+                         ids=["bm16_k42", "bm16_k300", "bm32_k100",
+                              "bm12_bk64", "bk256_k42", "bm16_bk2048"])
+def test_spmm_ell_wide_tall_and_wide_tiles_equal_plain(cuda, case, dtype):
+    """Tiles the wide kernel (y wider than 16 columns) once refused: more
+    than 8 rows (a warp takes 2 or 4 tile rows) and tiles whose rows do
+    not fit in shared memory (staged in pieces). One launch, equal to the
+    plain version: ring words exactly, float32 within rtol 1e-5, atol
+    1e-3."""
+    (nrb, maxb, bm, bk), d_pad, k = case
+    blocks, idx, counts, y = _ell(nrb, maxb, bm, bk, d_pad, k, dtype, cuda)
+    assert bm > 8 or bk > 128
+    assert spmm.plan(nrb, maxb, bm, bk, k, blocks.element_size()).wide
+    counter = LAUNCH_COUNTERS[dtype]
+    before = getattr(spmm, counter)
+    got = spmm.spmm_ell(blocks, idx, counts, y)
+    assert getattr(spmm, counter) == before + 1
+    want = spmm.spmm_ell_plain(blocks, idx, counts, y)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("y_t", [False, True], ids=["y", "y_t"])
+@pytest.mark.parametrize("k", [15, 16])
+def test_spmm_ell_narrow_tile_in_pieces_equals_plain(cuda, k, y_t):
+    """u64 at bk = 2048 and k = 15 or 16: a staged Y tile (2048 rows at an
+    odd stride, or k rows of 2048 words of a transposed y) does not fit in
+    a block's shared memory, so the narrow kernel stages it in pieces."""
+    nrb, maxb, bm, bk = 6, 5, 8, 2048
+    d_pad = 8 * bk
+    blocks, idx, counts, y = _ell(nrb, maxb, bm, bk, d_pad, k, torch.int64,
+                                  cuda)
+    if y_t:
+        y = _words((k, d_pad), cuda).T
+    p = spmm.plan(nrb, maxb, bm, bk, k, 8, y_t)
+    assert not p.wide and p.pieces > 1
+    copies, before = spmm.COPIES, spmm.LAUNCHES
+    got = spmm.spmm_ell(blocks, idx, counts, y)
+    assert spmm.LAUNCHES == before + 1 and spmm.COPIES == copies
+    assert torch.equal(got, spmm.spmm_ell_plain(blocks, idx, counts,
+                                                y.contiguous()))
+    # through the kernel API, from a dense matrix with 16-row tiles
+    x = ring.to_u64_numpy(_words((40, 3000), cuda))
+    x *= (RNG.random(x.shape) < 0.01).astype(np.uint64)
+    yd = _words((3000, k), cuda)
+    tx = ring.from_u64_numpy(x, cuda)
+    assert torch.equal(ops.spmm_from_dense(tx, yd, bm=16, bk=bk),
+                       ops.spmm_from_dense(tx.cpu(), yd.cpu(), bm=16,
+                                           bk=bk).to(cuda))
+
+
+@pytest.mark.parametrize("k", [3, 10, 42])
+def test_spmm_ell_all_zero_matrix(cuda, k):
+    """The offline planner traces the sparse fit on all-zero data: its
+    CSR matrices pack to one slot a row block and no tile used. The card
+    gives zeros for them and for their transposes, one launch each."""
+    from repro_torch.core.sparse import CSRMatrix
+    csr = CSRMatrix.from_dense(np.zeros((1000, 300), np.uint64))
+    for mat in (csr, csr.transpose()):
+        blocks, idx, counts = mat.ell(device=cuda)
+        assert blocks.shape[1] == 1 and int(counts.sum()) == 0
+        d_pad = 128 * -(-mat.shape[1] // 128)
+        before = spmm.LAUNCHES
+        got = spmm.spmm_ell(blocks, idx, counts, _words((d_pad, k), cuda))
+        assert spmm.LAUNCHES == before + 1
+        assert got.shape == (blocks.shape[0] * 8, k)
+        assert not got.any()
+
+
+def _served_words(dealer, requests) -> list:
+    """Every word a dealer serves for a schedule of matmul, mul, bin and
+    rand requests, on the host."""
+    out = []
+    for r in requests:
+        if r.kind == "matmul":
+            t = dealer.matmul_triple(*r.shape)
+            out += [t.u.s0, t.u.s1, t.v.s0, t.v.s1, t.z.s0, t.z.s1]
+        elif r.kind in ("mul", "bin"):
+            t = getattr(dealer, f"{r.kind}_triple")(r.shape)
+            out += [w for share in t for w in share]
+        else:
+            out.append(dealer.rand(r.shape))
+    return [t.cpu() for t in out]
+
+
+@pytest.mark.parametrize("stage_words", [7, 1000, None])
+def test_pooled_dealers_on_the_card_equal_the_cpu_pool(cuda, monkeypatch,
+                                                       stage_words):
+    """The pinned staging buffers, taking turns (a class split over many of
+    them when STAGE_WORDS is small), carry the CPU pool's words to the
+    card, for the pooled dealer and for the streaming one, whose worker
+    uploads on a stream of its own (and inline, without the worker)."""
+    from repro_torch.core import triples as T
+    reqs = [T.PlanRequest("matmul", ((50, 3), (3, 2)), "t"),
+            T.PlanRequest("mul", (40, 3), "t"), T.PlanRequest("bin", (9,), "t"),
+            T.PlanRequest("rand", (33,), "t")]
+    plan = T.TriplePlan(reqs * 3)
+    if stage_words is not None:
+        monkeypatch.setattr(T, "STAGE_WORDS", stage_words)
+        monkeypatch.setattr(T, "DRAW_WORDS", 3 * stage_words)
+    full = plan.requests * 2
+    want = _served_words(T.PooledDealer(plan.repeat(2), seed=4), full)
+    for dealer in (T.PooledDealer(plan.repeat(2), seed=4, device=cuda),
+                   T.StreamingPooledDealer(plan, 2, seed=4, device=cuda),
+                   T.StreamingPooledDealer(plan, 2, seed=4, device=cuda,
+                                           async_gen=False)):
+        got = _served_words(dealer, full)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+@pytest.mark.parametrize("partition", ["vertical", "horizontal"])
+def test_pooled_and_streamed_gpu_fits_equal_on_demand(cuda, partition,
+                                                      sparse):
+    """offline="pooled" / "streamed" on the card (the S1/S3 programs over
+    the pool's device tensors; the streamed tranches uploaded from the
+    worker on a stream of their own) give the on-demand fit's share words,
+    dealer counters, traffic per tag and phase, and he_seconds."""
+    x = RNG.normal(size=(96, 8)) + RNG.integers(0, 3, (96, 1)) * 4.0
+    if sparse:
+        x *= RNG.random(x.shape) >= 0.7
+    a, b = (x[:, :4], x[:, 4:]) if partition == "vertical" else (x[:40], x[40:])
+    res = {}
+    for offline in ("on_demand", "pooled", "streamed"):
+        cfg = KMeansConfig(k=3, iters=3, partition=partition, seed=2,
+                           sparse=sparse, offline=offline)
+        res[offline] = SecureKMeans(cfg).fit(a, b)
+    g = res["on_demand"]
+    for off in ("pooled", "streamed"):
+        r = res[off]
+        for field in ("centroids", "assignment"):
+            for i in (0, 1):
+                assert torch.equal(getattr(r, field)[i], getattr(g, field)[i])
+        for attr in ("n_matmul", "n_mul", "n_bin"):
+            assert getattr(r.dealer, attr) == getattr(g.dealer, attr)
+        for phase in ("online", "offline"):
+            assert r.log.by_tag(phase) == g.log.by_tag(phase)
+        assert r.he_seconds == g.he_seconds
+        assert all(v == 0 for v in r.dealer.remaining().values())
+    assert res["streamed"].dealer.served_iters == 3
+
+
 @pytest.mark.parametrize("partition", ["vertical", "horizontal"])
 def test_sparse_gpu_fit_equals_cpu_fit(cuda, partition):
     x = RNG.normal(size=(96, 8)) + RNG.integers(0, 3, (96, 1)) * 4.0

@@ -161,9 +161,7 @@ def test_steps_on_reference_centroid_shares(partition):
 # what this slice does not port raises, naming its ROADMAP item
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kwargs", [{"offline": "pooled"},
-                                    {"offline": "streamed"},
-                                    {"batch_size": 16}])
+@pytest.mark.parametrize("kwargs", [{"batch_size": 16}])
 def test_later_slice_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         KMeansConfig(k=2, **kwargs)

@@ -270,7 +270,10 @@ PLAN_CASES = [(12500, 1, 8, 128, 3, 8), (16, 782, 8, 128, 3, 8),
               (600, 3, 8, 128, 16, 8), (2, 10_000, 8, 128, 9, 4),
               (33, 9, 4, 64, 5, 8), (40, 12, 8, 128, 17, 8)] + \
     [(nrb, 782, 8, 128, k, 4) for nrb in (1, 16) for k in (42, 256, 512, 1024)]\
-    + [(16, 782, 8, 128, 512, 8), (16, 782, 8, 128, 1024, 8)]
+    + [(16, 782, 8, 128, 512, 8), (16, 782, 8, 128, 1024, 8)] \
+    + [(4, 4, 16, 128, 42, 8), (16, 782, 16, 128, 512, 4),
+       (3, 5, 32, 128, 100, 8), (4, 3, 8, 2048, 16, 8),
+       (4, 3, 16, 2048, 42, 8), (2, 9, 24, 2048, 300, 4)]
 
 
 @pytest.mark.parametrize("case", PLAN_CASES,
@@ -315,12 +318,57 @@ def test_spmm_plan_covers_every_slot_and_column_once(case):
 
 def test_spmm_plan_refuses_tiles_the_kernels_do_not_take():
     """The narrow kernel takes any tile; the wide one (y wider than 16
-    columns) a warp per tile row and 4 words a lane of it."""
+    columns) tiles of up to 32 rows, a warp taking 1, 2 or 4 of them, and
+    any width of tile, staged in pieces where a whole one does not fit.
+    Refusal starts at 33 rows, with a ValueError before any launch."""
     assert not spmm.plan(4, 4, 16, 256, 3, 8).wide
+    assert not spmm.plan(4, 4, 64, 2048, 16, 8).wide
+    for bm, shift in ((8, 0), (9, 1), (16, 1), (17, 2), (32, 2)):
+        p = spmm.plan(4, 4, bm, 128, 42, 8)
+        assert p.wide and p.rpw_shift == shift
+        assert p.rows_per_block <= spmm.wide_group(p.width, 8) >> shift
+    with pytest.raises(ValueError, match="1 to 32 rows, not 33"):
+        spmm.plan(4, 4, 33, 128, 42, 8)
     with pytest.raises(ValueError, match="rows"):
-        spmm.plan(4, 4, 16, 128, 42, 8)
-    with pytest.raises(ValueError, match="columns"):
-        spmm.plan(4, 4, 8, 256, 42, 8)
+        spmm.plan(4, 4, 64, 128, 512, 4)
+
+
+@pytest.mark.parametrize("case", [
+    # (bm, bk, k, word, y_t): the largest whole tile, then pieces
+    (8, 1664, 16, 8, False), (8, 1710, 16, 8, False),
+    (8, 1792, 16, 8, True), (8, 1824, 16, 8, True),
+    (8, 2048, 16, 8, False), (8, 2048, 16, 8, True),
+    (8, 128, 42, 8, False), (8, 256, 42, 8, False), (16, 128, 42, 8, False),
+    (16, 2048, 42, 8, False), (16, 2048, 42, 4, False),
+    (32, 4096, 600, 8, False)])
+def test_spmm_plan_stages_wide_tiles_in_pieces(case):
+    """A tile whose staged rows do not fit in a block's shared memory is
+    staged in pieces of a multiple of 32 columns, never fewer than needed:
+    u64 at k = 16 (17 words a staged Y row) keeps whole tiles up to bk =
+    1700 and stages bk = 2048 in two pieces; the wide kernel keeps whole
+    8 x 128 and 16 x 128 tiles and cuts u64 ones of 256 columns."""
+    bm, bk, k, word, y_t = case
+    p = spmm.plan(4, 3, bm, bk, k, word, y_t)
+    assert p.smem <= spmm.SMEM_PER_BLOCK
+    assert p.pieces == -(-bk // p.bkp)
+    if p.pieces == 1:
+        assert p.bkp == bk
+    else:
+        assert p.bkp % spmm.PIECE_ALIGN == 0
+        # pieces take the narrow kernel's one 16-sum instance
+        assert p.wide or p.width == spmm.NARROW_WIDTHS[-1]
+        # a piece one alignment step wider would not fit
+        wider = p.bkp + spmm.PIECE_ALIGN
+        row = (p.width if y_t else k | 1) if not p.wide \
+            else spmm.Y_STAGES * 32 + spmm.X_STAGES * bm
+        assert word * row * wider > spmm.SMEM_PER_BLOCK - (
+            4 * spmm.IDX_CAP if p.wide else 0) - 1024
+    if p.wide and (p.pieces > 1 or p.rpw_shift > 0):
+        # the wide kernel's one instance for these: a column a lane
+        assert p.width == 1
+    whole = {(8, 1664, 16, 8, False), (8, 1792, 16, 8, True),
+             (8, 128, 42, 8, False), (16, 128, 42, 8, False)}
+    assert (p.pieces == 1) == (case in whole)
 
 
 def test_spmm_ell_k10_matches_numpy_backend():
