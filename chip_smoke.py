@@ -18,7 +18,9 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      (backend="torch") at a small size, both partitions, and requires the
      same share words, dealer counters, per-tag traffic and he_seconds; on
      the GPU with the on-demand, the pooled and the streamed dealer
-     (`offline=`) for the dense fit and the sparse one at k=3;
+     (`offline=`) for the dense fit and the sparse one at k=3; and the
+     minibatch fit (batch_size 700 of 2048 rows, dense k=5 and sparse k=3,
+     pooled and streamed, pipeline on and off) held to the CPU one;
   4. runs the main path — SecureKMeans.fit, vertical, d_a=18, d_b=24, k=5,
      10 iterations at n=100,000 (the paper's fraud-detection deployment
      shape) — with the launch counters set to 0 just before and read just
@@ -36,6 +38,18 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      5 iterations at n=100,000 — requires agreement >= 0.98 and all three
      kernels launched, then the pooled and streamed fits as in phase 4, and
      times `spmm_ell` on that fit's own ELL inputs;
+  4c. runs minibatch Lloyd (`batch_size`, the SlotDealer, the batch and
+     finalize programs and the pipelined executor) at the widths of phases
+     4 and 4b, each fit from cold caches with the launch counters read
+     around it and its planning's launches taken out: dense n=100,000 in
+     batches of 25,000, pooled, pipeline on, off, off, on (word for word
+     equal, agreement >= 0.98); batch_size = n, equal to phase 4's pooled fit with
+     its launches per iteration; streamed, equal to pooled, its peak pool
+     and its peak device memory less the data and the assignment under
+     (window + largest group) x largest slot; the streamed fit at
+     n=400,000 (3 iterations) under the same bound; sparse n=100,000 in
+     batches of 25,000, pipeline on, off, off, on (equal, agreement
+     >= 0.98), printing the four online times;
   5. drives the kernel API (`repro_torch.kernels.ops`) the same way, with
      the launch counters set to 0 just before and read just after:
      plaintext Lloyd iterations (esd -> argmin_onehot -> C^T x through
@@ -599,10 +613,11 @@ def _blobs(rng, n, d, k, spread=5.0, noise=0.3):
     return centers[lab] + rng.normal(0, noise, (n, d))
 
 
-def same_fit(label: str, got, want) -> None:
+def same_fit(label: str, got, want, he_rel: float = 0.0) -> None:
     """Fail unless two fits agree word for word: centroid and assignment
     shares, dealer counters, CommLog bytes and rounds per tag and phase,
-    and the modelled he_seconds."""
+    and the modelled he_seconds (bit for bit, or within `he_rel` relative
+    where the two add the same float terms in another order)."""
     from repro_torch.core import ring
     for field in ("centroids", "assignment"):
         for i in (0, 1):
@@ -618,7 +633,7 @@ def same_fit(label: str, got, want) -> None:
         if got.log.by_tag(phase) != want.log.by_tag(phase):
             fail(f"{label}: {phase} CommLog differs: "
                  f"{got.log.by_tag(phase)} vs {want.log.by_tag(phase)}")
-    if got.he_seconds != want.he_seconds:
+    if abs(got.he_seconds - want.he_seconds) > he_rel * abs(want.he_seconds):
         fail(f"{label}: he_seconds {got.he_seconds!r} vs "
              f"{want.he_seconds!r}")
     if got.iters_run != want.iters_run:
@@ -709,8 +724,26 @@ def _zero_launch_counters() -> None:
     spmm.LAUNCHES = 0
 
 
+def _cold_caches() -> None:
+    from repro_torch.core import kmeans as KM
+    from repro_torch.launch import kmeans_step as KS
+    KM.clear_plan_cache()
+    KS.clear_program_cache()
+
+
+def fit_record(res):
+    """What `same_fit` compares of a fit, without its dealer's pool."""
+    from types import SimpleNamespace
+    d = res.dealer
+    return SimpleNamespace(
+        centroids=res.centroids, assignment=res.assignment, log=res.log,
+        he_seconds=res.he_seconds, iters_run=res.iters_run,
+        dealer=SimpleNamespace(n_matmul=d.n_matmul, n_mul=d.n_mul,
+                               n_bin=d.n_bin))
+
+
 def phase_offline_fits(label: str, cfg, xa, xb, ref,
-                       ref_launches: dict) -> dict:
+                       ref_launches: dict) -> tuple:
     """The main-path fit `cfg` again with offline="pooled" and "streamed",
     each from cold plan and program caches, held word for word to the
     on-demand fit `ref`. Prints each fit's loop, online, dealer and plan
@@ -718,31 +751,31 @@ def phase_offline_fits(label: str, cfg, xa, xb, ref,
     worker's gen and wait seconds, and the kernels its loop launched per
     iteration: the fit's launches less those of the planning alone (the
     dry-run trace and the programs' recording), which must equal the
-    on-demand fit's. Returns {mode: per-iteration launches}."""
+    on-demand fit's. Returns ({mode: per-iteration launches}, the pooled
+    fit's `fit_record`)."""
     import dataclasses
-    from repro_torch.core import kmeans as KM
     from repro_torch.core import sparse
     from repro_torch.core.kmeans import SecureKMeans
     from repro_torch.launch import kmeans_step as KS
 
-    def cold():
-        KM.clear_plan_cache()
-        KS.clear_program_cache()
-
     totals = {}
+    pooled = None
     for mode in ("pooled", "streamed"):
-        cold()
+        _cold_caches()
         _zero_launch_counters()
         sparse.ELL_PACK_SECONDS = 0.0
         res = SecureKMeans(dataclasses.replace(cfg, offline=mode)).fit(xa, xb)
         totals[mode] = _launch_counters()
         same_fit(f"{label} {mode} vs on demand", res, ref)
+        if mode == "pooled":
+            pooled = fit_record(res)
         d = res.dealer
         extra = (f", worker gen_seconds {d.gen_seconds:.3f}, wait_seconds "
                  f"{d.wait_seconds:.3f}, tranches of {d.group} iteration(s)"
                  if mode == "streamed" else "")
-        pack = (f", ELL packing and upload {sparse.ELL_PACK_SECONDS:.3f} s "
-                f"(the planning trace's included)" if cfg.sparse else "")
+        pack = (f", ELL packing and upload enqueue "
+                f"{sparse.ELL_PACK_SECONDS:.3f} s (the planning trace's "
+                f"included)" if cfg.sparse else "")
         print(f"{label} fit, offline={mode}: equal to the on-demand fit word "
               f"for word (share words, dealer counters, traffic per tag and "
               f"phase, he_seconds); loop_seconds {res.loop_seconds:.3f}, "
@@ -754,7 +787,7 @@ def phase_offline_fits(label: str, cfg, xa, xb, ref,
               f"{d.pool_bytes / 1e9:.3f} GB{extra}{pack}", flush=True)
         del res, d
         torch.cuda.empty_cache()
-    cold()
+    _cold_caches()
     _zero_launch_counters()
     sparse.ELL_PACK_SECONDS = 0.0
     t0 = time.perf_counter()
@@ -764,7 +797,7 @@ def phase_offline_fits(label: str, cfg, xa, xb, ref,
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
     planning = _launch_counters()
-    cold()
+    _cold_caches()
     per_iter = {}
     for mode, total in totals.items():
         loop = {n: total[n] - planning[n] for n in total}
@@ -779,7 +812,7 @@ def phase_offline_fits(label: str, cfg, xa, xb, ref,
           f"launched {planning}"
           + (f", ELL packing {sparse.ELL_PACK_SECONDS:.3f} s"
              if cfg.sparse else ""), flush=True)
-    return per_iter
+    return per_iter, pooled
 
 
 def phase_sparse_main_path():
@@ -821,7 +854,8 @@ def phase_sparse_main_path():
           f"offline_dealer_seconds {res.offline_dealer_seconds:.3f}, "
           f"modelled he_seconds {res.he_seconds:.3f}, online "
           f"{online_mb:.2f} MB in {res.log.total_rounds('online')} rounds, "
-          f"ELL packing and upload {pack_s:.3f} s (host, inside the loop)",
+          f"ELL packing and upload enqueue {pack_s:.3f} s (host, inside "
+          f"the loop)",
           flush=True)
     print(f"launches in the sparse main path: {launches} (expected from the "
           f"code: {SP_ITERS} x {SP_PER_ITER}); ring_matmul operand copies "
@@ -1274,10 +1308,265 @@ def phase_main_path():
     for name, count in launches.items():
         if count <= 0:
             fail(f"{name} was not launched on the main path")
-    phase_offline_fits(f"main path (vertical, n={N}, d={DA}+{DB}, k={K})",
-                       cfg, x[:, :DA], x[:, DA:], res,
-                       {**launches, "spmm_ell": dense_spmm})
-    return launches
+    per_iter, pooled = phase_offline_fits(
+        f"main path (vertical, n={N}, d={DA}+{DB}, k={K})", cfg,
+        x[:, :DA], x[:, DA:], res, {**launches, "spmm_ell": dense_spmm})
+    return launches, per_iter["pooled"], pooled
+
+
+# ---------------------------------------------------------------------------
+# minibatch Lloyd (phase 3's small fits and phase 4c)
+# ---------------------------------------------------------------------------
+
+def phase_minibatch_gpu_equals_cpu():
+    """The minibatch GPU fit = the minibatch CPU fit, word for word (shares,
+    dealer counters, traffic per tag and phase, he_seconds bit for bit),
+    both partitions, dense (k=5) and sparse (k=3), pooled and streamed,
+    pipeline on and off, at a batch size that leaves a remainder."""
+    from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+    dense = _blobs(np.random.default_rng(1), 2048, DA + DB, K)
+    sp = _one_hot_like(np.random.default_rng(4), 2048, SP_DA + SP_DB, SP_K,
+                       SP_SPARSITY)
+    cases = [("dense", dense, DA, K, False), ("sparse", sp, SP_DA, SP_K, True)]
+    for name, x, da, k, sparse in cases:
+        for part in ("vertical", "horizontal"):
+            xa, xb = (x[:, :da], x[:, da:]) if part == "vertical" \
+                else (x[:1024], x[1024:])
+            for pipeline in (True, False):
+                kw = dict(k=k, iters=2, partition=part, seed=3, sparse=sparse,
+                          batch_size=700, pipeline=pipeline)
+                cpu = SecureKMeans(KMeansConfig(backend="torch", device="cpu",
+                                                offline="pooled", **kw)) \
+                    .fit(xa, xb)
+                loops = []
+                for mode in ("pooled", "streamed"):
+                    res = SecureKMeans(KMeansConfig(offline=mode, **kw)) \
+                        .fit(xa, xb)
+                    same_fit(f"minibatch {name} {part} pipeline={pipeline}, "
+                             f"GPU {mode} vs CPU", res, cpu)
+                    loops.append(f"{mode} {res.loop_seconds:.3f} s")
+                print(f"minibatch GPU fit = CPU fit ({name} {part}, n=2048, "
+                      f"k={k}, batch_size 700, pipeline={pipeline}): GPU "
+                      f"pooled and streamed equal the CPU fit word for word "
+                      f"(he_seconds {cpu.he_seconds!r}); GPU loop "
+                      f"{', '.join(loops)}, CPU loop {cpu.loop_seconds:.3f} s",
+                      flush=True)
+
+
+MB_BATCH = 25_000      # phase 4c: 4 batches an iteration at n = 100,000
+MB_BIG_N = 400_000     # the residency check's n, at MB_BIG_ITERS iterations
+MB_BIG_ITERS = 3
+
+
+def _minibatch_planning_launches(cfg, shape_a, shape_b) -> dict:
+    """The launches of a minibatch fit's planning alone, from cold caches:
+    the stage and finalize traces and the batch and finalize programs'
+    recording."""
+    from repro_torch.core.kmeans import SecureKMeans
+    from repro_torch.launch import kmeans_step as KS
+    _cold_caches()
+    _zero_launch_counters()
+    bounds = SecureKMeans(cfg)._minibatch_slot_plans(shape_a, shape_b)[0]
+    for (alo, ahi), (blo, bhi) in bounds:
+        KS.fit_batch_programs(cfg.partition, cfg.sparse,
+                              (ahi - alo, shape_a[1]), (bhi - blo, shape_b[1]),
+                              cfg.k, backend=cfg.backend, device=cfg.device)
+    n = shape_a[0] if cfg.partition == "vertical" else shape_a[0] + shape_b[0]
+    d = shape_a[1] + shape_b[1] if cfg.partition == "vertical" else shape_a[1]
+    KS.finalize_program(cfg.k, d, n, backend=cfg.backend, device=cfg.device)
+    torch.cuda.synchronize()
+    out = _launch_counters()
+    _cold_caches()
+    return out
+
+
+def minibatch_fit(label: str, cfg, xa, xb) -> tuple:
+    """One minibatch fit from cold caches, its launch counters set to 0
+    just before and read just after, less its planning's launches. Prints
+    its seconds, pool bytes, worker seconds and per-iteration launches.
+    Returns (result, loop launches, peak device bytes the fit allocated
+    above what was allocated before it)."""
+    from repro_torch.core import sparse
+    from repro_torch.core.kmeans import SecureKMeans
+    planning = _minibatch_planning_launches(cfg, xa.shape, xb.shape)
+    _cold_caches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _zero_launch_counters()
+    sparse.ELL_PACK_SECONDS = 0.0
+    res = SecureKMeans(cfg).fit(xa, xb)
+    total = _launch_counters()
+    peak = torch.cuda.max_memory_allocated() - base
+    loop = {n: total[n] - planning[n] for n in total}
+    d = res.dealer
+    extra = (f", worker gen_seconds {d.gen_seconds:.3f}, wait_seconds "
+             f"{d.wait_seconds:.3f}" if cfg.offline == "streamed" else "")
+    pack = (f", ELL packing and upload enqueue "
+            f"{sparse.ELL_PACK_SECONDS:.3f} s (the planning trace's "
+            f"included)" if cfg.sparse else "")
+    per_iter = {n: v / res.iters_run for n, v in loop.items()}
+    print(f"{label}: {res.iters_run} iters; loop_seconds "
+          f"{res.loop_seconds:.3f}, online_seconds {res.online_seconds:.3f}, "
+          f"offline_dealer_seconds {res.offline_dealer_seconds:.3f} (of which "
+          f"offline_plan_seconds {res.offline_plan_seconds:.3f}), pool "
+          f"{'peak ' if cfg.offline == 'streamed' else ''}"
+          f"{d.pool_bytes / 1e9:.4f} GB{extra}{pack}; peak device memory "
+          f"{peak / 1e9:.3f} GB; kernels per iteration of the loop "
+          f"{per_iter} (the planning alone launched {planning})", flush=True)
+    return res, loop, peak
+
+
+def _agreement(res, x, k: int, iters: int, seed: int) -> float:
+    from repro_torch.core.kmeans import plaintext_kmeans
+    cent = res.centroids_plain()
+    labels = res.labels_plain()
+    if cent.shape != (k, x.shape[1]) or not np.isfinite(cent).all():
+        fail(f"minibatch centroids not finite of shape {(k, x.shape[1])}")
+    if labels.shape != (x.shape[0],):
+        fail(f"minibatch labels of shape {labels.shape}")
+    _, ref = plaintext_kmeans(x, k, iters, seed=seed)
+    return float((labels == ref).mean())
+
+
+def residency_bound(dealer) -> int:
+    """(window + largest generation group) x the largest slot's bytes: the
+    streamed SlotDealer's peak may not exceed it, whatever n is. The groups
+    and the window follow the dealer's rules from its plans and the module's
+    constants (consecutive slots merged up to GROUP_TRANCHE_BYTES; a window
+    of SLOT_WINDOW slots, or one group more if that is larger)."""
+    from repro_torch.core import triples as T
+    sizes = [8 * p.pool_words() for p in dealer.slot_plans]
+    group = run = nbytes = 0
+    for b in sizes:
+        if run and nbytes >= T.GROUP_TRANCHE_BYTES:
+            run = nbytes = 0
+        run, nbytes = run + 1, nbytes + b
+        group = max(group, run)
+    return (max(T.SLOT_WINDOW, group + 1) + group) * max(sizes)
+
+
+def resident_bytes(res, n: int, d: int) -> int:
+    """The device bytes of a dense minibatch fit that grow with n: both
+    parties' encoded data (n x d words) and the assignment shares, held
+    twice at the end (the last iteration's per-batch parts and their
+    concatenation)."""
+    c = res.assignment
+    return 8 * n * d + 2 * (c.s0.nbytes + c.s1.nbytes)
+
+
+def pipeline_turns(tag: str, cfg, x, da: int):
+    """The minibatch fit `cfg` with pipeline on, off, off, on (in turns, so
+    that what the first fits warm up, such as the pinned host blocks of
+    `ring.upload`, favours neither): each held word for word to the first,
+    whose kernels must all have been launched by its loop and whose labels
+    must agree >= 0.98 with plaintext K-means. Returns (the first fit's
+    record, its loop launches, the four online seconds)."""
+    import dataclasses
+    first = launches = None
+    online = []
+    for pipeline in (True, False, False, True):
+        res, loop, _ = minibatch_fit(
+            f"{tag}, batch {cfg.batch_size}, {cfg.offline}, pipeline="
+            f"{pipeline})", dataclasses.replace(cfg, pipeline=pipeline),
+            x[:, :da], x[:, da:])
+        online.append(res.online_seconds)
+        if first is None:
+            agree = _agreement(res, x, cfg.k, cfg.iters, cfg.seed)
+            if agree < 0.98:
+                fail(f"{tag}: agreement {agree:.5f} < 0.98")
+            first, launches = fit_record(res), loop
+        else:
+            # the pipelined executor adds the exchanges' modelled HE times
+            # in another order (as the JAX package does)
+            same_fit(f"{tag}) pipeline={pipeline} vs the first fit", res,
+                     first, he_rel=1e-12)
+        del res
+    for name, count in launches.items():
+        if count <= 0 and (cfg.sparse or name != "spmm_ell"):
+            fail(f"{name} was not launched by the {tag}) loop")
+    print(f"{tag}, batch {cfg.batch_size}): pipeline on and off equal word "
+          f"for word; agreement with plaintext K-means {agree:.5f}; "
+          f"online_seconds in turns pipelined {online[0]:.3f}, sequential "
+          f"{online[1]:.3f}, sequential {online[2]:.3f}, pipelined "
+          f"{online[3]:.3f}", flush=True)
+    return first, launches, online
+
+
+def phase_minibatch_main_path(full_per_iter: dict, full_pooled) -> None:
+    """Phase 4c: minibatch Lloyd through the user's entry point at the
+    widths of phases 4 and 4b. Dense: batch_size 25,000 pooled with
+    pipeline on, off, off, on (identical), batch_size = n (equal to phase 4's
+    pooled fit, with its per-iteration launches), streamed (equal to
+    pooled, peak pool under the residency bound), and streamed at n =
+    400,000 (3 iterations) under the same bound. Sparse: batch_size 25,000
+    pooled with pipeline on, off, off, on (identical)."""
+    import dataclasses
+    from repro_torch.core.kmeans import KMeansConfig
+    x = _blobs(np.random.default_rng(SEED + 7), N, DA + DB, K)
+    xa, xb = x[:, :DA], x[:, DA:]
+    cfg = KMeansConfig(k=K, iters=ITERS, partition="vertical", seed=SEED,
+                       offline="pooled", batch_size=MB_BATCH)
+    tag = f"dense minibatch (vertical, n={N}, d={DA}+{DB}, k={K}"
+    pipe_rec, _, _ = pipeline_turns(tag, cfg, x, DA)
+    one, launches, _ = minibatch_fit(
+        f"{tag}, batch_size = n, pooled)",
+        dataclasses.replace(cfg, batch_size=N), xa, xb)
+    same_fit(f"{tag}) batch_size = n vs phase 4's pooled fit", one,
+             full_pooled)
+    per_iter = {n: v / one.iters_run for n, v in launches.items()}
+    if per_iter != full_per_iter:
+        fail(f"batch_size = n: the loop launched {per_iter} an iteration, "
+             f"phase 4's pooled fit {full_per_iter}")
+    print(f"{tag}): batch_size = n equals phase 4's full-batch pooled fit "
+          f"word for word, with its launches per iteration {per_iter}",
+          flush=True)
+    del one
+    streamed, _, peak100 = minibatch_fit(
+        f"{tag}, batch {MB_BATCH}, streamed, pipeline)",
+        dataclasses.replace(cfg, offline="streamed"), xa, xb)
+    same_fit(f"{tag}) streamed vs pooled", streamed, pipe_rec)
+    bound = residency_bound(streamed.dealer)
+    pool100 = streamed.dealer.pool_bytes
+    rest100 = peak100 - resident_bytes(streamed, N, DA + DB)
+    del streamed, pipe_rec, x, xa, xb
+    if pool100 > bound:
+        fail(f"streamed minibatch pool peak {pool100} B > bound {bound} B")
+    if rest100 > bound:
+        fail(f"streamed minibatch peak device memory less the data and "
+             f"assignment {rest100} B > bound {bound} B")
+    big = _blobs(np.random.default_rng(SEED + 8), MB_BIG_N, DA + DB, K)
+    res, _, peak400 = minibatch_fit(
+        f"dense minibatch (vertical, n={MB_BIG_N}, d={DA}+{DB}, k={K}, batch "
+        f"{MB_BATCH}, streamed, pipeline)",
+        dataclasses.replace(cfg, offline="streamed", iters=MB_BIG_ITERS),
+        big[:, :DA], big[:, DA:])
+    agree = _agreement(res, big, K, MB_BIG_ITERS, SEED)
+    pool400 = res.dealer.pool_bytes
+    rest400 = peak400 - resident_bytes(res, MB_BIG_N, DA + DB)
+    if residency_bound(res.dealer) != bound:
+        fail("the residency bound depends on n")
+    print(f"streamed minibatch residency: peak pool {pool100} B at n={N}, "
+          f"{pool400} B at n={MB_BIG_N}, bound (window + largest group) x "
+          f"largest slot = {bound} B ({bound / 1e9:.4f} GB) at both; peak "
+          f"device memory {peak100} B and {peak400} B, less the data and "
+          f"assignment {rest100} B and {rest400} B; n={MB_BIG_N} agreement "
+          f"with plaintext K-means {agree:.5f}", flush=True)
+    if pool400 > bound:
+        fail(f"n={MB_BIG_N} streamed pool peak {pool400} B > bound {bound} B")
+    if rest400 > bound:
+        fail(f"n={MB_BIG_N} streamed peak device memory less the data and "
+             f"assignment {rest400} B > bound {bound} B")
+    if agree < 0.98:
+        fail(f"n={MB_BIG_N} minibatch agreement {agree:.5f} < 0.98")
+    del res, big
+
+    x = _one_hot_like(np.random.default_rng(SP_SEED + 7), SP_N,
+                      SP_DA + SP_DB, SP_K, SP_SPARSITY)
+    cfg = KMeansConfig(k=SP_K, iters=SP_ITERS, partition="vertical",
+                       seed=SP_SEED, sparse=True, offline="pooled",
+                       batch_size=MB_BATCH)
+    pipeline_turns(f"sparse minibatch (vertical, n={SP_N}, d={SP_DA}+"
+                   f"{SP_DB}, k={SP_K}", cfg, x, SP_DA)
 
 
 def kernel_times(src: pathlib.Path, smi_line: str) -> None:
@@ -1350,8 +1639,11 @@ def main() -> None:
     phase_gpu_equals_cpu()
     phase_sparse_gpu_equals_cpu(SP_K, OFFLINE_MODES)
     phase_sparse_gpu_equals_cpu(SP_WIDE_K)
-    launches = phase_main_path()
+    phase_minibatch_gpu_equals_cpu()
+    launches, full_per_iter, full_pooled = phase_main_path()
     sp_launches, sp_iter = phase_sparse_main_path()
+    phase_minibatch_main_path(full_per_iter, full_pooled)
+    del full_pooled
     data = api_data()
     api_launches = phase_api_main_path(data)
     api_rows, api_worst = phase_api_kernels(data)

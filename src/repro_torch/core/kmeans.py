@@ -30,6 +30,13 @@ sparse combos' Protocol-2 exchanges on the host before S1 and between the
 two. A custom `f` or `vectorized=False` runs the eager loop against the
 pooled dealer instead.
 
+`batch_size` runs minibatch Lloyd (`_fit_minibatch`): each iteration is
+one pass over the data in batches, each batch an S1 and an S3-partial
+program whose sums accumulate in secret-shared running accumulators, then
+one finalize program divides. A `SlotDealer` serves each (iteration,
+batch, stage) slot, and with `pipeline` batch t+1's host exchange and
+tranche pin run while batch t's S1 is on the device (launch/pipeline.py).
+
 The options that belong to later slices raise NotImplementedError naming
 their ROADMAP.md item. Entry points run on the GPU unless the config asks
 for the CPU (`backend="torch", device="cpu"`).
@@ -50,12 +57,12 @@ from repro_torch.core.he import OU_COST_S, SimulatedPHE
 from repro_torch.core.sharing import AShare, rec, rec_real, share
 from repro_torch.core.sparse import CSRMatrix, secure_sparse_matmul
 from repro_torch.core.triples import (PlanningDealer, PooledDealer,
-                                      StreamingPooledDealer, TriplePlan,
-                                      TrustedDealer)
+                                      SlotDealer, StreamingPooledDealer,
+                                      TriplePlan, TrustedDealer)
 from repro_torch.launch import kmeans_step as KS
+from repro_torch.launch.pipeline import StageTask, run_pipeline
 
 _LATER = {
-    "batch_size": "ROADMAP.md Queue 1 item 8 (minibatch and pipelining)",
     "dealer": "ROADMAP.md Queue 1 item 9 (predict, bank and serving)",
     "wire": "ROADMAP.md Queue 1 item 10 (durability, wire and runtime)",
     "checkpoint": "ROADMAP.md Queue 1 item 10 (durability, wire and runtime)",
@@ -87,8 +94,18 @@ class KMeansConfig:
     # a background worker while the previous one runs — peak pool residency
     # O(1 iteration). "on_demand": synthesize triples inside the loop.
     offline: Literal["on_demand", "pooled", "streamed"] = "on_demand"
+    # Minibatch Lloyd: each iteration is still one full pass over the data,
+    # as ceil(n / batch_size)-row batches whose S3 partial sums accumulate
+    # in secret-shared running sums — peak pool residency O(batch) when
+    # streamed. None = full batch. batch_size >= n is word for word the
+    # full-batch pooled fit. Needs offline="pooled" or "streamed",
+    # vectorized=True and f=ring.F.
     batch_size: int | None = None
-    pipeline: bool = True           # minibatch pipelining (item 8); inert
+    # With batch_size set: run batch t+1's Protocol-2 exchange and tranche
+    # pin on the host while batch t's S1 is on the device (launch/
+    # pipeline.py). pipeline=False runs the batches strictly in sequence —
+    # the same shares, CommLog and dealer words.
+    pipeline: bool = True
 
     def __post_init__(self):
         if self.iters < 1:
@@ -104,8 +121,10 @@ class KMeansConfig:
             raise ValueError(
                 f"KMeansConfig.init must be 'random_data' or "
                 f"'random_uniform', got {self.init!r}")
-        if self.batch_size is not None:
-            raise _not_ported("batch_size", "batch_size")
+        if self.batch_size is not None and self.batch_size < 1:
+            raise ValueError(
+                f"KMeansConfig.batch_size must be None (full batch) or "
+                f">= 1, got {self.batch_size}")
         if self.partition not in ("vertical", "horizontal"):
             raise ValueError(
                 f"KMeansConfig.partition must be 'vertical' or "
@@ -122,7 +141,7 @@ class KMeansResult:
     assignment: AShare                # (n, k) one-hot shares, scale 1
     iters_run: int
     log: CommLog
-    dealer: "TrustedDealer | PooledDealer | StreamingPooledDealer | None"
+    dealer: "TrustedDealer | PooledDealer | StreamingPooledDealer | SlotDealer"
     online_seconds: float             # loop wall minus in-loop dealer work
     offline_dealer_seconds: float     # triple synthesis + upload (+ plan)
     offline_modelled_ot_seconds: float
@@ -151,12 +170,23 @@ class KMeansResult:
 
 # (shapes, cfg-key) -> (one-iteration TriplePlan, one-iteration CommLog).
 # The schedule is data-independent, so identical-shape fits share it; see
-# SecureKMeans._plan_offline_iter.
+# SecureKMeans._plan_offline_iter. The minibatch stage and finalize plans
+# live here too, under keys of their own ("mb", ...).
 _PLAN_CACHE: dict[tuple, tuple] = {}
 
 
 def clear_plan_cache() -> None:
     _PLAN_CACHE.clear()
+
+
+def _cached_plan(key: tuple, trace) -> tuple:
+    """(plan, comm) cached under `key`, made by `trace()` on a miss.
+    Returns copies; cached state is never handed out mutable."""
+    hit = _PLAN_CACHE.get(key)
+    if hit is None:
+        hit = _PLAN_CACHE[key] = trace()
+    plan, comm = hit
+    return TriplePlan(list(plan.requests)), comm.copy()
 
 
 class SecureKMeans:
@@ -201,9 +231,12 @@ class SecureKMeans:
         enc_a_np, enc_b_np = _encode_np(x_a, cfg.f), _encode_np(x_b, cfg.f)
         enc_a = ring.from_u64_numpy(enc_a_np, device)
         enc_b = ring.from_u64_numpy(enc_b_np, device)
+        mu = self._init_centroids(ctx, rng, x_a, x_b)
+        if cfg.batch_size is not None:
+            return self._fit_minibatch(ctx, enc_a, enc_b, enc_a_np, enc_b_np,
+                                       mu, n)
         csr_a = CSRMatrix.from_dense(enc_a_np) if cfg.sparse else None
         csr_b = CSRMatrix.from_dense(enc_b_np) if cfg.sparse else None
-        mu = self._init_centroids(ctx, rng, x_a, x_b)
 
         # pooled / streamed offline phase: trace the schedule (cached across
         # same-shape fits), bulk-generate the pools, upload them, and record
@@ -320,6 +353,267 @@ class SecureKMeans:
         return AShare(mu0, mu1), c
 
     # ------------------------------------------------------------------ #
+    # Minibatch Lloyd — batched S1/S3-partial programs, pipelined exchanges
+    # ------------------------------------------------------------------ #
+    def _fit_minibatch(self, ctx, enc_a, enc_b, enc_a_np, enc_b_np,
+                       mu: AShare, n: int) -> KMeansResult:
+        """Each iteration is one full pass over the data in
+        ceil(n / batch_size)-row batches: per batch an S1 program (distances
+        and argmin on the CURRENT centroids) and an S3-partial program whose
+        (k, d) / (k,) sums accumulate in secret-shared running sums (share
+        addition), then ONE finalize program divides. This is blocked
+        full-batch Lloyd, not stochastic minibatching: word for word the
+        full-batch pooled fit at batch_size >= n.
+
+        With cfg.pipeline, batch t+1's Protocol-2 exchange and tranche pin
+        run on the host while batch t's S1 is on the device
+        (launch/pipeline.run_pipeline); the SlotDealer fixes each (iteration,
+        batch, stage) slot's words at generation time, in canonical slot
+        order, so pipeline=False is stream-identical."""
+        cfg = self.cfg
+        if cfg.offline not in ("pooled", "streamed"):
+            raise ValueError(
+                "batch_size (minibatch Lloyd) requires the planned offline "
+                "phase: set offline='pooled' or 'streamed' "
+                f"(got {cfg.offline!r})")
+        if not (cfg.vectorized and cfg.f == ring.F):
+            raise ValueError(
+                "minibatch Lloyd runs on the S1/S3 program fast path only: "
+                f"it needs vectorized=True and f={ring.F}")
+        device = ctx.device
+        t0 = time.perf_counter()
+        bounds, stage_plans, (fin_plan, fin_comm) = \
+            self._minibatch_slot_plans(enc_a.shape, enc_b.shape)
+        batches = []
+        for ((alo, ahi), (blo, bhi)), plans in zip(bounds, stage_plans):
+            # contiguous row slices of the uploaded data: views, no copy
+            dev_a, dev_b = enc_a[alo:ahi], enc_b[blo:bhi]
+            ca = CSRMatrix.from_dense(enc_a_np[alo:ahi]) if cfg.sparse \
+                else None
+            cb = CSRMatrix.from_dense(enc_b_np[blo:bhi]) if cfg.sparse \
+                else None
+            s1_plan, s1_comm, s3_plan, s3_comm = plans
+            batches.append({
+                "dev_a": dev_a, "dev_b": dev_b,
+                "csr_a": ca, "csr_b": cb,
+                "csr_at": ca.transpose() if cfg.sparse else None,
+                "csr_bt": cb.transpose() if cfg.sparse else None,
+                "progs": KS.fit_batch_programs(cfg.partition, cfg.sparse,
+                                               dev_a.shape, dev_b.shape,
+                                               cfg.k, backend=ctx.backend,
+                                               device=device),
+                "s1_plan": s1_plan, "s1_comm": s1_comm,
+                "s3_plan": s3_plan, "s3_comm": s3_comm,
+                "a_rows": ahi - alo,
+            })
+        d = mu.shape[1]
+        fin_prog = KS.finalize_program(cfg.k, d, n, backend=ctx.backend,
+                                       device=device)
+        iter_slots = []
+        for b in batches:
+            iter_slots += [b["s1_plan"], b["s3_plan"]]
+        iter_slots.append(fin_plan)
+        spi = len(iter_slots)                    # slots per iteration
+        # (the JAX package's plan time also spans the dealer's construction,
+        # which its offline_dealer_seconds then counts twice)
+        plan_s = time.perf_counter() - t0
+        dealer = SlotDealer(iter_slots * cfg.iters, seed=cfg.seed,
+                            log=ctx.log,
+                            stream=(cfg.offline == "streamed"),
+                            device=device)
+        ctx.dealer = dealer
+
+        def zeros(shape):
+            return torch.zeros(shape, dtype=ring.DTYPE, device=device)
+
+        sync = torch.cuda.synchronize if device.type == "cuda" \
+            else (lambda: None)
+        sync()
+        t_start = time.perf_counter()
+        it = 0
+        c_parts = [None] * len(batches)
+        try:
+            for it in range(1, cfg.iters + 1):
+                mu_old = mu
+                base = (it - 1) * spi
+                acc = [zeros((cfg.k, d)), zeros((cfg.k, d)),
+                       zeros((cfg.k,)), zeros((cfg.k,))]
+                tasks = [self._batch_task(ctx, dealer, b, mu, base + 2 * t,
+                                          acc, c_parts, t)
+                         for t, b in enumerate(batches)]
+                run_pipeline(tasks, pipeline=cfg.pipeline)
+                fin_view = dealer.acquire(base + 2 * len(batches))
+                flat_f = KS.materialize_offline(fin_prog.requests, fin_view)
+                mu0, mu1 = fin_prog.fn(mu.s0, mu.s1, *acc, *flat_f)
+                mu = AShare(mu0, mu1)
+                ctx.log.merge(fin_comm, phase="online")
+                if cfg.tol is not None:
+                    # the CSC triples sit at the tail of the finalize slot
+                    cctx = P.Ctx(dealer=fin_view, log=ctx.log, tag="CSC",
+                                 backend=ctx.backend)
+                    if self._converged(cctx, mu_old, mu, cfg.tol):
+                        break
+            sync()
+            wall = time.perf_counter() - t_start
+        finally:
+            # an early stop, or an exception unwinding the loop, leaves
+            # generated slots and the worker thread alive
+            dealer.close()
+
+        c = _assemble_assignment(cfg.partition, c_parts, batches)
+        self.result_ = KMeansResult(
+            centroids=mu, assignment=c, iters_run=it, log=ctx.log,
+            dealer=dealer,
+            # acquire() stalls (wait_seconds) stay in the online clock, and
+            # the worker's overlapped generation (gen_seconds) stays out of
+            # the offline column, as in the streamed full-batch fit
+            online_seconds=wall,
+            offline_dealer_seconds=dealer.dealer_seconds + plan_s,
+            offline_modelled_ot_seconds=dealer.modelled_ot_seconds,
+            he_seconds=ctx.he_seconds,
+            loop_seconds=wall,
+            offline_plan_seconds=plan_s,
+        )
+        return self.result_
+
+    def _batch_task(self, ctx, dealer, b: dict, mu: AShare, slot0: int,
+                    acc: list, c_parts: list, t: int) -> StageTask:
+        """One minibatch as a 4-phase pipeline step (launch/pipeline.py):
+        pre = exchange #1 (centroid shares only) + S1 tranche pin; launch =
+        S1; mid = exchange #2 on the assignment shares + S3 tranche pin;
+        post = S3-partial + accumulator adds. Each exchange runs on a fresh
+        ctx whose modelled HE time is added to the fit's when the exchange
+        ends, in the JAX package's order (so he_seconds agrees to the last
+        bit)."""
+        cfg = self.cfg
+        progs = b["progs"]
+
+        def hx_ctx(view, tag):
+            return P.Ctx(dealer=view, log=CommLog(), tag=tag,
+                         backend=ctx.backend)
+
+        def pre():
+            view = dealer.acquire(slot0)
+            he1 = []
+            if cfg.sparse:
+                hx = hx_ctx(view, "S1")
+                he1 = self._s1_he_inputs(hx, b["dev_a"], b["dev_b"],
+                                         b["csr_a"], b["csr_b"], mu)
+                ctx.add_he_seconds(hx.he_seconds)
+            flat1 = KS.materialize_offline(progs.s1_requests, view)
+            ctx.log.merge(b["s1_comm"], phase="online")
+            return he1, flat1
+
+        def launch(prep):
+            he1, flat1 = prep
+            c0, c1 = progs.s1(b["dev_a"], b["dev_b"], mu.s0, mu.s1,
+                              *he1, *flat1)
+            return AShare(c0, c1)
+
+        def mid(prep, c):
+            view = dealer.acquire(slot0 + 1)
+            he3 = []
+            if cfg.sparse:
+                hx = hx_ctx(view, "S3")
+                he3 = self._s3_he_inputs(hx, b["csr_at"], b["csr_bt"], c)
+                ctx.add_he_seconds(hx.he_seconds)
+            flat3 = KS.materialize_offline(progs.s3p_requests, view)
+            ctx.log.merge(b["s3_comm"], phase="online")
+            return he3, flat3
+
+        def post(prep, c, m):
+            he3, flat3 = m
+            n0, n1, d0, d1 = progs.s3p(b["dev_a"], b["dev_b"], c.s0, c.s1,
+                                       *he3, *flat3)
+            acc[0] = acc[0] + n0
+            acc[1] = acc[1] + n1
+            acc[2] = acc[2] + d0
+            acc[3] = acc[3] + d1
+            c_parts[t] = c
+
+        return StageTask(pre, launch, mid, post)
+
+    def _plan_batch_stage(self, shape_a, shape_b, stage: str):
+        """(plan, comm) of ONE minibatch stage — 's1' (distances + argmin)
+        or 's3p' (C^T X partial sums) — cached like the full-iteration
+        plans, under keys of their own ("mb", ...), so a batch geometry
+        equal to the full-batch one never hands back the other's plan.
+        Concatenated per iteration (batch stages + finalize) the slot plans
+        equal the full-batch iteration plan when batch_size >= n."""
+        return _cached_plan(
+            ("mb", stage) + self._plan_cache_key(shape_a, shape_b),
+            lambda: self._trace_batch_stage(shape_a, shape_b, stage))
+
+    def _trace_batch_stage(self, shape_a, shape_b, stage: str):
+        """Dry-run trace of one minibatch stage on zero-filled batch
+        slices with a PlanningDealer on the config's device (the per-stage
+        analogue of `_trace_iteration`)."""
+        cfg = self.cfg
+        ctx, z, enc_a, enc_b, csr_a, csr_b = self._zero_trace(shape_a,
+                                                               shape_b)
+        if stage == "s1":
+            d = enc_a.shape[1] + enc_b.shape[1] \
+                if cfg.partition == "vertical" else enc_a.shape[1]
+            mu = AShare(z((cfg.k, d)), z((cfg.k, d)))
+            ctx.tag = "S1"
+            dist = self._distances(ctx, enc_a, enc_b, csr_a, csr_b, mu)
+            ctx.tag = "S2"
+            P.argmin_onehot(ctx, dist)
+        else:
+            rows = enc_a.shape[0] if cfg.partition == "vertical" \
+                else enc_a.shape[0] + enc_b.shape[0]
+            c = AShare(z((rows, cfg.k)), z((rows, cfg.k)))
+            ctx.tag = "S3"
+            self._ct_x(ctx, enc_a, enc_b, csr_a, csr_b, c)
+        comm = CommLog()
+        comm.merge(ctx.log, phase="online")
+        return ctx.dealer.plan(), comm
+
+    def _plan_finalize(self, d: int, n: int):
+        """(plan, comm) of the per-iteration finalize program (+ CSC when
+        tol is set); keyed by the division constants, not the batch
+        layout."""
+        cfg = self.cfg
+        return _cached_plan(("mb", "fin", cfg.k, int(d), int(n), cfg.f,
+                             cfg.vectorized, cfg.tol is not None),
+                            lambda: self._trace_finalize(d, n))
+
+    def _trace_finalize(self, d: int, n: int):
+        cfg = self.cfg
+        ctx, z = self._planning_ctx()
+        mu = AShare(z((cfg.k, d)), z((cfg.k, d)))
+        ctx.tag = "S3"
+        mu_new = KS._s3_final_body(ctx, cfg.k, n, mu,
+                                   AShare(z((cfg.k, d)), z((cfg.k, d))),
+                                   AShare(z((cfg.k,)), z((cfg.k,))), f=cfg.f)
+        comm = CommLog()
+        comm.merge(ctx.log, phase="online")
+        if cfg.tol is not None:
+            ctx.tag = "CSC"
+            self._converged(ctx, mu, mu_new, cfg.tol)
+        return ctx.dealer.plan(), comm
+
+    def _minibatch_slot_plans(self, shape_a, shape_b):
+        """The minibatch offline layout for party-input shapes. Returns
+        (bounds, per-batch [(s1_plan, s1_comm, s3_plan, s3_comm)],
+        (fin_plan, fin_comm)): per iteration the slots run
+        [s1(b0), s3p(b0), s1(b1), ..., finalize]."""
+        cfg = self.cfg
+        na, nb = int(shape_a[0]), int(shape_b[0])
+        if cfg.partition == "vertical":
+            n, d = na, int(shape_a[1]) + int(shape_b[1])
+        else:
+            n, d = na + nb, int(shape_a[1])
+        bounds = _minibatch_bounds(cfg.partition, na, nb, cfg.batch_size)
+        stage_plans = []
+        for (alo, ahi), (blo, bhi) in bounds:
+            sa = (ahi - alo, int(shape_a[1]))
+            sb = (bhi - blo, int(shape_b[1]))
+            stage_plans.append(self._plan_batch_stage(sa, sb, "s1")
+                               + self._plan_batch_stage(sa, sb, "s3p"))
+        return bounds, stage_plans, self._plan_finalize(d, n)
+
+    # ------------------------------------------------------------------ #
     def plan_offline(self, shape_a, shape_b) -> TriplePlan:
         """The exact correlated-randomness schedule of `fit` for party-input
         shapes (shape_a, shape_b) — without seeing any data.
@@ -351,31 +645,41 @@ class SecureKMeans:
         program fast path replays per iteration. Cached across fits by
         (shapes, config key), so a second same-shape fit skips the trace.
         Returns copies; cached state is never handed out mutable."""
-        key = self._plan_cache_key(shape_a, shape_b)
-        hit = _PLAN_CACHE.get(key)
-        if hit is None:
-            hit = _PLAN_CACHE[key] = self._trace_iteration(shape_a, shape_b)
-        plan, comm = hit
-        return TriplePlan(list(plan.requests)), comm.copy()
+        return _cached_plan(self._plan_cache_key(shape_a, shape_b),
+                            lambda: self._trace_iteration(shape_a, shape_b))
+
+    def _planning_ctx(self) -> tuple:
+        """(ctx over a PlanningDealer, zeros(shape)) on the config's device:
+        what a dry-run trace runs on."""
+        device = torch.device(self.cfg.device)
+        ctx = P.Ctx(dealer=PlanningDealer(device), log=CommLog(),
+                    backend=self.cfg.backend)
+
+        def z(shape):
+            return torch.zeros(tuple(shape), dtype=ring.DTYPE, device=device)
+
+        return ctx, z
+
+    def _zero_trace(self, shape_a, shape_b) -> tuple:
+        """`_planning_ctx` plus zero party data of these shapes and, when
+        sparse, their CSR matrices."""
+        ctx, z = self._planning_ctx()
+        csr_a, csr_b = ([CSRMatrix.from_dense(np.zeros(tuple(s), np.uint64))
+                         for s in (shape_a, shape_b)]
+                        if self.cfg.sparse else (None, None))
+        return ctx, z, z(shape_a), z(shape_b), csr_a, csr_b
 
     def _trace_iteration(self, shape_a, shape_b):
         """Dry-run trace of one Lloyd iteration (+CSC when tol is set) with
         a PlanningDealer on zero-filled inputs on the config's device."""
         cfg = self.cfg
-        device = torch.device(cfg.device)
-        ctx = P.Ctx(dealer=PlanningDealer(device), log=CommLog(),
-                    backend=cfg.backend)
-        enc_a = torch.zeros(tuple(shape_a), dtype=ring.DTYPE, device=device)
-        enc_b = torch.zeros(tuple(shape_b), dtype=ring.DTYPE, device=device)
+        ctx, z, enc_a, enc_b, csr_a, csr_b = self._zero_trace(shape_a,
+                                                               shape_b)
         n = enc_a.shape[0] if cfg.partition == "vertical" \
             else enc_a.shape[0] + enc_b.shape[0]
         d = enc_a.shape[1] + enc_b.shape[1] if cfg.partition == "vertical" \
             else enc_a.shape[1]
-        zeros_np = [np.zeros(tuple(s), np.uint64) for s in (shape_a, shape_b)]
-        csr_a, csr_b = ([CSRMatrix.from_dense(z) for z in zeros_np]
-                        if cfg.sparse else (None, None))
-        mu = AShare(torch.zeros((cfg.k, d), dtype=ring.DTYPE, device=device),
-                    torch.zeros((cfg.k, d), dtype=ring.DTYPE, device=device))
+        mu = AShare(z((cfg.k, d)), z((cfg.k, d)))
         ctx.tag = "S1"
         dist = self._distances(ctx, enc_a, enc_b, csr_a, csr_b, mu)
         ctx.tag = "S2"
@@ -614,6 +918,53 @@ def plaintext_kmeans(x: np.ndarray, k: int, iters: int, seed: int = 0,
         if tol is not None and ((mu - mu_old) ** 2).sum() < tol:
             break
     return mu, labels
+
+
+def _minibatch_bounds(partition: str, na: int, nb: int,
+                      batch_size: int) -> list:
+    """Per-batch row windows [((a_lo, a_hi), (b_lo, b_hi)), ...].
+
+    Vertical: both parties hold column slices of the SAME rows, so batches
+    are shared contiguous chunks of `batch_size` rows — at most two
+    distinct shapes (full + remainder). Horizontal: each party's rows are
+    split into the same NUMBER of contiguous near-equal chunks
+    (B = ceil((na+nb)/batch_size), clamped so no chunk is empty); chunk
+    sizes differ by at most one per party, so a fit records at most a
+    handful of batch geometries whatever the batch count."""
+    if partition == "vertical":
+        bs = max(1, min(int(batch_size), na))
+        return [((lo, min(lo + bs, na)),) * 2 for lo in range(0, na, bs)]
+    n_batches = max(1, min(-(-(na + nb) // int(batch_size)), na, nb))
+    return list(zip(_even_chunks(na, n_batches),
+                    _even_chunks(nb, n_batches)))
+
+
+def _even_chunks(n: int, parts: int) -> list:
+    """Exactly `parts` contiguous windows over n rows, sizes q+1 x r then
+    q x (parts - r) — never empty for parts <= n."""
+    q, r = divmod(n, parts)
+    out, lo = [], 0
+    for i in range(parts):
+        hi = lo + q + (1 if i < r else 0)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def _assemble_assignment(partition: str, c_parts: list,
+                         batches: list) -> AShare:
+    """Stitch the last iteration's per-batch assignment shares back into
+    the full-fit (n, k) layout: vertical concatenates rows in batch order;
+    horizontal restores the [all A rows; all B rows] order the full-batch
+    path produces (each batch's rows come back [A chunk; B chunk])."""
+    if partition == "vertical":
+        return AShare(torch.cat([p.s0 for p in c_parts], 0),
+                      torch.cat([p.s1 for p in c_parts], 0))
+    a0 = [p.s0[:b["a_rows"]] for p, b in zip(c_parts, batches)]
+    a1 = [p.s1[:b["a_rows"]] for p, b in zip(c_parts, batches)]
+    b0 = [p.s0[b["a_rows"]:] for p, b in zip(c_parts, batches)]
+    b1 = [p.s1[b["a_rows"]:] for p, b in zip(c_parts, batches)]
+    return AShare(torch.cat(a0 + b0, 0), torch.cat(a1 + b1, 0))
 
 
 def _encode_np(x: np.ndarray, f: int) -> np.ndarray:

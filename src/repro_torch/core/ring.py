@@ -41,6 +41,19 @@ def from_u64_numpy(x, device="cpu") -> torch.Tensor:
     return torch.from_numpy(x.view(np.int64)).to(device)
 
 
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device` without waiting for the device: to a GPU
+    through pinned memory with non_blocking=True. A pageable copy waits for
+    every kernel already queued on the stream, which would serialise the
+    host work of a pipelined loop behind the device's. The pinned block is
+    not reused before its copy has run (PyTorch's host allocator records an
+    event on it)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def to_u64_numpy(t: torch.Tensor) -> np.ndarray:
     """int64 ring tensor -> uint64 numpy words on the host (same bits)."""
     return t.detach().cpu().numpy().view(np.uint64)

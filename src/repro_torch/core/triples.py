@@ -21,6 +21,11 @@ shares out as int64 tensors on their `device`. Provider flavours:
   previous iteration runs (on CUDA: pinned staging and a side stream, the
   consumer waiting on an event), so peak pool residency is `prefetch`
   tranches, independent of `iters`.
+* `SlotDealer` — the minibatch fit's schedule as a sequence of slots (per
+  iteration: each batch's S1 and S3-partial, then the finalize), each slot
+  acquired as a dealer view of its own, possibly ahead of lower slots;
+  pregenerated (pooled) or generated on a worker within a window of slots
+  (streamed), so peak residency is independent of n and iters.
 
 OT-based generation is cost-modelled: per 64-bit scalar product the
 Gilboa/ABY protocol transfers l correlated OTs of (kappa + l)-bit strings per
@@ -372,18 +377,8 @@ class TriplePlan:
     def pool_words(self) -> int:
         """Words a generated pool/tranche of this plan holds (six share
         tensors per triple, one tensor per rand, one word per seed)."""
-        words = 0
-        for r in self.requests:
-            if r.kind == "matmul":
-                (n, d), (_, k) = r.shape
-                words += 2 * (n * d + d * k + n * k)
-            elif r.kind in ("mul", "bin"):
-                words += 6 * _nelem(r.shape)
-            elif r.kind == "rand":
-                words += _nelem(r.shape)
-            else:  # seed
-                words += 1
-        return words
+        return sum(_request_words(_class_key(r.kind, r.shape))
+                   for r in self.requests)
 
 
 class _TripleServing:
@@ -700,6 +695,11 @@ GROUP_TRANCHE_BYTES = 4 << 20
 # the worker does not wake up per iteration for microseconds of work (the
 # served words are the same either way).
 
+SLOT_WINDOW = 4
+# SlotDealer's streamed backpressure: at most this many generated but
+# unconsumed slots (or one largest generation group more, if that is
+# larger) are alive, unless a caller waits on a slot further ahead.
+
 
 class StreamingPooledDealer(_TripleServing):
     """`PooledDealer` semantics with O(1-iteration) residency.
@@ -894,4 +894,324 @@ class StreamingPooledDealer(_TripleServing):
                 self._live_bytes -= tranche.nbytes
         if self._current is not None:
             self._drop_current()
+        self._staging = None
+
+
+# ---------------------------------------------------------------------------
+# SlotDealer — per-(iteration, batch) tranches for the pipelined executor
+# ---------------------------------------------------------------------------
+
+def _request_words(key: tuple) -> int:
+    """Words one served request of a shape-class holds."""
+    if key[0] == "seed":
+        return 1
+    shape = key[1:] if key[0] == "matmul" else key[1]
+    return sum(_nelem(s) for s in _request_shapes(key[0], shape))
+
+
+def _gen_tranche_split(rngs: dict, counts_list: list, device,
+                       staging: _Staging | None = None) -> list:
+    """Generate several consecutive tranches as ONE merged tranche (one
+    device tensor per shape-class, `_gen_tranche`), then split the
+    per-request entries back out per tranche. Stream-identical to
+    generating each tranche separately (the draws concatenate) — this is
+    what lets one worker wakeup serve several small slots. The split
+    tranches share the merged tensors; each keeps its own byte count, the
+    words its own entries hold."""
+    merged: dict[tuple, int] = {}
+    for counts in counts_list:
+        for key, c in counts.items():
+            merged[key] = merged.get(key, 0) + c
+    whole = _gen_tranche(rngs, merged, device, staging)
+    cursors = dict.fromkeys(merged, 0)
+    out = []
+    for counts in counts_list:
+        pools: dict[tuple, list] = {}
+        nbytes = 0
+        for key, c in counts.items():
+            i = cursors[key]
+            pools[key] = whole.pools[key][i:i + c]
+            cursors[key] = i + c
+            nbytes += 8 * c * _request_words(key)
+        out.append(_Tranche(pools, nbytes, whole.stacks, whole.ready))
+    return out
+
+
+def _on_dealer(name: str) -> property:
+    """A view's attribute that reads and writes its dealer's."""
+    return property(lambda self: getattr(self.dealer, name),
+                    lambda self, v: setattr(self.dealer, name, v))
+
+
+class _SlotView(_TripleServing):
+    """Dealer view over ONE acquired slot tranche: serves exactly the
+    slot's planned requests (per-class cursors, `PoolExhaustedError` past
+    them). Counters aggregate on the owning SlotDealer; when the last
+    request is served the view drops its entries and the dealer's
+    generation window frees a slot."""
+
+    def __init__(self, dealer: "SlotDealer", index: int, pools: dict,
+                 counts: dict, total: int, nbytes: int):
+        self.dealer = dealer
+        self.index = index
+        self.log = dealer.log
+        self.device = dealer.device
+        self._pools = pools
+        self._counts = counts
+        self._total = total
+        self._nbytes = nbytes
+        self._cursors: dict[tuple, int] = {}
+        self._served = 0
+
+    # the fit-level dealer counters live on the SlotDealer, so results can
+    # compare them across offline and pipeline modes
+    n_matmul = _on_dealer("n_matmul")
+    n_mul = _on_dealer("n_mul")
+    n_bin = _on_dealer("n_bin")
+
+    def _next(self, kind: str, shape) -> tuple:
+        key = _class_key(kind, shape)
+        limit = self._counts.get(key)
+        if limit is None:
+            raise PoolExhaustedError(
+                f"no pool for {kind} {shape} in slot {self.index}: the slot "
+                "plan never scheduled this shape-class (planner/online "
+                "mismatch)")
+        i = self._cursors.get(key, 0)
+        if i >= limit:
+            raise PoolExhaustedError(
+                f"slot {self.index} pool exhausted for {kind} {shape}: "
+                f"planned {limit} requests, online asked for more")
+        self._cursors[key] = i + 1
+        out = self._pools[key][i]
+        self._served += 1
+        if self._served == self._total:
+            self._pools = {}
+            self.dealer._release(self.index, self._nbytes)
+        return out
+
+
+class SlotDealer:
+    """Per-slot tranche pools for the pipelined minibatch executor.
+
+    The offline schedule is a SEQUENCE of slot plans — per Lloyd iteration
+    ``[S1(batch 0), S3(batch 0), S1(batch 1), ..., finalize]`` — and each
+    slot's correlated randomness is generated as its own tranche from the
+    same persistent per-class PCG64 streams as every other dealer, always
+    in canonical slot order. ``acquire(i)`` hands slot i's tranche out as a
+    dealer view; acquisition may run AHEAD of lower slots (the pipelined
+    executor pins batch t+1's S1 tranche while batch t's launch is in
+    flight) without changing a served word, because GENERATION order, not
+    acquisition order, fixes the streams. That is what makes
+    ``pipeline=True`` stream-identical to ``pipeline=False``.
+
+    stream=False (the pooled offline phase): every slot is generated up
+    front in one merged pass (one device tensor per shape-class) — the
+    PooledDealer's residency and speed, slot-indexed serving. stream=True:
+    a background worker generates slots in order with at most
+    ``SLOT_WINDOW`` generated-but-unconsumed slots alive (backpressure,
+    overridden when a caller waits on a slot further ahead), so peak
+    residency is O(window x slot bytes), independent of n and iters.
+    Consecutive small slots are generated in one wakeup of at least
+    ``GROUP_TRANCHE_BYTES`` (still split and served per slot). On CUDA the
+    worker uploads through pinned staging on a stream of its own; an
+    acquired slot makes the caller's stream wait on its upload's event and
+    marks its tensors in use by that stream, so their memory is reused
+    only after the kernels queued there have run.
+
+    ``start_slot`` skips the slots an interrupted run consumed: they are
+    never generated and each class stream starts past their requests.
+    ``pool_bytes`` is the peak of the live slots' bytes, counted per slot
+    as the JAX package counts them (slots of one merged group share its
+    tensors). Word for word equal to ``PooledDealer(concat(slot_plans),
+    seed)`` for any acquisition order that consumes each slot's own plan
+    exactly."""
+
+    def __init__(self, slot_plans, seed: int = 0, log: CommLog | None = None,
+                 stream: bool = True, start_slot: int = 0, device="cpu"):
+        t0 = time.perf_counter()
+        self.slot_plans = [TriplePlan(list(p.requests)) for p in slot_plans]
+        self.seed = seed
+        self.log = log if log is not None else CommLog()
+        self.stream = bool(stream)
+        self.device = torch.device(device)
+        self.start_slot = int(start_slot)
+        if not 0 <= self.start_slot <= len(self.slot_plans):
+            raise IndexError(f"start_slot {start_slot} out of range "
+                             f"({len(self.slot_plans)} slots planned)")
+        self.n_matmul = 0
+        self.n_mul = 0
+        self.n_bin = 0
+        self.gen_seconds = 0.0
+        self.wait_seconds = 0.0      # online acquire() stalls
+        self.pool_bytes = 0          # PEAK concurrent residency
+        self._live_bytes = 0
+        self._live_slots = 0
+        self._counts = [p.class_counts() for p in self.slot_plans]
+        self._totals = [len(p) for p in self.slot_plans]
+        keys = sorted({k for c in self._counts for k in c})
+        skip: dict[tuple, int] = {}
+        for counts in self._counts[:self.start_slot]:
+            for key, c in counts.items():
+                skip[key] = skip.get(key, 0) + c
+        self._rngs = {key: _advanced_rng(seed, key, skip.get(key, 0))
+                      for key in keys}
+        # only the slots this dealer generates reach its offline books
+        self.modelled_ot_seconds = _account_offline_plan(
+            TriplePlan([r for p in self.slot_plans[self.start_slot:]
+                        for r in p.requests]),
+            self.log)
+        # the remaining slots in generation groups of >= GROUP_TRANCHE_BYTES
+        self._groups: list[tuple[int, int]] = []
+        i = self.start_slot
+        while i < len(self.slot_plans):
+            j = i + 1
+            b = 8 * self.slot_plans[i].pool_words()
+            while j < len(self.slot_plans) and b < GROUP_TRANCHE_BYTES:
+                b += 8 * self.slot_plans[j].pool_words()
+                j += 1
+            self._groups.append((i, j))
+            i = j
+        self._ready: dict[int, _Tranche] = {}
+        self._acquired: set[int] = set(range(self.start_slot))
+        self._served_class: dict[tuple, int] = dict(skip)
+        self._cond = threading.Condition()
+        self._closed = False
+        self._error: BaseException | None = None
+        self._max_requested = -1     # highest slot a caller is waiting on
+        self._worker = None
+        self._side = None            # the worker's upload stream (CUDA)
+        self._staging = _Staging() if self.device.type == "cuda" else None
+        if not self.stream:
+            # pooled: ONE merged generation pass over the remaining schedule
+            for i, tr in enumerate(_gen_tranche_split(
+                    self._rngs, self._counts[self.start_slot:], self.device,
+                    self._staging), start=self.start_slot):
+                self._ready[i] = tr
+                self._live_bytes += tr.nbytes
+                self._live_slots += 1
+            self.pool_bytes = self._live_bytes
+            self._staging = None
+            _sync(self.device)
+        elif self._groups:
+            max_group = max(hi - lo for lo, hi in self._groups)
+            self._window = max(SLOT_WINDOW, max_group + 1)
+            if self.device.type == "cuda":
+                self._side = torch.cuda.Stream(self.device)
+            self._worker = threading.Thread(target=self._worker_loop,
+                                            name="slot-dealer", daemon=True)
+            self._worker.start()
+        self.dealer_seconds = time.perf_counter() - t0
+
+    # -- generation ------------------------------------------------------
+    def _gen_group(self, gi: int) -> None:
+        """Generate group gi's slots (caller holds no lock); fill _ready."""
+        lo, hi = self._groups[gi]
+        t0 = time.perf_counter()
+        if self._side is not None:
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self._side):
+                tranches = _gen_tranche_split(self._rngs, self._counts[lo:hi],
+                                              self.device, self._staging)
+        else:
+            tranches = _gen_tranche_split(self._rngs, self._counts[lo:hi],
+                                          self.device, self._staging)
+        with self._cond:
+            self.gen_seconds += time.perf_counter() - t0
+            for i, tr in zip(range(lo, hi), tranches):
+                self._ready[i] = tr
+                self._live_slots += 1
+                self._live_bytes += tr.nbytes
+            self.pool_bytes = max(self.pool_bytes, self._live_bytes)
+            self._cond.notify_all()
+
+    def _worker_loop(self) -> None:
+        try:
+            for gi, (lo, hi) in enumerate(self._groups):
+                with self._cond:
+                    # backpressure: hold generation at `window` live slots —
+                    # unless a caller already WAITS on a slot this group
+                    # must be generated for (acquire can run ahead of
+                    # consumption; stalling it here would deadlock)
+                    while (self._live_slots + (hi - lo) > self._window
+                           and lo > self._max_requested
+                           and not self._closed):
+                        self._cond.wait()
+                    if self._closed:
+                        return
+                self._gen_group(gi)
+        except BaseException as e:             # surfaces at the next acquire
+            with self._cond:
+                self._error = e
+                self._cond.notify_all()
+
+    # -- acquisition -----------------------------------------------------
+    def acquire(self, i: int) -> _SlotView:
+        """Slot i's tranche as a dealer view (blocking until generated).
+        Each slot can be acquired exactly once; out-of-order acquisition is
+        fine — the words a slot serves are fixed at generation time."""
+        if not 0 <= i < len(self.slot_plans):
+            raise IndexError(f"slot {i} out of range "
+                             f"({len(self.slot_plans)} slots planned)")
+        t0 = time.perf_counter()
+        with self._cond:
+            if i in self._acquired:
+                raise PoolExhaustedError(
+                    f"slot {i} was already acquired: each slot serves its "
+                    "plan exactly once")
+            if self._worker is not None:      # pooled mode is pre-filled
+                self._max_requested = max(self._max_requested, i)
+                self._cond.notify_all()
+                while i not in self._ready and self._error is None \
+                        and not self._closed:
+                    self._cond.wait()
+            if i not in self._ready:
+                if self._error is not None:
+                    raise RuntimeError("slot-dealer worker failed") \
+                        from self._error
+                raise PoolExhaustedError(f"slot {i} unavailable "
+                                         "(dealer closed)")
+            tranche = self._ready.pop(i)
+            self._acquired.add(i)
+            self.wait_seconds += time.perf_counter() - t0
+        _take(tranche, self.device)
+        view = _SlotView(self, i, tranche.pools, self._counts[i],
+                         self._totals[i], tranche.nbytes)
+        if self._totals[i] == 0:               # empty slot: nothing to serve
+            self._release(i, tranche.nbytes)
+        return view
+
+    def _release(self, i: int, nbytes: int) -> None:
+        with self._cond:
+            for key, c in self._counts[i].items():
+                self._served_class[key] = self._served_class.get(key, 0) + c
+            self._live_slots -= 1
+            self._live_bytes -= nbytes
+            self._cond.notify_all()
+
+    def remaining(self) -> dict:
+        """{class_key: unserved across unacquired + unconsumed slots} —
+        surplus after e.g. a tol early stop."""
+        total: dict[tuple, int] = {}
+        for counts in self._counts:
+            for key, c in counts.items():
+                total[key] = total.get(key, 0) + c
+        return {key: c - self._served_class.get(key, 0)
+                for key, c in total.items()}
+
+    def close(self) -> None:
+        """Stop the worker and drop generated-but-unacquired tranches
+        (idempotent). A fit calls it in a `finally`, so an early stop or
+        an exception never leaves the worker thread alive."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        if self._worker is not None:
+            self._worker.join()
+            self._worker = None
+        with self._cond:
+            for tranche in self._ready.values():
+                self._live_slots -= 1
+                self._live_bytes -= tranche.nbytes
+            self._ready.clear()
         self._staging = None

@@ -23,7 +23,10 @@ exchange between them:
 
 Every partition x sparsity combo runs through the same two bodies,
 parameterized by a `FitGeometry`; `fit_programs` records the pair's
-schedules once per (geometry, backend, device) and caches it. PyTorch runs
+schedules once per (geometry, backend, device) and caches it. Minibatch
+Lloyd splits S3 in two: `fit_batch_programs` pairs S1 with the S3 head
+(the running sums) per batch geometry, and `finalize_program` runs the S3
+tail once an iteration on the accumulated sums. PyTorch runs
 the bodies eagerly: a program is a plain function that launches the ring
 backend's kernels, with no ahead-of-time compilation.
 """
@@ -423,5 +426,134 @@ def fit_programs(partition: str, sparse: bool, shape_a, shape_b, k: int,
     return progs
 
 
+# ---------------------------------------------------------------------------
+# Minibatch programs — S1 + S3-partial per batch geometry, one finalize
+# ---------------------------------------------------------------------------
+
+class BatchPrograms(NamedTuple):
+    """The (S1, S3-partial) pair for ONE minibatch geometry plus the offline
+    schedule each call consumes. Per batch t of an iteration:
+
+        he1 = host Protocol-2 on the centroid shares            (sparse)
+        c   = s1(xa_t, xb_t, mu0, mu1, *he1, *flat1)            program 1
+        he3 = host Protocol-2 on the assignment shares          (sparse)
+        n0, n1, d0, d1 = s3p(xa_t, xb_t, c0, c1, *he3, *flat3)  program 2
+
+    The (k, d) numerator and (k,) denominator partials accumulate across
+    batches by share addition; the iteration closes with one
+    `finalize_program` call. One cached pair serves every batch of its
+    geometry — a fit needs at most a handful of entries (full batch shape
+    and remainder)."""
+
+    geo: FitGeometry
+    s1: Any
+    s3p: Any
+    s1_requests: list
+    s3p_requests: list
+
+
+_BATCH_PROGRAM_CACHE: dict[tuple, BatchPrograms] = {}
+
+
+def fit_batch_programs(partition: str, sparse: bool, shape_a, shape_b,
+                       k: int, backend="cuda",
+                       device="cuda") -> BatchPrograms:
+    """Build (or fetch from the cross-fit cache) the S1/S3-partial pair for
+    one BATCH geometry, recorded as `fit_programs` records its pair. The S1
+    body is the one `fit_programs` runs — a batch is a fit geometry with
+    the batch rows in place of the training rows; S3-partial stops at the
+    running sums."""
+    device = torch.device(device)
+    ring_backend = get_backend(backend, device)
+    geo = FitGeometry(partition, bool(sparse),
+                      tuple(int(s) for s in shape_a),
+                      tuple(int(s) for s in shape_b), int(k))
+    key = (geo, ring_backend.name, str(device))
+    hit = _BATCH_PROGRAM_CACHE.get(key)
+    if hit is not None:
+        return hit
+
+    n, d = geo.n, geo.d
+    xa, xb = _zeros(geo.shape_a, device), _zeros(geo.shape_b, device)
+
+    def ctx_over(dealer):
+        return P.Ctx(dealer=dealer, log=CommLog(), backend=ring_backend)
+
+    rec1 = RecordingDealer(device)
+    _s1_body(ctx_over(rec1), geo, xa, xb,
+             AShare(_zeros((k, d), device), _zeros((k, d), device)),
+             _zero_he(geo.he_shapes_s1(), device))
+    rec3 = RecordingDealer(device)
+    _s3_partial_body(ctx_over(rec3), geo, xa, xb,
+                     AShare(_zeros((n, k), device), _zeros((n, k), device)),
+                     _zero_he(geo.he_shapes_s3(), device))
+
+    def s1(xa, xb, mu0, mu1, *rest):
+        he, flat = _split_he(rest, geo.he_shapes_s1())
+        ctx = ctx_over(ListDealer(flat, mu0.device))
+        c = _s1_body(ctx, geo, xa, xb, AShare(mu0, mu1), he)
+        return c.s0, c.s1
+
+    def s3p(xa, xb, c0, c1, *rest):
+        he, flat = _split_he(rest, geo.he_shapes_s3())
+        ctx = ctx_over(ListDealer(flat, c0.device))
+        num, den = _s3_partial_body(ctx, geo, xa, xb, AShare(c0, c1), he)
+        return num.s0, num.s1, den.s0, den.s1
+
+    progs = BatchPrograms(geo, s1, s3p, list(rec1.requests),
+                          list(rec3.requests))
+    _BATCH_PROGRAM_CACHE[key] = progs
+    return progs
+
+
+class FinalizeProgram(NamedTuple):
+    """The per-iteration S3 tail: one call on the accumulated sums.
+
+        mu'0, mu'1 = fn(mu0, mu1, num0, num1, den0, den1, *flat)
+
+    where flat = materialize_offline(requests, dealer)."""
+
+    fn: Any
+    requests: list
+
+
+_FINALIZE_CACHE: dict[tuple, FinalizeProgram] = {}
+
+
+def finalize_program(k: int, d: int, n: int, backend="cuda",
+                     device="cuda") -> FinalizeProgram:
+    """Build (or fetch) the minibatch finalize program. `n` is the TOTAL
+    sample count (division constants), so every batch layout of one fit
+    shares a single entry — and the batch_size >= n fit runs the exact
+    algebra of the full-batch S3 program's tail."""
+    device = torch.device(device)
+    ring_backend = get_backend(backend, device)
+    key = (int(k), int(d), int(n), ring_backend.name, str(device))
+    hit = _FINALIZE_CACHE.get(key)
+    if hit is not None:
+        return hit
+
+    def ctx_over(dealer):
+        return P.Ctx(dealer=dealer, log=CommLog(), backend=ring_backend)
+
+    rec = RecordingDealer(device)
+    _s3_final_body(ctx_over(rec), k, n,
+                   *(AShare(_zeros(s, device), _zeros(s, device))
+                     for s in ((k, d), (k, d), (k,))))
+
+    def fn(mu0, mu1, num0, num1, den0, den1, *flat):
+        ctx = ctx_over(ListDealer(list(flat), mu0.device))
+        out = _s3_final_body(ctx, k, n, AShare(mu0, mu1),
+                             AShare(num0, num1), AShare(den0, den1))
+        return out.s0, out.s1
+
+    prog = FinalizeProgram(fn, list(rec.requests))
+    _FINALIZE_CACHE[key] = prog
+    return prog
+
+
 def clear_program_cache() -> None:
+    """Empty the full-batch, the batch and the finalize program caches."""
     _PROGRAM_CACHE.clear()
+    _BATCH_PROGRAM_CACHE.clear()
+    _FINALIZE_CACHE.clear()

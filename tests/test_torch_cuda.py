@@ -598,3 +598,100 @@ def test_gpu_fit_equals_cpu_fit(cuda, partition):
                                getattr(c, field)[i])
     assert g.log.by_tag("online") == c.log.by_tag("online")
     assert g.log.by_tag("offline") == c.log.by_tag("offline")
+
+
+# ---------------------------------------------------------------------------
+# minibatch Lloyd and the SlotDealer on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("stage_words", [7, None])
+def test_slot_dealer_on_the_card_equals_the_cpu_pool(cuda, monkeypatch,
+                                                     stage_words):
+    """The SlotDealer's slots, pregenerated (pooled) or uploaded by the
+    worker on a stream of its own through 7-word staging buffers
+    (streamed), one slot or a merged group at a time, carry the CPU pool's
+    words, slot by slot; the slots are acquired ahead of the ones served, as the
+    pipelined executor acquires them."""
+    from repro_torch.core import triples as T
+    reqs = [T.PlanRequest("matmul", ((50, 3), (3, 2)), "t"),
+            T.PlanRequest("mul", (40, 3), "t"), T.PlanRequest("bin", (9,), "t"),
+            T.PlanRequest("rand", (33,), "t")]
+    plans = [T.TriplePlan(reqs[i % 4:] + reqs[:i % 4]) for i in range(7)]
+    if stage_words is not None:
+        monkeypatch.setattr(T, "STAGE_WORDS", stage_words)
+        monkeypatch.setattr(T, "DRAW_WORDS", 3 * stage_words)
+    concat = T.TriplePlan([r for p in plans for r in p.requests])
+    want = _served_words(T.PooledDealer(concat, seed=4), concat.requests)
+    monkeypatch.setattr(T, "SLOT_WINDOW", 2)
+    auto = T.GROUP_TRANCHE_BYTES
+    for stream, group in ((False, auto), (True, 0), (True, auto)):
+        monkeypatch.setattr(T, "GROUP_TRANCHE_BYTES", group)
+        dealer = T.SlotDealer(plans, seed=4, device=cuda, stream=stream)
+        got = {}
+        views = {0: dealer.acquire(0)}
+        for i in range(len(plans)):
+            if i + 1 < len(plans):
+                views[i + 1] = dealer.acquire(i + 1)     # acquired ahead
+            got[i] = _served_words(views.pop(i), plans[i].requests)
+        flat = [w for i in range(len(plans)) for w in got[i]]
+        assert len(flat) == len(want)
+        for g, w in zip(flat, want):
+            assert torch.equal(g, w)
+        dealer.close()
+        assert dealer._live_bytes == 0
+
+
+def test_slot_acquired_ahead_across_the_side_stream(cuda, monkeypatch):
+    """A slot acquired while the current stream is still busy serves the
+    right words: the current stream waits on the worker's upload event
+    before a kernel reads them, and a released slot's memory is reused
+    only after those kernels have run."""
+    from repro_torch.core import triples as T
+    plans = [T.TriplePlan([T.PlanRequest("mul", (512, 512), "t")])
+             for _ in range(6)]
+    concat = T.TriplePlan([r for p in plans for r in p.requests])
+    want = [t.cpu() for t in _served_words(T.PooledDealer(concat, seed=9),
+                                           concat.requests)]
+    monkeypatch.setattr(T, "SLOT_WINDOW", 2)
+    monkeypatch.setattr(T, "GROUP_TRANCHE_BYTES", 0)
+    dealer = T.SlotDealer(plans, seed=9, device=cuda)
+    sums = []
+    for i in range(len(plans)):
+        torch.cuda._sleep(2_000_000)            # keep the current stream busy
+        t = dealer.acquire(i).mul_triple((512, 512))
+        sums.append(torch.stack([w for share in t for w in share]).sum(0))
+        del t
+    torch.cuda.synchronize()
+    for i, s in enumerate(sums):
+        assert torch.equal(s.cpu(), torch.stack(want[6 * i:6 * i + 6]).sum(0))
+    dealer.close()
+
+
+@pytest.mark.parametrize("offline", ["pooled", "streamed"])
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+@pytest.mark.parametrize("partition", ["vertical", "horizontal"])
+def test_minibatch_gpu_fit_equals_cpu_fit(cuda, partition, sparse, offline):
+    """The minibatch fit on the card (batch and finalize programs over the
+    SlotDealer's device tensors, pipelined and not) gives the CPU
+    minibatch fit's share words, counters, traffic and he_seconds, at a
+    batch size that leaves a remainder."""
+    x = RNG.normal(size=(96, 8)) + RNG.integers(0, 3, (96, 1)) * 4.0
+    if sparse:
+        x *= RNG.random(x.shape) >= 0.7
+    a, b = (x[:, :4], x[:, 4:]) if partition == "vertical" else (x[:40], x[40:])
+    common = dict(k=3, iters=2, partition=partition, seed=2, sparse=sparse,
+                  offline=offline, batch_size=36)
+    for pipeline in (True, False):
+        c = SecureKMeans(KMeansConfig(backend="torch", device="cpu",
+                                      pipeline=pipeline, **common)).fit(a, b)
+        g = SecureKMeans(KMeansConfig(pipeline=pipeline, **common)).fit(a, b)
+        for field in ("centroids", "assignment"):
+            for i in (0, 1):
+                assert torch.equal(getattr(g, field)[i].cpu(),
+                                   getattr(c, field)[i])
+        for attr in ("n_matmul", "n_mul", "n_bin"):
+            assert getattr(g.dealer, attr) == getattr(c.dealer, attr)
+        for phase in ("online", "offline"):
+            assert g.log.by_tag(phase) == c.log.by_tag(phase)
+        assert g.he_seconds == c.he_seconds
+        assert all(v == 0 for v in g.dealer.remaining().values())

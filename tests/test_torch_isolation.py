@@ -29,7 +29,8 @@ def test_every_module_imports_without_jax_or_repro():
     for m in ("repro_torch.core.sparse", "repro_torch.core.he",
               "repro_torch.kernels.spmm", "repro_torch.kernels.ops",
               "repro_torch.kernels.ref", "repro_torch.kernels.esd",
-              "repro_torch.kernels.argmin", "repro_torch.launch.kmeans_step"):
+              "repro_torch.kernels.argmin", "repro_torch.launch.kmeans_step",
+              "repro_torch.launch.pipeline"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -161,10 +161,29 @@ def test_steps_on_reference_centroid_shares(partition):
 # what this slice does not port raises, naming its ROADMAP item
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kwargs", [{"batch_size": 16}])
-def test_later_slice_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        KMeansConfig(k=2, **kwargs)
+@pytest.mark.parametrize("batch_size", [0, -3])
+def test_batch_size_below_one_is_refused_as_by_the_reference(batch_size):
+    for cfg in (KMeansConfig, JK.KMeansConfig):
+        with pytest.raises(ValueError, match="batch_size"):
+            cfg(k=2, batch_size=batch_size)
+
+
+@pytest.mark.parametrize("offline", [None, "on_demand"])
+def test_minibatch_on_demand_raises_the_reference_error(offline):
+    """Minibatch Lloyd needs the planned offline phase: with the on-demand
+    dealer both packages raise the same ValueError at fit time."""
+    x = _blobs(24, 4, 2, seed=1)
+    kw = {} if offline is None else {"offline": offline}
+    errors = []
+    for km in (SecureKMeans(KMeansConfig(k=2, iters=1, batch_size=8,
+                                         backend="torch", device="cpu",
+                                         **kw)),
+               JK.SecureKMeans(JK.KMeansConfig(k=2, iters=1, batch_size=8,
+                                               backend="xla", **kw))):
+        with pytest.raises(ValueError, match="offline='pooled'") as exc:
+            km.fit(x[:, :2], x[:, 2:])
+        errors.append(str(exc.value))
+    assert errors[0] == errors[1]
 
 
 @pytest.mark.parametrize("arg", ["dealer", "wire", "checkpoint"])

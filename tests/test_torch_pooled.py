@@ -477,7 +477,7 @@ def test_every_reference_config_keyword_constructs_the_port_config():
               "tol": [None, 1e-4], "he_backend": [None],
               "backend": ["auto", None, "torch"],
               "offline": ["on_demand", "pooled", "streamed"],
-              "batch_size": [None], "pipeline": [True, False]}
+              "batch_size": [None, 16], "pipeline": [True, False]}
     assert set(values) == set(ref_fields)
     for name, vals in values.items():
         for v in vals:
