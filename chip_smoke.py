@@ -20,7 +20,12 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      the GPU with the on-demand, the pooled and the streamed dealer
      (`offline=`) for the dense fit and the sparse one at k=3; and the
      minibatch fit (batch_size 700 of 2048 rows, dense k=5 and sparse k=3,
-     pooled and streamed, pipeline on and off) held to the CPU one;
+     pooled and streamed, pipeline on and off) held to the CPU one; then
+     secure scoring: `predict` and `score` (the scoring program and the
+     eager protocol), both partitions, dense and sparse, a bank-fed
+     full-batch and minibatch fit (`plan_fit`, `TripleBank`,
+     `fit(dealer=)`) and a `ScoringService` drain with pipeline on and
+     off, each on the card held to the CPU word for word;
   4. runs the main path — SecureKMeans.fit, vertical, d_a=18, d_b=24, k=5,
      10 iterations at n=100,000 (the paper's fraud-detection deployment
      shape) — with the launch counters set to 0 just before and read just
@@ -50,6 +55,25 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      n=400,000 (3 iterations) under the same bound; sparse n=100,000 in
      batches of 25,000, pipeline on, off, off, on (equal, agreement
      >= 0.98), printing the four online times;
+  6. (run after 4c, before 5) the paper's Sec 5.6 serving deployment at
+     phase 4's widths, the launch counters read around each scoring run:
+     6a plan_fit, a
+     TripleBank provisioned under phase 4's seed and fit(dealer=...),
+     equal to phase 4's pooled fit with its launches per iteration; 6b
+     `score` of the 100,000 rows against that model in one program call,
+     on demand and from a bank (the same words; labels the nearest revealed
+     centroid wherever the margin exceeds 1e-6, scores within 1e-3 of the
+     plaintext squared distance, except the rows the protocol's local
+     truncation wraps, which must be few as the distances predict, each
+     wrapped score off by a multiple of 2^24); 6c the ScoringService (ladder 32, 128,
+     512; banks sized so nothing replenishes) over 2,000 ragged requests
+     of Poisson(48) rows, pipeline on, off, off, on, each turn from a
+     fresh bank and answering identically, printing rows/s, calls,
+     pad overhead, p50/p99 latency and the warm-up seconds; 6d the same
+     on phase 4b's sparse model with 200 requests (spmm_ell launched, ELL
+     packing seconds printed); 6e the fraud pipeline at n=100,000
+     (`run_secure_fraud`, pooled), the secure Jaccard within 0.05 of the
+     plaintext joint one;
   5. drives the kernel API (`repro_torch.kernels.ops`) the same way, with
      the launch counters set to 0 just before and read just after:
      plaintext Lloyd iterations (esd -> argmin_onehot -> C^T x through
@@ -62,8 +86,10 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      PyTorch call for the same function where there is one; spmm_ell also
      at the drive's own C^T x (the one-hot of an iteration's argmin_onehot,
      packed as spmm_from_dense packs it, times x at each width);
-  6. prints one JSON line of per-kernel launches, times and bounds, the
-     nvidia-smi line, and finally {"ok": true, "device": {...}}.
+  7. prints one JSON line of per-kernel launches (the fit path's, and for
+     the fit kernels the scoring path's as `scoring_launches`), times and
+     bounds, the nvidia-smi line, and finally {"ok": true, "device":
+     {...}}.
 
 Phases 2 and 3 cover the sparse slice too: `spmm_ell` against its plain
 version at both main-path shapes and at odd ones, and the sparse GPU fit
@@ -865,9 +891,9 @@ def phase_sparse_main_path():
     for name, count in launches.items():
         if count <= 0:
             fail(f"{name} was not launched on the sparse main path")
-    phase_offline_fits(f"sparse main path (vertical, n={SP_N}, "
-                       f"d={SP_DA}+{SP_DB}, k={SP_K})", cfg, x[:, :SP_DA],
-                       x[:, SP_DA:], res, launches)
+    _, sp_pooled = phase_offline_fits(
+        f"sparse main path (vertical, n={SP_N}, d={SP_DA}+{SP_DB}, k={SP_K})",
+        cfg, x[:, :SP_DA], x[:, SP_DA:], res, launches)
     del res
 
     # spmm_ell on this fit's own inputs: the four packed matrices of one
@@ -881,7 +907,7 @@ def phase_sparse_main_path():
           f"kernel {total[0]:.4f} ms, plain {total[1]:.4f} ms, bound "
           f"{total[2]:.4f} ms", flush=True)
     by = "bytes" if total[3] >= total[4] else "operations"
-    return launches, (total[0], total[1], total[2], by)
+    return launches, (total[0], total[1], total[2], by), sp_pooled
 
 
 def fit_spmm_cases(x: np.ndarray) -> list:
@@ -1569,6 +1595,452 @@ def phase_minibatch_main_path(full_per_iter: dict, full_pooled) -> None:
                    f"{SP_DB}, k={SP_K}", cfg, x, SP_DA)
 
 
+# ---------------------------------------------------------------------------
+# secure scoring, the TripleBank and the ScoringService (phases 3 and 6)
+# ---------------------------------------------------------------------------
+
+SC_RUNGS = (32, 128, 512)   # the ScoringService's default ladder
+SC_REQUESTS = 2_000         # phase 6c: ragged requests of Poisson(48) rows
+SC_SPARSE_REQUESTS = 200    # phase 6d
+SC_MEAN_ROWS = 48
+SC_SEED = 11
+# phase 3's service requests: coalesced FIFO up to the top rung, they make
+# calls at every rung of SC_RUNGS (20 -> 32; 500 -> 512; 100 -> 128;
+# 450 -> 512; 600 -> 512 + 88 -> 128; 30 -> 32)
+SC_SMALL_SIZES = (20, 500, 100, 450, 600, 30)
+# 6c/6d's replenisher turn: a shallow bank that a BankReplenisher tops up
+# while the drain runs
+SC_REPL = dict(copies=8, low_water=4, high_water=16)
+FRAUD_N, FRAUD_SEED = 100_000, 3   # phase 6e (examples/fraud_detection.py)
+FRAUD_TOL = 0.05            # secure Jaccard within this of plaintext joint
+
+
+def same_words(label: str, got, want) -> None:
+    """Fail unless two share pairs (AShare, or None) hold the same words."""
+    from repro_torch.core import ring
+    if (got is None) != (want is None):
+        fail(f"{label}: one side holds no shares")
+    for i in (0, 1) if got is not None else ():
+        if not np.array_equal(ring.to_u64_numpy(got[i]),
+                              ring.to_u64_numpy(want[i])):
+            fail(f"{label}: s{i} words differ")
+
+
+def same_predict(label: str, got, want) -> None:
+    """Fail unless two scoring results agree word for word: assignment and
+    score shares, traffic per tag and phase."""
+    same_words(f"{label} assignment", got.assignment, want.assignment)
+    same_words(f"{label} scores", got.scores, want.scores)
+    for phase in ("online", "offline"):
+        if got.log.by_tag(phase) != want.log.by_tag(phase):
+            fail(f"{label}: {phase} CommLog differs: "
+                 f"{got.log.by_tag(phase)} vs {want.log.by_tag(phase)}")
+
+
+def _model_on_card(cfg_kw: dict, result):
+    """A GPU SecureKMeans serving `result`'s centroid shares."""
+    from repro_torch.core.interop import (result_from_reference,
+                                          shares_to_numpy)
+    from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+    km = SecureKMeans(KMeansConfig(**cfg_kw))
+    km.result_ = result_from_reference(
+        {f: shares_to_numpy(getattr(result, f))
+         for f in ("centroids", "assignment")}, device="cuda")
+    return km
+
+
+def _requests(rng, x: np.ndarray, count: int) -> list:
+    """`count` consecutive ragged row blocks of x, Poisson(SC_MEAN_ROWS)
+    rows each (at least one)."""
+    sizes = np.maximum(1, rng.poisson(SC_MEAN_ROWS, count))
+    if sizes.sum() > x.shape[0]:
+        fail(f"{count} requests need {sizes.sum()} rows, {x.shape[0]} held")
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    return [x[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+
+def _turn_line(label: str, svc, st: dict, held: int, pool: int) -> str:
+    """One service turn's readings (ServiceStats, the bank, memory)."""
+    from repro_torch.core import sparse
+    host = st["host_seconds"]
+    pack = (f", ELL packing and upload enqueue "
+            f"{sparse.ELL_PACK_SECONDS:.3f} s" if svc.model.cfg.sparse
+            else "")
+    return (f"{label}: {st['requests']} requests, {st['rows']} rows in "
+            f"{st['launches']} calls {st['rung_calls']}, drain "
+            f"{st['online_seconds']:.3f} s (host prepare {host['prepare']:.3f}"
+            f", launch {host['launch']:.3f}, collect {host['collect']:.3f})"
+            f"{pack}, {st['rows_per_s']} rows/s, pad_overhead "
+            f"{st['pad_overhead']}, p50 {st['p50_ms']} ms, p99 "
+            f"{st['p99_ms']} ms, queue wait p50 {st['queue_wait_p50_ms']} ms, "
+            f"replenish_events {st['replenish_events']}; offline (warm) "
+            f"{svc.offline_seconds:.3f} s, bank gen_seconds "
+            f"{svc.bank.gen_seconds:.3f}, provisioned pool "
+            f"{pool / 1e9:.4f} GB, device memory allocated after warm "
+            f"{held / 1e9:.3f} GB")
+
+
+def _serve_turns(label: str, km, result, reqs: list, da: int,
+                 db: int) -> tuple:
+    """The ScoringService on `result` over `reqs`, six turns each from a
+    fresh bank. The first and the last drain a shallow bank (SC_REPL) that
+    a BankReplenisher tops up meanwhile; the first one's calls per rung
+    size the `provision_copies` of the four between, pipeline on, off,
+    off, on with no replenishment. Every turn's responses must equal the
+    first's. Returns (the launches of the first turn without a
+    replenisher, the first turn's responses)."""
+    from repro_torch.core import sparse
+    from repro_torch.serve import ScoringService
+    first = launches = None
+    copies = None
+    repl = dict(low_water=SC_REPL["low_water"],
+                high_water=SC_REPL["high_water"])
+    drains = {}
+    for turn, (pipeline, topped) in enumerate((
+            (True, True), (True, False), (False, False), (False, False),
+            (True, False), (True, True))):
+        svc = ScoringService(km, result, d_a=da, d_b=db, rungs=SC_RUNGS,
+                             provision_copies=SC_REPL["copies"] if topped
+                             else copies, pipeline=pipeline,
+                             replenisher=repl if topped else None)
+        svc.warm()
+        torch.cuda.synchronize()
+        pool, held = svc.bank.pool_bytes, torch.cuda.memory_allocated()
+        for x in reqs:
+            svc.submit(x[:, :da], x[:, da:])
+        _zero_launch_counters()
+        sparse.ELL_PACK_SECONDS = 0.0
+        out = svc.drain()
+        counted = _launch_counters()
+        st = svc.stats.as_dict()
+        name = (f"{label} turn {turn} (pipeline={pipeline}, "
+                + ("BankReplenisher)" if topped else "no replenishment)"))
+        line = _turn_line(name, svc, st, held, pool)
+        svc.close()
+        if st["failed_requests"] or st["requests"] != len(reqs):
+            fail(f"{name}: {st}")
+        if topped:
+            r = svc.replenisher
+            if r.errors or not r.topups:
+                fail(f"{name}: the replenisher made {r.topups} top-ups, "
+                     f"{r.errors} errors ({r.last_error!r})")
+            line += (f"; replenisher {r.topups} top-ups of "
+                     f"{r.topup_copies} calls in {r.topup_seconds:.3f} s")
+            if first is None:
+                first = out
+                copies = max(st["rung_calls"].values())
+        else:
+            if st["replenish_events"]:
+                fail(f"{name}: {st['replenish_events']} replenishments "
+                     f"with provision_copies {copies}")
+            if launches is None:
+                launches = counted
+        for a, b in zip(out, first):
+            if a.request_id != b.request_id \
+                    or not np.array_equal(a.labels, b.labels) \
+                    or not np.array_equal(a.scores, b.scores):
+                fail(f"{name}: request {a.request_id} differs from turn 0")
+        drains[turn] = st["online_seconds"]
+        print(f"{line}; launches {counted}", flush=True)
+        del svc
+    print(f"{label}: the six turns answered every request identically; "
+          f"drains with a BankReplenisher topping up {drains[0]:.3f} and "
+          f"{drains[5]:.3f} s, without one (pipeline on, provision_copies "
+          f"{copies}) {drains[1]:.3f} and {drains[4]:.3f} s", flush=True)
+    return launches, first
+
+
+def phase_scoring_gpu_equals_cpu():
+    """Phase 3's scoring checks: predict and score on the card (program
+    and eager), both partitions, dense and sparse, equal the CPU's word for
+    word; a bank-fed full-batch and minibatch fit on the card equal the CPU
+    ones; a ScoringService drain on the card, pipeline on and off, answers
+    as the CPU one does."""
+    from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+    from repro_torch.core.triples import TripleBank, TrustedDealer
+    from repro_torch.serve import ScoringService
+    dense = _blobs(np.random.default_rng(1), 2048, DA + DB, K)
+    sp = _one_hot_like(np.random.default_rng(4), 2048, SP_DA + SP_DB, SP_K,
+                       SP_SPARSITY)
+    for name, x, da, k, sparse in (("dense", dense, DA, K, False),
+                                   ("sparse", sp, SP_DA, SP_K, True)):
+        for part in ("vertical", "horizontal"):
+            xa, xb = (x[:1500, :da], x[:1500, da:]) if part == "vertical" \
+                else (x[:800], x[800:1500])
+            qa, qb = (x[1500:, :da], x[1500:, da:]) if part == "vertical" \
+                else (x[1500:1800], x[1800:])
+            kw = dict(k=k, iters=2, partition=part, seed=3, sparse=sparse)
+            cpu = SecureKMeans(KMeansConfig(backend="torch", device="cpu",
+                                            **kw))
+            res = cpu.fit(xa, xb)
+            gpu = _model_on_card(kw, res)
+            for method in ("score", "predict"):
+                for compiled in (True, False):
+                    dg = TrustedDealer(seed=7, device="cuda")
+                    dc = TrustedDealer(seed=7)
+                    label = (f"{name} {part} {method} compiled={compiled}, "
+                             f"GPU vs CPU")
+                    same_predict(label, getattr(gpu, method)(
+                        qa, qb, compiled=compiled, dealer=dg),
+                        getattr(cpu, method)(qa, qb, compiled=compiled,
+                                             dealer=dc))
+                    counters = [(d.n_matmul, d.n_mul, d.n_bin,
+                                 d.log.by_tag("offline")) for d in (dg, dc)]
+                    if counters[0] != counters[1]:
+                        fail(f"{label}: dealer counters {counters}")
+            same_predict(f"{name} {part} score, default dealer, GPU vs CPU",
+                         gpu.score(qa, qb), cpu.score(qa, qb))
+            print(f"GPU scoring = CPU scoring ({name} {part}, {len(qa)}+"
+                  f"{len(qb) if part == 'horizontal' else 0} rows, k={k}): "
+                  f"predict and score, program and eager, share words, "
+                  f"dealer counters and traffic equal", flush=True)
+            for batch_size in (None, 700):
+                fits = {}
+                for dev, extra in (("cuda", {}), ("cpu", dict(
+                        backend="torch", device="cpu"))):
+                    km = SecureKMeans(KMeansConfig(
+                        offline="pooled", batch_size=batch_size, **kw,
+                        **extra))
+                    key, plan, _ = km.plan_fit(xa.shape, xb.shape)
+                    bank = TripleBank(seed=3, device=dev)
+                    bank.provision(key, plan, workers=2)
+                    fits[dev] = km.fit(xa, xb, dealer=bank.dealer(key))
+                same_fit(f"{name} {part} bank-fed fit batch_size="
+                         f"{batch_size}, GPU vs CPU", fits["cuda"],
+                         fits["cpu"])
+                del fits
+            print(f"GPU bank-fed fit = CPU bank-fed fit ({name} {part}, "
+                  f"full batch and batch_size 700)", flush=True)
+            if part != "vertical":
+                continue
+            bounds = np.cumsum((0,) + SC_SMALL_SIZES)
+            for pipeline in (True, False):
+                outs, calls = [], []
+                for model in (gpu, cpu):
+                    svc = ScoringService(model, d_a=da, d_b=x.shape[1] - da,
+                                         rungs=SC_RUNGS, pipeline=pipeline,
+                                         provision_copies=3)
+                    for lo, hi in zip(bounds[:-1], bounds[1:]):
+                        svc.submit(x[lo:hi, :da], x[lo:hi, da:])
+                    outs.append(svc.drain())
+                    calls.append(svc.stats.rung_calls)
+                if calls[0] != calls[1] or sorted(calls[0]) != list(SC_RUNGS):
+                    fail(f"{name} service pipeline={pipeline}: calls per "
+                         f"rung {calls[0]} on the card, {calls[1]} on the "
+                         f"CPU; every rung of {SC_RUNGS} must be called")
+                for a, b in zip(*outs):
+                    if a.error is not None or b.error is not None \
+                            or not np.array_equal(a.labels, b.labels) \
+                            or not np.array_equal(a.scores, b.scores):
+                        fail(f"{name} service pipeline={pipeline}: request "
+                             f"{a.request_id} differs between GPU and CPU")
+            print(f"GPU ScoringService = CPU ScoringService ({name} vertical, "
+                  f"requests of {SC_SMALL_SIZES} rows, calls per rung "
+                  f"{calls[0]}, pipeline on and off)", flush=True)
+
+
+TRUNC_F = 20               # ring.F: the fixed-point scale of the scores
+
+
+def truncation_check(x, mu, labels, scores) -> dict:
+    """One scoring call against plaintext. The distances D' = ||mu||^2 -
+    2 x.mu are truncated from scale 2f to f by the two parties locally
+    (SecureML), which fails with probability |D'| 2^(2f) / 2^64 an
+    element, moving the value by a multiple of 2^(64-2f) = 2^24. A loser
+    wrapped down takes the label and shows in the score; the winner
+    wrapped down shows in the score; the winner wrapped up hands the
+    label to the runner-up, whose score is right: a mislabel with no
+    visible wrap. Labels are counted where the nearest centroid wins by
+    more than 1e-6. Returns the counts and the expected wraps of all
+    elements and of the winners alone."""
+    dist = ((x[:, None, :] - mu[None]) ** 2).sum(2)
+    part = np.partition(dist, 1, axis=1)
+    clear = part[:, 1] - part[:, 0] > 1e-6
+    nearest = dist.argmin(1)
+    wrong = clear & (labels != nearest)
+    err = scores - dist[np.arange(len(x)), labels]
+    wrap = 2.0 ** (64 - 2 * TRUNC_F)
+    k = np.round(err / wrap)
+    wrapped = (k != 0) & (np.abs(err - k * wrap) <= 1e-3)
+    p_wrap = np.abs((mu ** 2).sum(1)[None] - 2 * x @ mu.T) \
+        * 2.0 ** (2 * TRUNC_F - 64)
+    return dict(wrong=int(wrong.sum()), wrapped=int(wrapped.sum()),
+                other=int((~wrapped & (np.abs(err) > 1e-3)).sum()),
+                hit=int((wrong | wrapped).sum()),
+                silent=int((wrong & ~wrapped).sum()),
+                expected=float(p_wrap.sum()),
+                expected_winner=float(p_wrap[np.arange(len(x)),
+                                             nearest].sum()))
+
+
+def poisson_limit(mean: float) -> float:
+    """A count of rare independent events with this mean exceeds this
+    limit with odds of 1e-3 or less (Poisson tail, means up to ~500)."""
+    return mean + 3 * mean ** 0.5 + 3
+
+
+def phase_scoring(full_per_iter: dict, full_pooled, sp_pooled) -> dict:
+    """Phase 6, the paper's Sec 5.6 serving deployment at phase 4's widths:
+    6a the bank-fed fit, 6b bulk scoring of n = 100,000, 6c the
+    ScoringService over 2,000 ragged requests, 6d the sparse service, 6e
+    the fraud pipeline. Returns the scoring path's launches per kernel
+    (6b's bank-fed call, 6c's and 6d's first drains, each counted around
+    itself)."""
+    from repro_torch.core.fraud import (FraudDataset, run_plaintext_fraud,
+                                        run_secure_fraud)
+    from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+    from repro_torch.core.triples import TripleBank, serve_seed
+    from repro_torch.launch import kmeans_step as KS
+    x = _blobs(np.random.default_rng(SEED + 7), N, DA + DB, K)
+    xa, xb = x[:, :DA], x[:, DA:]
+    cfg = KMeansConfig(k=K, iters=ITERS, partition="vertical", seed=SEED,
+                       offline="pooled")
+    km = SecureKMeans(cfg)
+    tag = f"(vertical, n={N}, d={DA}+{DB}, k={K})"
+
+    # 6a: plan_fit -> provision -> fit(dealer=bank.dealer(key))
+    _cold_caches()
+    t0 = time.perf_counter()
+    key, plan, _ = km.plan_fit(xa.shape, xb.shape)
+    KS.fit_programs("vertical", False, xa.shape, xb.shape, K,
+                    backend=cfg.backend, device=cfg.device)
+    plan_s = time.perf_counter() - t0
+    bank = TripleBank(seed=SEED)
+    bank.provision(key, plan)
+    torch.cuda.synchronize()
+    pool, held = bank.pool_bytes, torch.cuda.memory_allocated()
+    _zero_launch_counters()
+    res = km.fit(xa, xb, dealer=bank.dealer(key))
+    loop = _launch_counters()
+    # the fit's offline traffic is on the bank's books
+    books = fit_record(res)
+    books.log = res.log.copy()
+    books.log.merge(bank.log, phase="offline")
+    same_fit(f"6a bank-fed fit {tag} vs phase 4's pooled fit", books,
+             full_pooled)
+    per_iter = {n: v / res.iters_run for n, v in loop.items()}
+    if per_iter != full_per_iter:
+        fail(f"6a: the bank-fed loop launched {per_iter} an iteration, "
+             f"phase 4's pooled fit {full_per_iter}")
+    if bank.served_requests != len(plan) or bank.replenish_events:
+        fail(f"6a: the bank served {bank.served_requests} of {len(plan)} "
+             f"requests, {bank.replenish_events} replenishments")
+    print(f"6a bank-fed fit {tag}: equal to phase 4's pooled fit word for "
+          f"word; plan_fit and program recording {plan_s:.3f} s, bank "
+          f"gen_seconds {bank.gen_seconds:.3f}, pool {pool / 1e9:.3f} GB "
+          f"(device memory allocated {held / 1e9:.3f} GB), loop_seconds "
+          f"{res.loop_seconds:.3f}, online_seconds {res.online_seconds:.3f}, "
+          f"kernels per iteration {per_iter} = phase 4's", flush=True)
+    del bank
+    torch.cuda.empty_cache()
+
+    # 6b: one scoring call over all n rows, on demand and from a bank
+    km.plan_predict(xa.shape, xb.shape, True)
+    KS.predict_program("vertical", False, xa.shape, xb.shape, K,
+                       with_scores=True, backend=cfg.backend,
+                       device=cfg.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_demand = km.score(xa, xb, res)
+    od_s = time.perf_counter() - t0
+    key, plan, _ = km.plan_predict(xa.shape, xb.shape, True)
+    bank = TripleBank(seed=serve_seed(SEED))
+    t0 = time.perf_counter()
+    bank.provision(key, plan)
+    torch.cuda.synchronize()
+    prov_s = time.perf_counter() - t0
+    pool = bank.pool_bytes
+    _zero_launch_counters()
+    t0 = time.perf_counter()
+    banked = km.score(xa, xb, res, dealer=bank.dealer(key))
+    bank_s = time.perf_counter() - t0
+    launches = _launch_counters()
+    same_words("6b banked vs on-demand assignment", banked.assignment,
+               on_demand.assignment)
+    same_words("6b banked vs on-demand scores", banked.scores,
+               on_demand.scores)
+    tc = truncation_check(x, res.centroids_plain(), banked.labels_plain(),
+                          banked.scores_plain())
+    print(f"6b bulk scoring {tag}: one program call on demand "
+          f"{od_s:.3f} s (dealer included), from a bank {bank_s:.3f} s "
+          f"(provisioned in {prov_s:.3f} s, {pool / 1e9:.3f} GB); the same "
+          f"words; rows whose label is not the nearest revealed centroid "
+          f"(margin > 1e-6): {tc['wrong']}, {tc['silent']} of them with no "
+          f"visible wrap ({tc['expected_winner']:.2f} winner wraps "
+          f"expected, limit {poisson_limit(tc['expected_winner']):.2f}); "
+          f"scores off the plaintext squared distance by more than 1e-3: "
+          f"{tc['wrapped']} by a multiple of 2^{64 - 2 * TRUNC_F} (a "
+          f"local-truncation wrap), {tc['other']} otherwise; {tc['hit']} "
+          f"rows with either ({tc['expected']:.2f} wraps expected from the "
+          f"distances, limit {poisson_limit(tc['expected']):.2f}); "
+          f"launches {launches}", flush=True)
+    if tc["other"]:
+        fail(f"6b: {tc['other']} scores are off by more than 1e-3 and not "
+             f"by a truncation wrap")
+    if tc["silent"] > poisson_limit(tc["expected_winner"]):
+        fail(f"6b: {tc['silent']} mislabels with no visible wrap, "
+             f"{tc['expected_winner']:.2f} winner wraps expected")
+    if tc["hit"] > poisson_limit(tc["expected"]):
+        fail(f"6b: {tc['hit']} rows with a wrong label or a wrapped score, "
+             f"{tc['expected']:.2f} wraps expected")
+    if launches["ring_matmul"] <= 0 or launches["ks_carry_share"] <= 0:
+        fail(f"6b: the scoring call launched {launches}")
+    del bank, on_demand, banked
+    torch.cuda.empty_cache()
+
+    # 6c: the ScoringService over 2,000 ragged requests
+    reqs = _requests(np.random.default_rng(SC_SEED), x, SC_REQUESTS)
+    print(f"6c ScoringService {tag}: ladder {SC_RUNGS}, {len(reqs)} requests "
+          f"of Poisson({SC_MEAN_ROWS}) rows (seed {SC_SEED}), "
+          f"{sum(len(r) for r in reqs)} rows", flush=True)
+    svc_launches, _ = _serve_turns("6c service", km, res, reqs, DA, DB)
+    for name in ("ring_matmul", "ks_carry_share"):
+        launches[name] += svc_launches[name]
+        if svc_launches[name] <= 0:
+            fail(f"6c: {name} was not launched by the drain")
+    del res, reqs, x, xa, xb
+    torch.cuda.empty_cache()
+
+    # 6d: the sparse service on phase 4b's model
+    sx = _one_hot_like(np.random.default_rng(SP_SEED + 7), SP_N,
+                       SP_DA + SP_DB, SP_K, SP_SPARSITY)
+    skm = SecureKMeans(KMeansConfig(k=SP_K, iters=SP_ITERS,
+                                    partition="vertical", seed=SP_SEED,
+                                    sparse=True))
+    reqs = _requests(np.random.default_rng(SC_SEED), sx, SC_SPARSE_REQUESTS)
+    sp_launches, _ = _serve_turns(
+        f"6d sparse service (vertical, d={SP_DA}+{SP_DB}, k={SP_K})", skm,
+        sp_pooled, reqs, SP_DA, SP_DB)
+    if sp_launches["spmm_ell"] <= 0:
+        fail("6d: spmm_ell was not launched by the sparse drain")
+    for name, v in sp_launches.items():
+        launches[name] += v
+    del sx, reqs
+    torch.cuda.empty_cache()
+
+    # 6e: the fraud pipeline
+    ds = FraudDataset.synthesize(n=FRAUD_N, d_a=DA, d_b=DB, n_clusters=K,
+                                 frac_outlier=0.02, seed=FRAUD_SEED)
+    t0 = time.perf_counter()
+    j_sec, fres = run_secure_fraud(ds, k=K, iters=ITERS, seed=FRAUD_SEED,
+                                   offline="pooled")
+    sec_s = time.perf_counter() - t0
+    j_plain = run_plaintext_fraud(ds, k=K, iters=ITERS, seed=FRAUD_SEED)
+    j_single = run_plaintext_fraud(ds, k=K, iters=ITERS, seed=FRAUD_SEED,
+                                   party_a_only=True)
+    print(f"6e fraud (n={FRAUD_N}, d={DA}+{DB}, k={K}, 2 % planted, seed "
+          f"{FRAUD_SEED}): Jaccard secure joint {j_sec:.4f}, plaintext joint "
+          f"{j_plain:.4f}, payment-company only {j_single:.4f} (the paper "
+          f"reports 0.86, 0.83 and 0.62 on its data); secure fit and scoring "
+          f"{sec_s:.3f} s (fit loop {fres.loop_seconds:.3f} s)", flush=True)
+    if abs(j_sec - j_plain) > FRAUD_TOL:
+        fail(f"6e: secure Jaccard {j_sec:.4f} is more than {FRAUD_TOL} from "
+             f"the plaintext joint {j_plain:.4f}")
+    print(f"scoring path launches (6b's bank-fed call and the first drains "
+          f"of 6c and 6d): {launches}", flush=True)
+    return launches
+
+
 def kernel_times(src: pathlib.Path, smi_line: str) -> None:
     """`--kernel-times`: ring_matmul at the dense and sparse fits' own
     layouts, esd beside addmm + norms at the phase-5 shapes, and spmm_ell
@@ -1640,10 +2112,12 @@ def main() -> None:
     phase_sparse_gpu_equals_cpu(SP_K, OFFLINE_MODES)
     phase_sparse_gpu_equals_cpu(SP_WIDE_K)
     phase_minibatch_gpu_equals_cpu()
+    phase_scoring_gpu_equals_cpu()
     launches, full_per_iter, full_pooled = phase_main_path()
-    sp_launches, sp_iter = phase_sparse_main_path()
+    sp_launches, sp_iter, sp_pooled = phase_sparse_main_path()
     phase_minibatch_main_path(full_per_iter, full_pooled)
-    del full_pooled
+    score_launches = phase_scoring(full_per_iter, full_pooled, sp_pooled)
+    del full_pooled, sp_pooled
     data = api_data()
     api_launches = phase_api_main_path(data)
     api_rows, api_worst = phase_api_kernels(data)
@@ -1679,6 +2153,7 @@ def main() -> None:
          "source": "src/repro_torch/kernels/csrc/modmatmul.cu",
          "replaces": "src/repro/kernels/modmatmul.py:71",
          "launches": launches["ring_matmul"],
+         "scoring_launches": score_launches["ring_matmul"],
          "max_abs_err": worst["ring_matmul"],
          "ms": mm[0], "plain_ms": mm[1], "bound_ms": mm[2],
          "bound_by": mm[3], "library_ms": None},
@@ -1686,6 +2161,7 @@ def main() -> None:
          "source": "src/repro_torch/kernels/csrc/ksadder.cu",
          "replaces": "src/repro/kernels/ksadder.py:56",
          "launches": launches["ks_carry_share"],
+         "scoring_launches": score_launches["ks_carry_share"],
          "max_abs_err": worst["ks_carry_share"],
          "ms": ks[0], "plain_ms": ks[1], "bound_ms": ks[2],
          "bound_by": ks[3], "library_ms": None},
@@ -1696,6 +2172,7 @@ def main() -> None:
          "source": "src/repro_torch/kernels/csrc/spmm.cu",
          "replaces": "src/repro/kernels/spmm.py:80",
          "launches": sp_launches["spmm_ell"],
+         "scoring_launches": score_launches["spmm_ell"],
          "max_abs_err": worst["spmm_ell"],
          "ms": sp_iter[0], "plain_ms": sp_iter[1], "bound_ms": sp_iter[2],
          "bound_by": sp_iter[3], "library_ms": lib_ms},

@@ -37,9 +37,16 @@ one finalize program divides. A `SlotDealer` serves each (iteration,
 batch, stage) slot, and with `pipeline` batch t+1's host exchange and
 tranche pin run while batch t's S1 is on the device (launch/pipeline.py).
 
-The options that belong to later slices raise NotImplementedError naming
-their ROADMAP.md item. Entry points run on the GPU unless the config asks
-for the CPU (`backend="torch", device="cpu"`).
+`predict` / `score` assign new batches to the fitted clusters against the
+secret-shared model (the S1 body alone: distances and tournament argmin,
+plus each row's squared distance to its centroid for `score`), eagerly or
+as one `predict_program` call split into prepare, launch and collect, the
+phases the scoring service pipelines. `fit(dealer=...)` runs a fit on an
+external provider, a provisioned `TripleBank`'s view (`plan_fit`).
+
+The options that belong to later slices (`wire=`, `checkpoint=`) raise
+NotImplementedError naming their ROADMAP.md item. Entry points run on the
+GPU unless the config asks for the CPU (`backend="torch", device="cpu"`).
 """
 from __future__ import annotations
 
@@ -56,14 +63,14 @@ from repro_torch.core.channel import CommLog, NetModel
 from repro_torch.core.he import OU_COST_S, SimulatedPHE
 from repro_torch.core.sharing import AShare, rec, rec_real, share
 from repro_torch.core.sparse import CSRMatrix, secure_sparse_matmul
-from repro_torch.core.triples import (PlanningDealer, PooledDealer,
-                                      SlotDealer, StreamingPooledDealer,
-                                      TriplePlan, TrustedDealer)
+from repro_torch.core.triples import (BankSlotDealer, PlanningDealer,
+                                      PooledDealer, SlotDealer,
+                                      StreamingPooledDealer, TriplePlan,
+                                      TrustedDealer, serve_seed)
 from repro_torch.launch import kmeans_step as KS
 from repro_torch.launch.pipeline import StageTask, run_pipeline
 
 _LATER = {
-    "dealer": "ROADMAP.md Queue 1 item 9 (predict, bank and serving)",
     "wire": "ROADMAP.md Queue 1 item 10 (durability, wire and runtime)",
     "checkpoint": "ROADMAP.md Queue 1 item 10 (durability, wire and runtime)",
 }
@@ -168,23 +175,68 @@ class KMeansResult:
                 "total_s": online + offline}
 
 
+@dataclasses.dataclass
+class PredictResult:
+    """One secure-scoring batch against a fitted model. Only the shares are
+    held; the final Rec happens in `labels_plain` / `scores_plain`, the
+    protocol's single reveal point (centroids are never reconstructed)."""
+
+    assignment: AShare                # (m, k) one-hot shares, scale 1
+    scores: AShare | None             # (m,) ||x - mu_c||^2 shares, scale f
+    log: CommLog
+    seconds: float
+    f: int = ring.F
+
+    def labels_plain(self) -> np.ndarray:
+        return rec(self.assignment).cpu().numpy().argmax(1)
+
+    def scores_plain(self) -> np.ndarray:
+        if self.scores is None:
+            raise ValueError("assignments-only predict holds no scores; "
+                             "use SecureKMeans.score")
+        return ring.decode(rec(self.scores), self.f).cpu().numpy()
+
+
+@dataclasses.dataclass
+class PreparedPredict:
+    """Host phase of one scoring-program call (`predict_prepare`):
+    everything `predict_launch` needs to dispatch and `predict_collect`
+    needs to finish. The pipelined scoring service prepares request t+1
+    while request t's kernels run."""
+
+    prog: object                      # launch.kmeans_step.PredictProgram
+    args: tuple                       # program inputs, on the device
+    log: CommLog                      # the request's live log
+    comm: CommLog                     # the traced call's traffic to replay
+    with_scores: bool
+    x_a: np.ndarray                   # plaintext slices (for ||x||^2)
+    x_b: np.ndarray
+    t0: float
+
+
 # (shapes, cfg-key) -> (one-iteration TriplePlan, one-iteration CommLog).
 # The schedule is data-independent, so identical-shape fits share it; see
 # SecureKMeans._plan_offline_iter. The minibatch stage and finalize plans
 # live here too, under keys of their own ("mb", ...).
 _PLAN_CACHE: dict[tuple, tuple] = {}
 
+# (shapes, with_scores, cfg-key) -> (TriplePlan, CommLog) of ONE scoring
+# call. The key is also the TripleBank lookup key: a bank provisioned under
+# it serves any number of same-geometry requests across fits.
+_PREDICT_PLAN_CACHE: dict[tuple, tuple] = {}
+
 
 def clear_plan_cache() -> None:
     _PLAN_CACHE.clear()
+    _PREDICT_PLAN_CACHE.clear()
 
 
-def _cached_plan(key: tuple, trace) -> tuple:
+def _cached_plan(key: tuple, trace, cache: dict = _PLAN_CACHE) -> tuple:
     """(plan, comm) cached under `key`, made by `trace()` on a miss.
     Returns copies; cached state is never handed out mutable."""
-    hit = _PLAN_CACHE.get(key)
+    hit = cache.get(key)
     if hit is None:
-        hit = _PLAN_CACHE[key] = trace()
+        hit = cache[key] = trace()
     plan, comm = hit
     return TriplePlan(list(plan.requests)), comm.copy()
 
@@ -198,20 +250,41 @@ class SecureKMeans:
         self.he = cfg.he_backend or SimulatedPHE()
 
     # ------------------------------------------------------------------ #
+    def _runs_programs(self) -> bool:
+        """Whether the config runs the S1/S3 and scoring programs: they
+        hardcode f = ring.F, and the unvectorized accounting is the eager
+        loop's."""
+        return self.cfg.vectorized and self.cfg.f == ring.F
+
+    def _device(self) -> torch.device:
+        """The config's device; a CUDA device with no GPU present raises
+        rather than falling back to the CPU."""
+        device = torch.device(self.cfg.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"KMeansConfig(device={self.cfg.device!r}) needs a CUDA GPU "
+                "and none is available; pass backend='torch', device='cpu' "
+                "to run on the CPU")
+        return device
+
     def fit(self, x_a: np.ndarray, x_b: np.ndarray, *, dealer=None,
             wire=None, checkpoint=None) -> KMeansResult:
-        """Jointly cluster the two parties' data."""
-        for key, val in (("dealer", dealer), ("wire", wire),
-                         ("checkpoint", checkpoint)):
+        """Jointly cluster the two parties' data. `dealer` (optional)
+        supplies the fit's correlated randomness from an external provider:
+        a `TripleBank.dealer(key)` view over a bank provisioned with
+        `plan_fit`'s (key, plan) fits with no generation work. Under the
+        fit's seed the bank serves the built-in dealers' words, so every
+        share and CommLog tally is theirs."""
+        for key, val in (("wire", wire), ("checkpoint", checkpoint)):
             if val is not None:
                 raise _not_ported(f"fit({key}=...)", key)
         cfg = self.cfg
-        device = torch.device(cfg.device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"KMeansConfig(device={cfg.device!r}) needs a CUDA GPU and "
-                "none is available; pass backend='torch', device='cpu' to "
-                "run on the CPU")
+        device = self._device()
+        if dealer is not None and torch.device(
+                getattr(dealer, "device", device)).type != device.type:
+            raise ValueError(
+                f"fit(dealer=...) serves words on {dealer.device}, the "
+                f"config runs on {device}")
         rng = np.random.default_rng(cfg.seed)
         ctx = P.make_ctx(cfg.seed, backend=cfg.backend, device=device)
         x_a = np.asarray(x_a, np.float64)
@@ -234,25 +307,24 @@ class SecureKMeans:
         mu = self._init_centroids(ctx, rng, x_a, x_b)
         if cfg.batch_size is not None:
             return self._fit_minibatch(ctx, enc_a, enc_b, enc_a_np, enc_b_np,
-                                       mu, n)
+                                       mu, n, ext_dealer=dealer)
         csr_a = CSRMatrix.from_dense(enc_a_np) if cfg.sparse else None
         csr_b = CSRMatrix.from_dense(enc_b_np) if cfg.sparse else None
 
-        # pooled / streamed offline phase: trace the schedule (cached across
-        # same-shape fits), bulk-generate the pools, upload them, and record
-        # the S1/S3 program pair that consumes them. All of it is data-
-        # independent; the loop then runs with no dealer work, the sparse
-        # combos' Protocol-2 exchanges on the host around S1.
+        # pooled / streamed offline phase (or an external dealer): trace the
+        # schedule (cached across same-shape fits), bulk-generate the pools,
+        # upload them, and record the S1/S3 program pair that consumes them.
+        # All of it is data-independent; the loop then runs with no dealer
+        # work, the sparse combos' Protocol-2 exchanges on the host around
+        # S1.
         plan_s = 0.0
         fast = None
-        if cfg.offline in ("pooled", "streamed"):
+        if dealer is not None or cfg.offline in ("pooled", "streamed"):
             t0 = time.perf_counter()
             iter_plan, iter_comm = self._plan_offline_iter(x_a.shape,
                                                            x_b.shape)
-            # the programs hardcode f = ring.F, and the unvectorized
-            # accounting is the eager loop's: those configs run the eager
-            # loop against the pooled dealer
-            if cfg.vectorized and cfg.f == ring.F:
+            # other configs run the eager loop against the pooled dealer
+            if self._runs_programs():
                 progs = KS.fit_programs(cfg.partition, cfg.sparse,
                                         enc_a.shape, enc_b.shape, cfg.k,
                                         backend=ctx.backend, device=device)
@@ -262,7 +334,12 @@ class SecureKMeans:
                 csr_bt = csr_b.transpose() if cfg.sparse else None
                 fast = (progs, iter_comm, csr_at, csr_bt)
             plan_s = time.perf_counter() - t0
-            if cfg.offline == "pooled":
+            if dealer is not None:
+                # an external provider (a provisioned TripleBank's view):
+                # its generation is on the bank's offline books; this fit
+                # pays the (cached) plan and any stock-out stall
+                ctx.dealer = dealer
+            elif cfg.offline == "pooled":
                 ctx.dealer = PooledDealer(iter_plan.repeat(cfg.iters),
                                           seed=cfg.seed, log=ctx.log,
                                           device=device)
@@ -272,8 +349,7 @@ class SecureKMeans:
                     iter_plan, cfg.iters, seed=cfg.seed, log=ctx.log,
                     group="auto", device=device)
 
-        sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-        sync()
+        _sync(device)
         t_start = time.perf_counter()
         dealer_s_pre = ctx.dealer.dealer_seconds
         it = 0
@@ -302,7 +378,7 @@ class SecureKMeans:
                     ctx.tag = "CSC"
                     if self._converged(ctx, mu_old, mu, cfg.tol):
                         break
-            sync()
+            _sync(device)
             wall = time.perf_counter() - t_start
         finally:
             if isinstance(ctx.dealer, StreamingPooledDealer):
@@ -356,7 +432,7 @@ class SecureKMeans:
     # Minibatch Lloyd — batched S1/S3-partial programs, pipelined exchanges
     # ------------------------------------------------------------------ #
     def _fit_minibatch(self, ctx, enc_a, enc_b, enc_a_np, enc_b_np,
-                       mu: AShare, n: int) -> KMeansResult:
+                       mu: AShare, n: int, ext_dealer=None) -> KMeansResult:
         """Each iteration is one full pass over the data in
         ceil(n / batch_size)-row batches: per batch an S1 program (distances
         and argmin on the CURRENT centroids) and an S3-partial program whose
@@ -376,7 +452,7 @@ class SecureKMeans:
                 "batch_size (minibatch Lloyd) requires the planned offline "
                 "phase: set offline='pooled' or 'streamed' "
                 f"(got {cfg.offline!r})")
-        if not (cfg.vectorized and cfg.f == ring.F):
+        if not self._runs_programs():
             raise ValueError(
                 "minibatch Lloyd runs on the S1/S3 program fast path only: "
                 f"it needs vectorized=True and f={ring.F}")
@@ -417,18 +493,26 @@ class SecureKMeans:
         # (the JAX package's plan time also spans the dealer's construction,
         # which its offline_dealer_seconds then counts twice)
         plan_s = time.perf_counter() - t0
-        dealer = SlotDealer(iter_slots * cfg.iters, seed=cfg.seed,
-                            log=ctx.log,
-                            stream=(cfg.offline == "streamed"),
-                            device=device)
+        if ext_dealer is not None:
+            bank = getattr(ext_dealer, "bank", None)
+            if bank is None:
+                raise ValueError(
+                    "minibatch fit(dealer=...) takes a TripleBank dealer "
+                    "view (bank.dealer(key) over a plan_fit provisioning); "
+                    f"got {type(ext_dealer).__name__}")
+            dealer = BankSlotDealer(bank, ext_dealer.key,
+                                    iter_slots * cfg.iters, log=ctx.log)
+        else:
+            dealer = SlotDealer(iter_slots * cfg.iters, seed=cfg.seed,
+                                log=ctx.log,
+                                stream=(cfg.offline == "streamed"),
+                                device=device)
         ctx.dealer = dealer
 
         def zeros(shape):
             return torch.zeros(shape, dtype=ring.DTYPE, device=device)
 
-        sync = torch.cuda.synchronize if device.type == "cuda" \
-            else (lambda: None)
-        sync()
+        _sync(device)
         t_start = time.perf_counter()
         it = 0
         c_parts = [None] * len(batches)
@@ -453,7 +537,7 @@ class SecureKMeans:
                                  backend=ctx.backend)
                     if self._converged(cctx, mu_old, mu, cfg.tol):
                         break
-            sync()
+            _sync(device)
             wall = time.perf_counter() - t_start
         finally:
             # an early stop, or an exception unwinding the loop, leaves
@@ -612,6 +696,280 @@ class SecureKMeans:
             stage_plans.append(self._plan_batch_stage(sa, sb, "s1")
                                + self._plan_batch_stage(sa, sb, "s3p"))
         return bounds, stage_plans, self._plan_finalize(d, n)
+
+    # ------------------------------------------------------------------ #
+    # Secure scoring: batched predict/score against the secret-shared model
+    # ------------------------------------------------------------------ #
+    def predict(self, x_a: np.ndarray, x_b: np.ndarray,
+                result: KMeansResult | None = None, *, dealer=None,
+                compiled: bool | None = None, wire=None) -> PredictResult:
+        """Assign a NEW batch to the fitted clusters without revealing the
+        model: batched secure distances and tournament argmin against the
+        secret-shared centroids; only the (m, k) assignment shares come
+        back (Rec happens in `labels_plain`). Vertical: the parties hold
+        the batch rows' column slices (equal row counts); horizontal: each
+        party owns whole arrival rows, outputs ordered [A rows; B rows].
+
+        `dealer` supplies the correlated randomness — by default an
+        on-demand `TrustedDealer(serve_seed(cfg.seed))`; pass a
+        `TripleBank.dealer(...)` view to serve from a provisioned pool
+        (`plan_predict` gives the bank key and plan). `compiled=None` runs
+        the `predict_program` path when the config allows it (vectorized,
+        f = ring.F) and the eager protocol otherwise; both give the same
+        words for any same-seeded per-class dealer."""
+        return self._predict(x_a, x_b, result, dealer=dealer,
+                             compiled=compiled, with_scores=False, wire=wire)
+
+    def score(self, x_a: np.ndarray, x_b: np.ndarray,
+              result: KMeansResult | None = None, *, dealer=None,
+              compiled: bool | None = None, wire=None) -> PredictResult:
+        """`predict` plus the (m,) shares of each row's squared distance to
+        its assigned centroid: the tournament's winning D' value (carried
+        for free) plus each party's local ||x||^2 contribution. The
+        fraud-scoring primitive: outlier flags follow from revealing ONLY
+        these scores, never centroids or per-cluster structure."""
+        return self._predict(x_a, x_b, result, dealer=dealer,
+                             compiled=compiled, with_scores=True, wire=wire)
+
+    def _check_predict_args(self, x_a, x_b, result):
+        cfg = self.cfg
+        if result is None:
+            result = getattr(self, "result_", None)
+        if result is None:
+            raise ValueError("predict/score needs a fitted model: call "
+                             "fit() first or pass result=")
+        x_a = np.asarray(x_a, np.float64)
+        x_b = np.asarray(x_b, np.float64)
+        d = result.centroids.shape[1]
+        if cfg.partition == "vertical":
+            if x_a.shape[0] != x_b.shape[0]:
+                raise ValueError("vertical predict needs equal batch rows")
+            if x_a.shape[1] + x_b.shape[1] != d:
+                raise ValueError("predict feature split disagrees with the "
+                                 f"fitted model: {x_a.shape[1]}+{x_b.shape[1]}"
+                                 f" != {d}")
+        else:
+            if x_a.shape[1] != d or x_b.shape[1] != d:
+                raise ValueError("horizontal predict rows must carry all "
+                                 f"{d} model features")
+        return x_a, x_b, result
+
+    def _predict(self, x_a, x_b, result, *, dealer, compiled,
+                 with_scores: bool, wire=None) -> PredictResult:
+        cfg = self.cfg
+        if wire is not None:
+            raise _not_ported("predict(wire=...)", "wire")
+        x_a, x_b, result = self._check_predict_args(x_a, x_b, result)
+        if compiled and cfg.f != ring.F:
+            # an explicit request for the program path must not truncate
+            # at the wrong scale
+            raise ValueError(
+                f"compiled predict hardcodes f = {ring.F}; cfg.f = "
+                f"{cfg.f} must use the eager path (compiled=False)")
+        use_fast = compiled if compiled is not None \
+            else self._runs_programs()
+        if use_fast:
+            prep = self.predict_prepare(x_a, x_b, result, dealer=dealer,
+                                        with_scores=with_scores)
+            return self.predict_collect(prep, self.predict_launch(prep))
+        return self._predict_eager(x_a, x_b, result, dealer=dealer,
+                                   with_scores=with_scores)
+
+    def _encode_batch(self, x_a, x_b, device) -> tuple:
+        """(enc_a, enc_b, csr_a, csr_b): the parties' encoded batch on
+        `device`, uploaded without waiting for the device (`ring.upload`),
+        and, when sparse, its host CSR matrices."""
+        cfg = self.cfg
+        enc_a_np, enc_b_np = _encode_np(x_a, cfg.f), _encode_np(x_b, cfg.f)
+        enc_a, enc_b = (ring.upload(torch.from_numpy(e.view(np.int64)),
+                                    device) for e in (enc_a_np, enc_b_np))
+        if not cfg.sparse:
+            return enc_a, enc_b, None, None
+        return (enc_a, enc_b, CSRMatrix.from_dense(enc_a_np),
+                CSRMatrix.from_dense(enc_b_np))
+
+    def _predict_ctx(self, dealer, log: CommLog, device):
+        # the default dealer is domain-separated from the fit's streams:
+        # reusing cfg.seed would replay the fit's Beaver masks on
+        # overlapping shape-classes (mask reuse on two secrets leaks their
+        # difference)
+        if dealer is None:
+            dealer = TrustedDealer(seed=serve_seed(self.cfg.seed), log=log,
+                                   device=device)
+        return P.Ctx(dealer=dealer, log=log, tag="predict",
+                     backend=self.cfg.backend)
+
+    def _predict_eager(self, x_a, x_b, result, *, dealer,
+                       with_scores: bool) -> PredictResult:
+        t0 = time.perf_counter()
+        device = self._device()
+        enc_a, enc_b, csr_a, csr_b = self._encode_batch(x_a, x_b, device)
+        log = CommLog()
+        ctx = self._predict_ctx(dealer, log, device)
+        dist = self._distances(ctx, enc_a, enc_b, csr_a, csr_b,
+                               result.centroids)
+        scores = None
+        if with_scores:
+            c, vmin = P.argmin_onehot(ctx, dist, return_min=True)
+            # ||x - mu_c||^2 = ||x||^2 + (||mu_c||^2 - 2 x.mu_c): the first
+            # term is party-local plaintext (each owner encodes its slice's
+            # contribution into its share), the second the tournament's
+            # winning D' value
+            scores = P.add(vmin, self._norm_shares(x_a, x_b, device))
+        else:
+            c = P.argmin_onehot(ctx, dist)
+        _sync_stream(device)
+        return PredictResult(assignment=c, scores=scores, log=log,
+                             seconds=time.perf_counter() - t0, f=self.cfg.f)
+
+    # -- the program path, split into pipelineable phases ----------------- #
+    def predict_prepare(self, x_a, x_b, result: KMeansResult | None = None,
+                        *, dealer=None,
+                        with_scores: bool = False) -> PreparedPredict:
+        """Host phase of ONE scoring-program call: validate, encode and
+        upload, run the Protocol-2 exchange (computable from the centroid
+        shares alone), draw the offline tensors and stage the program's
+        arguments. `predict_launch` queues the kernels and `predict_collect`
+        assembles the PredictResult; prepare -> launch -> collect in
+        sequence IS the program path, and the scoring service overlaps
+        request t+1's prepare with request t's kernels — the same calls in
+        the same order per request, so the pipelined and sequential drains
+        give the same words. Nothing here waits for the device."""
+        cfg = self.cfg
+        x_a, x_b, result = self._check_predict_args(x_a, x_b, result)
+        if not self._runs_programs():
+            raise ValueError(
+                "predict_prepare stages the scoring program only; non-"
+                "default f or unvectorized configs must score through "
+                "predict/score (eager path)")
+        t0 = time.perf_counter()
+        device = self._device()
+        enc_a, enc_b, csr_a, csr_b = self._encode_batch(x_a, x_b, device)
+        log = CommLog()
+        ctx = self._predict_ctx(dealer, log, device)
+        mu = result.centroids
+        prog = KS.predict_program(cfg.partition, cfg.sparse, enc_a.shape,
+                                  enc_b.shape, cfg.k, with_scores=with_scores,
+                                  backend=ctx.backend, device=device)
+        _, comm = self._plan_predict_cached(x_a.shape, x_b.shape,
+                                            with_scores)
+        he1 = []
+        if cfg.sparse:
+            # scratch log: the call's shape-determined traffic, the
+            # exchange's included, is replayed from the plan at collect
+            he1 = self._s1_he_inputs(ctx.fork(tag="predict"), enc_a, enc_b,
+                                     csr_a, csr_b, mu)
+        flat = KS.materialize_offline(prog.requests, ctx.dealer)
+        return PreparedPredict(prog=prog,
+                               args=(enc_a, enc_b, mu.s0, mu.s1, *he1, *flat),
+                               log=log, comm=comm, with_scores=with_scores,
+                               x_a=x_a, x_b=x_b, t0=t0)
+
+    def predict_launch(self, prep: PreparedPredict):
+        """Run the staged scoring program: its kernels are queued on the
+        current stream and the output tensors come back at once."""
+        return prep.prog.fn(*prep.args)
+
+    def predict_collect(self, prep: PreparedPredict, outs) -> PredictResult:
+        """Assemble one call's outputs (waits for the device): assignment
+        shares, optional score shares (winning D' plus the local ||x||^2
+        encodings), replayed traffic."""
+        c = AShare(outs[0], outs[1])
+        scores = None
+        if prep.with_scores:
+            scores = P.add(AShare(outs[2], outs[3]),
+                           self._norm_shares(prep.x_a, prep.x_b,
+                                             outs[0].device))
+        prep.log.merge(prep.comm, phase="online")
+        _sync_stream(outs[0].device)
+        return PredictResult(assignment=c, scores=scores, log=prep.log,
+                             seconds=time.perf_counter() - prep.t0,
+                             f=self.cfg.f)
+
+    def _norm_shares(self, x_a, x_b, device) -> AShare:
+        """(m,) shares of ||x||^2 at scale f from party-local plaintext.
+        Vertical: A's columns land in s0, B's in s1. Horizontal: the owner
+        of each row holds its whole norm (A rows -> s0, B rows -> s1)."""
+        cfg = self.cfg
+        na = _encode_np((x_a ** 2).sum(1), cfg.f)
+        nb = _encode_np((x_b ** 2).sum(1), cfg.f)
+        if cfg.partition == "horizontal":
+            na, nb = (np.concatenate([na, np.zeros_like(nb)]),
+                      np.concatenate([np.zeros_like(na), nb]))
+        return AShare(ring.from_u64_numpy(na, device),
+                      ring.from_u64_numpy(nb, device))
+
+    # ------------------------------------------------------------------ #
+    def plan_predict(self, shape_a, shape_b,
+                     with_scores: bool = False) -> tuple:
+        """(bank_key, TriplePlan, CommLog) of ONE scoring call for
+        party-input batch shapes — without seeing any data. The plan is the
+        exact correlated-randomness schedule a `predict`/`score` call of
+        these shapes consumes (Protocol-2 mask seeds included); the key is
+        the predict-plan cache key, which `TripleBank.provision` takes as
+        the pool lookup key. Cached: a service scoring thousands of batches
+        traces each geometry once."""
+        key = self._predict_plan_key(shape_a, shape_b, with_scores)
+        plan, comm = self._plan_predict_cached(shape_a, shape_b, with_scores)
+        return key, plan, comm
+
+    def _predict_plan_key(self, shape_a, shape_b, with_scores) -> tuple:
+        return ("predict", bool(with_scores)) \
+            + self._plan_cache_key(shape_a, shape_b)
+
+    def _plan_predict_cached(self, shape_a, shape_b, with_scores):
+        return _cached_plan(
+            self._predict_plan_key(shape_a, shape_b, with_scores),
+            lambda: self._trace_predict(shape_a, shape_b, with_scores),
+            _PREDICT_PLAN_CACHE)
+
+    def _trace_predict(self, shape_a, shape_b, with_scores):
+        """Dry-run trace of one scoring call (distances + argmin) with a
+        PlanningDealer on zero-filled inputs on the config's device — the
+        predict counterpart of `_trace_iteration`."""
+        cfg = self.cfg
+        ctx, z, enc_a, enc_b, csr_a, csr_b = self._zero_trace(shape_a,
+                                                               shape_b)
+        ctx.tag = "predict"
+        d = enc_a.shape[1] + enc_b.shape[1] if cfg.partition == "vertical" \
+            else enc_a.shape[1]
+        mu = AShare(z((cfg.k, d)), z((cfg.k, d)))
+        dist = self._distances(ctx, enc_a, enc_b, csr_a, csr_b, mu)
+        P.argmin_onehot(ctx, dist, return_min=with_scores)
+        comm = CommLog()
+        comm.merge(ctx.log, phase="online")
+        return ctx.dealer.plan(), comm
+
+    def plan_fit(self, shape_a, shape_b) -> tuple:
+        """(bank_key, TriplePlan, CommLog) of a WHOLE fit for party-input
+        shapes — the fit-side counterpart of `plan_predict`. The plan is the
+        exact schedule `fit` consumes (full batch: the iteration plan
+        repeated `iters` times; minibatch: the slot plans in canonical
+        order), Protocol-2 mask seeds included; the key is the fit-plan
+        cache key extended with the loop geometry (iters, batch_size).
+        Provision a bank under the fit's `cfg.seed`, then call
+        `fit(..., dealer=bank.dealer(key))`: the fit does no generation
+        work and gives the built-in dealers' words. The CommLog is ONE
+        iteration's online traffic."""
+        cfg = self.cfg
+        key = self._fit_plan_key(shape_a, shape_b)
+        if cfg.batch_size is None:
+            iter_plan, iter_comm = self._plan_offline_iter(shape_a, shape_b)
+            return key, iter_plan.repeat(cfg.iters), iter_comm
+        _bounds, stage_plans, (fin_plan, fin_comm) = \
+            self._minibatch_slot_plans(shape_a, shape_b)
+        iter_reqs, iter_comm = [], CommLog()
+        for s1, c1, s3, c3 in stage_plans:
+            iter_reqs += list(s1.requests) + list(s3.requests)
+            iter_comm.merge(c1, phase="online")
+            iter_comm.merge(c3, phase="online")
+        iter_reqs += list(fin_plan.requests)
+        iter_comm.merge(fin_comm, phase="online")
+        return key, TriplePlan(iter_reqs * cfg.iters), iter_comm
+
+    def _fit_plan_key(self, shape_a, shape_b) -> tuple:
+        return ("fit", self.cfg.iters, self.cfg.batch_size) \
+            + self._plan_cache_key(shape_a, shape_b)
 
     # ------------------------------------------------------------------ #
     def plan_offline(self, shape_a, shape_b) -> TriplePlan:
@@ -965,6 +1323,19 @@ def _assemble_assignment(partition: str, c_parts: list,
     b0 = [p.s0[b["a_rows"]:] for p, b in zip(c_parts, batches)]
     b1 = [p.s1[b["a_rows"]:] for p, b in zip(c_parts, batches)]
     return AShare(torch.cat(a0 + b0, 0), torch.cat(a1 + b1, 0))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _sync_stream(device: torch.device) -> None:
+    """Wait for the current stream only: a scoring call's work is all
+    queued there (bank entries wait on their upload events), while a
+    `BankReplenisher` top-up may still be copying on the bank's stream."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 def _encode_np(x: np.ndarray, f: int) -> np.ndarray:

@@ -26,6 +26,12 @@ shares out as int64 tensors on their `device`. Provider flavours:
   acquired as a dealer view of its own, possibly ahead of lower slots;
   pregenerated (pooled) or generated on a worker within a window of slots
   (streamed), so peak residency is independent of n and iters.
+* `TripleBank` — a persistent store that serves many runs (fits, scoring
+  requests) from one provisioning pass, one FIFO of device views per
+  shape-class, with stock-out replenishment, a top-up daemon
+  (`BankReplenisher`), `save`/`load` in the JAX package's npz format, and
+  dealer views for a full-batch fit or a scoring call (`BankDealer`) and
+  for a minibatch fit (`BankSlotDealer`).
 
 OT-based generation is cost-modelled: per 64-bit scalar product the
 Gilboa/ABY protocol transfers l correlated OTs of (kappa + l)-bit strings per
@@ -556,8 +562,18 @@ def _request_shapes(kind: str, shape) -> list:
     return [tuple(shape)]                       # rand
 
 
+def _draws(rng, key: tuple, count: int):
+    """(first request, word arrays) chunks of `count` requests of a class,
+    drawn from `rng` in stacked draws of at most DRAW_WORDS words each."""
+    kind = key[0]
+    shape = key[1:] if kind == "matmul" else key[1]
+    chunk = max(1, DRAW_WORDS // _class_words(key))
+    for c0 in range(0, count, chunk):
+        yield c0, _gen_class(rng, kind, shape, min(chunk, count - c0))
+
+
 def _gen_tranche(rngs: dict, counts: dict, device,
-                 staging: _Staging | None = None) -> _Tranche:
+                 staging: _Staging | None = None, draws=None) -> _Tranche:
     """Generate one tranche from persistent per-class RNG streams: per
     class, stacked numpy draws and batched ring ops (`_gen_class`) of up to
     DRAW_WORDS words each, written into ONE tensor on `device` (through
@@ -566,8 +582,13 @@ def _gen_tranche(rngs: dict, counts: dict, device,
     exactly count * words-per-request words per call, the draws of
     consecutive tranches concatenate to the one draw of the whole fit. Seed
     classes stay on the host: their words seed host-side mask streams
-    (Protocol 2)."""
+    (Protocol 2). `draws(key, count)`, when given, supplies each class's
+    words as (first request, arrays) chunks in place of the draws from
+    `rngs` (a parallel provisioning, or a bank loaded from disk)."""
     device = torch.device(device)
+    if draws is None:
+        def draws(key, count):
+            return _draws(rngs[key], key, count)
     pools: dict[tuple, list] = {}
     nbytes = 0
     stacks = []
@@ -575,7 +596,8 @@ def _gen_tranche(rngs: dict, counts: dict, device,
         kind = key[0]
         shape = key[1:] if kind == "matmul" else key[1]
         if kind == "seed":
-            words = _gen_seed(rngs[key], shape, count)[0]
+            words = np.concatenate([a[0] for _, a in draws(key, count)]) \
+                if count else np.zeros(0, np.uint64)
             pools[key] = [(w,) for w in words]
             nbytes += 8 * count
             continue
@@ -587,10 +609,7 @@ def _gen_tranche(rngs: dict, counts: dict, device,
         for s, size in zip(shapes, sizes):
             parts.append(stack[off:off + count * size].view((count,) + s))
             off += count * size
-        chunk = max(1, DRAW_WORDS // _class_words(key))
-        for c0 in range(0, count, chunk):
-            arrays = _gen_class(rngs[key], kind, shape,
-                                min(chunk, count - c0))
+        for c0, arrays in draws(key, count):
             for words, part in zip(arrays, parts):
                 dst = part[c0:c0 + len(words)]
                 if staging is None:
@@ -1215,3 +1234,672 @@ class SlotDealer:
                 self._live_bytes -= tranche.nbytes
             self._ready.clear()
         self._staging = None
+
+
+# ---------------------------------------------------------------------------
+# TripleBank — persistent cross-fit pool: provision once, serve many
+# ---------------------------------------------------------------------------
+
+def _key_to_str(key: tuple) -> str:
+    return repr(tuple(key))
+
+
+def _key_from_str(s: str) -> tuple:
+    import ast
+    return tuple(ast.literal_eval(s))
+
+
+_SLOTS = {"matmul": 6, "mul": 6, "bin": 6, "rand": 1, "seed": 1}
+
+
+def _entry_bytes(entry: tuple) -> int:
+    """Bytes one served request holds, counted without touching the device
+    (a seed request is one host word)."""
+    return 8 * sum(a.numel() if isinstance(a, torch.Tensor) else 1
+                   for a in entry)
+
+
+def _provision_items(counts: dict, workers: int) -> list:
+    """Deterministic split of a bulk-generation request into `(class_key,
+    start, count)` chunks: whole classes, the heavy ones subdivided by word
+    volume so no worker idles behind one giant class. A pure function of
+    `(counts, workers)` — scheduling and completion order cannot influence
+    which words a chunk draws, because each chunk re-derives its stream
+    position from (class stream start, request offset) alone."""
+    total = sum(int(c) * _class_words(k) for k, c in counts.items())
+    target = max(1, -(-total // max(1, int(workers))))
+    items = []
+    for key in sorted(counts):
+        count = int(counts[key])
+        if count <= 0:
+            continue
+        wpr = _class_words(key)
+        nchunks = max(1, min(count, -(-(count * wpr) // target)))
+        base, extra = divmod(count, nchunks)
+        start = 0
+        for i in range(nchunks):
+            cnt = base + (1 if i < extra else 0)
+            items.append((key, start, cnt))
+            start += cnt
+    return items
+
+
+def _gen_provision_item(states: dict, item: tuple) -> tuple:
+    """The word arrays of one chunk, drawn from a PRIVATE clone of its class
+    stream advanced to the chunk's request offset. `ring.rand_np` draws
+    exactly `_class_words(key)` PCG64 words per request, so
+    advance(start * words) lands the clone on the words request `start` of
+    the serial stacked draw would consume: chunked generation concatenates
+    to the serial draw word for word."""
+    key, start, count = item
+    rng = np.random.default_rng(0)
+    rng.bit_generator.state = states[key]
+    if start:
+        rng.bit_generator.advance(int(start) * _class_words(key))
+    kind = key[0]
+    shape = key[1:] if kind == "matmul" else key[1]
+    return _gen_class(rng, kind, shape, count)
+
+
+def _run_provision_items(items: list, states: dict, workers: int) -> list:
+    """Run the chunks on a thread pool (numpy's draws and einsum release the
+    GIL); results come back in ITEM order whatever the completion order."""
+    with ThreadPoolExecutor(max_workers=int(workers)) as ex:
+        return list(ex.map(lambda it: _gen_provision_item(states, it), items))
+
+
+class _Shelved:
+    """A bank tranche as its queued entries see it: the consumer streams
+    that already waited on its upload and marked its tensors in use."""
+
+    def __init__(self, tranche: _Tranche):
+        self.tranche = tranche
+        self.taken: set = set()
+
+    def take(self, device) -> None:
+        """`_take` once per consumer stream."""
+        if self.tranche.ready is None:
+            return
+        sid = torch.cuda.current_stream(device).cuda_stream
+        if sid not in self.taken:
+            _take(self.tranche, device)
+            self.taken.add(sid)
+
+
+class TripleBank:
+    """A persistent correlated-randomness store serving MANY protocol runs
+    (fits, predict batches, scoring services) from one provisioning pass.
+
+    Structure: one FIFO queue of per-request word tuples per shape-class,
+    fed by the same per-class PCG64 streams as every dealer — so a freshly
+    provisioned bank serves the words of a same-seeded `TrustedDealer` for
+    any request sequence with matching per-class order. Plans are
+    registered under a lookup key (`SecureKMeans.plan_predict`'s or
+    `plan_fit`'s key) by `provision`; `dealer(key)` hands out a
+    `BankDealer` view that draws from the shared class queues.
+
+    The words live on `device`: each generation is one tranche
+    (`_gen_tranche`: a tensor per class, the entries views of it), uploaded
+    on the bank's own stream through pinned staging on a GPU. The first pop
+    from a tranche on a consumer stream makes that stream wait on the
+    upload's event and marks the tranche's tensors in use by it, so their
+    memory is reused only after the consumer's kernels ran. A popped entry
+    keeps its whole class tensor alive, so `pool_bytes` (unserved bytes) is
+    not the device memory held.
+
+    Exhaustion: an empty class is a stock-out, not corruption — with
+    `auto_replenish` the bank generates one more execution of the
+    requesting key's registered plan (the class streams simply advance)
+    and keeps serving; the stall is counted in `replenish_events` /
+    `replenish_seconds`, so a service can size its copies to keep
+    replenishment off the online path.
+
+    Persistence: `save`/`load` round-trip the unserved words and the
+    per-class stream positions through one npz archive, in the JAX
+    package's format, so a bank saved by either package loads in the other
+    and serves the same words.
+
+    Thread safety: a `BankReplenisher` daemon may top the bank up while
+    serving threads draw from it. `_gen_lock` serializes every per-class
+    STREAM advance (two generations from one snapshot would serve the same
+    mask words twice), `_lock` guards the queues and counters. Lock order
+    is `_gen_lock` → `_lock`; nothing takes `_gen_lock` while holding
+    `_lock`.
+    """
+
+    BANK_FORMAT = "repro.triplebank"
+    BANK_VERSION = 2
+
+    def __init__(self, seed: int = 0, auto_replenish: bool = True,
+                 log: CommLog | None = None, device="cuda"):
+        self.seed = int(seed)
+        self.auto_replenish = auto_replenish
+        self.log = log if log is not None else CommLog()
+        self.device = torch.device(device)
+        self._rngs: dict[tuple, np.random.Generator] = {}
+        self._queues: dict[tuple, list] = {}   # class key -> [(entry, shelf)]
+        self._plans: dict[tuple, TriplePlan] = {}
+        self._lock = threading.RLock()       # queues + counters
+        self._gen_lock = threading.RLock()   # per-class stream advance
+        self._stream = None                  # the upload stream (CUDA)
+        self._staging = None
+        self.modelled_ot_seconds = 0.0
+        self.gen_seconds = 0.0
+        self.replenish_seconds = 0.0
+        self.replenish_events = 0
+        self.pool_bytes = 0              # live (unserved) bytes
+        self.served_requests = 0
+        self.consumed_class: dict[tuple, int] = {}   # lifetime pops per class
+
+    # -- generation ------------------------------------------------------
+    def _shelve(self, counts: dict, draws=None) -> None:
+        """One tranche of `counts` requests per class onto the queues, words
+        from `draws` (default: the class streams). Caller holds
+        `_gen_lock`."""
+        if self.device.type == "cuda":
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+                self._staging = _Staging()
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self._stream):
+                tranche = _gen_tranche(self._rngs, counts, self.device,
+                                       self._staging, draws)
+        else:
+            tranche = _gen_tranche(self._rngs, counts, self.device,
+                                   None, draws)
+        shelf = _Shelved(tranche)
+        with self._lock:
+            for key, entries in tranche.pools.items():
+                self._queues.setdefault(key, []).extend(
+                    (e, shelf) for e in entries)
+            self.pool_bytes += tranche.nbytes
+
+    def _gen(self, counts: dict, workers: int = 1) -> None:
+        t0 = time.perf_counter()
+        with self._gen_lock:
+            for key in counts:
+                self._rngs.setdefault(key, _class_rng(self.seed, key))
+            if workers <= 1 or len(counts) == 0:
+                self._shelve(counts)
+            else:
+                items = _provision_items(counts, workers)
+                # chunks are offsets from the CURRENT stream positions
+                states = {key: self._rngs[key].bit_generator.state
+                          for key in counts}
+                results = _run_provision_items(items, states, workers)
+                chunks: dict[tuple, list] = {}
+                for (key, start, _cnt), arrays in zip(items, results):
+                    chunks.setdefault(key, []).append((start, arrays))
+                self._shelve(counts, lambda key, _count: chunks.get(key, []))
+                # master streams end exactly where one stacked draw would
+                for key, count in counts.items():
+                    self._rngs[key].bit_generator.advance(
+                        int(count) * _class_words(key))
+            self.gen_seconds += time.perf_counter() - t0
+
+    # -- provisioning ----------------------------------------------------
+    def provision(self, key, plan: TriplePlan, copies: int = 1,
+                  workers: int = 1) -> None:
+        """Register `plan` under the lookup `key` and generate `copies`
+        executions' worth of it into the class queues (stacked draws and
+        batched ring ops per class, like PooledDealer). Calling again with
+        the same key re-registers (a changed plan replaces the old one) and
+        tops the stock up.
+
+        `workers > 1` fans the generation out over a thread pool, split by
+        shape-class and, within a heavy class, by `advance`-offset chunks.
+        The words are those of the serial draw for ANY worker count and
+        completion order."""
+        key = tuple(key)
+        with self._lock:
+            self._plans[key] = TriplePlan(list(plan.requests))
+        if copies > 0:
+            counts = {ck: c * int(copies)
+                      for ck, c in plan.class_counts().items()}
+            self._gen(counts, workers=workers)
+            self.modelled_ot_seconds += _account_offline_plan(
+                plan.repeat(copies), self.log)
+
+    def keys(self) -> list:
+        with self._lock:
+            return list(self._plans)
+
+    def stock(self) -> dict:
+        """{class_key: unserved request count} across the whole bank."""
+        with self._lock:
+            return {k: len(q) for k, q in self._queues.items()}
+
+    def stock_copies(self, key) -> int:
+        """Complete executions of `key`'s registered plan in stock: the
+        min over its classes of shelf depth // per-execution count."""
+        key = tuple(key)
+        with self._lock:
+            counts = self._plans[key].class_counts()
+            if not counts:
+                return 0
+            return min(len(self._queues.get(ck, ())) // c
+                       for ck, c in counts.items())
+
+    def dealer(self, key, log: CommLog | None = None) -> "BankDealer":
+        key = tuple(key)
+        if key not in self._plans:
+            raise KeyError(f"TripleBank has no plan registered under "
+                           f"{key!r}; call provision() first")
+        return BankDealer(self, key, log=log)
+
+    # -- serving ---------------------------------------------------------
+    def _pop(self, class_key: tuple, plan_key: tuple) -> tuple:
+        while True:
+            with self._lock:
+                q = self._queues.get(class_key)
+                if q:
+                    out, shelf = q.pop(0)
+                    self.pool_bytes -= _entry_bytes(out)
+                    self.served_requests += 1
+                    self.consumed_class[class_key] = \
+                        self.consumed_class.get(class_key, 0) + 1
+                    break
+            # shelf empty: regenerate OUTSIDE the queue lock (generation is
+            # long), then retry — a racing daemon top-up may beat us to it
+            self._replenish(class_key, plan_key)
+        shelf.take(self.device)
+        return out
+
+    def _replenish(self, class_key: tuple, plan_key: tuple) -> None:
+        """Stock-out handling: regenerate the requesting key's whole plan
+        (keeping its classes aligned for the next request) — or, for a
+        class the plan never mentions, a single request. Raises
+        `PoolExhaustedError` only when replenishment is disabled.
+
+        Serialized on `_gen_lock` against daemon top-ups: by the time the
+        lock is held, a concurrent generation may already have restocked
+        the shelf — then the wait was the whole stall (counted, no event)
+        and no words are drawn."""
+        if not self.auto_replenish:
+            raise PoolExhaustedError(
+                f"TripleBank stock-out for {class_key}: provisioned pool "
+                "consumed and auto_replenish=False")
+        t0 = time.perf_counter()
+        with self._gen_lock:
+            with self._lock:
+                restocked = bool(self._queues.get(class_key))
+                plan = self._plans.get(tuple(plan_key))
+            if restocked:
+                self.replenish_seconds += time.perf_counter() - t0
+                return
+            if plan is not None and class_key in plan.class_counts():
+                self._gen(plan.class_counts())
+                self.modelled_ot_seconds += _account_offline_plan(
+                    plan, self.log)
+            else:
+                self._gen({class_key: 1})
+            self.replenish_events += 1
+            self.replenish_seconds += time.perf_counter() - t0
+
+    def consumed_counts(self) -> dict:
+        """Cumulative per-class consumed-request counts (a copy)."""
+        with self._lock:
+            return dict(self.consumed_class)
+
+    def discard(self, counts: dict) -> None:
+        """Pop and DROP `counts[class_key]` requests per class: a reloaded
+        bank skips the requests an earlier incarnation already served, so
+        no word is served twice (a class's served words are always the same
+        stream prefix, whenever and under whichever plan they were
+        generated)."""
+        for class_key in sorted(counts):
+            n = int(counts[class_key])
+            if n <= 0:
+                continue
+            with self._lock:
+                plan_key = next(
+                    (pk for pk, plan in self._plans.items()
+                     if class_key in plan.class_counts()), class_key)
+            for _ in range(n):
+                self._pop(class_key, plan_key)
+
+    # -- persistence -----------------------------------------------------
+    def save(self, path: str) -> None:
+        """One npz archive: per class, the unserved requests stacked per
+        tensor slot as uint64, plus a JSON manifest carrying the class keys,
+        stream positions, registered plans, a format marker and version,
+        and a CRC32 per array — so `load` can refuse a truncated,
+        bit-flipped or foreign file. The JAX package's format: either
+        package loads the other's file. The path is used verbatim."""
+        import json
+        import zlib
+        classes = []
+        arrays = {}
+        with self._gen_lock, self._lock:
+            # every class with a stream is saved, queued stock or not:
+            # stream position is state even when the shelf is empty
+            all_keys = set(self._rngs) | set(self._queues)
+            for i, key in enumerate(sorted(all_keys)):
+                q = self._queues.get(key, [])
+                rng = self._rngs.get(key) or _class_rng(self.seed, key)
+                for _entry, shelf in q:
+                    shelf.take(self.device)
+                for s in range(_SLOTS[key[0]]):
+                    if not q:
+                        continue
+                    if key[0] == "seed":
+                        arrays[f"c{i}_s{s}"] = np.array(
+                            [e[s] for e, _ in q], np.uint64)
+                    else:
+                        arrays[f"c{i}_s{s}"] = ring.to_u64_numpy(
+                            torch.stack([e[s] for e, _ in q]))
+                classes.append({"key": _key_to_str(key), "count": len(q),
+                                "rng_state": rng.bit_generator.state})
+            plans = {
+                _key_to_str(k): [[r.kind, list(r.shape) if r.kind != "matmul"
+                                  else [list(r.shape[0]), list(r.shape[1])],
+                                  r.tag] for r in plan.requests]
+                for k, plan in self._plans.items()}
+        checksums = {name: zlib.crc32(np.ascontiguousarray(a).tobytes())
+                     for name, a in arrays.items()}
+        manifest = {"format": self.BANK_FORMAT, "version": self.BANK_VERSION,
+                    "seed": self.seed, "classes": classes, "plans": plans,
+                    "checksums": checksums}
+        with open(path, "wb") as f:
+            np.savez(f, manifest=np.frombuffer(
+                json.dumps(manifest).encode(), np.uint8), **arrays)
+
+    @classmethod
+    def load(cls, path: str, auto_replenish: bool = True,
+             log: CommLog | None = None, device="cuda") -> "TripleBank":
+        """Load a `save`d bank (of either package) onto `device`, validating
+        format, version and per-array checksums. Any structural damage —
+        truncation, bit flips, a foreign npz, an unreadable manifest —
+        raises `ValueError` naming the problem. Each class's queue is
+        rebuilt as views of one tensor, as a generation builds it."""
+        import json
+        import zipfile
+        import zlib
+
+        def bad(reason: str) -> ValueError:
+            return ValueError(f"not a valid TripleBank file {path!r}: "
+                              f"{reason}")
+        try:
+            z = np.load(path)
+        except (zipfile.BadZipFile, OSError, EOFError, ValueError) as e:
+            raise bad(f"unreadable archive ({e})") from e
+        with z:
+            if "manifest" not in getattr(z, "files", ()):
+                raise bad("no manifest (foreign or pre-format npz)")
+            try:
+                manifest = json.loads(bytes(z["manifest"]).decode())
+            except (zipfile.BadZipFile, OSError, EOFError, KeyError,
+                    UnicodeDecodeError, json.JSONDecodeError,
+                    ValueError) as e:
+                raise bad(f"manifest unreadable ({e})") from e
+            if not isinstance(manifest, dict) \
+                    or manifest.get("format") != cls.BANK_FORMAT:
+                raise bad("manifest format marker missing or foreign")
+            if manifest.get("version") != cls.BANK_VERSION:
+                raise bad(f"format version {manifest.get('version')!r}, "
+                          f"expected {cls.BANK_VERSION}")
+            try:
+                checksums = manifest["checksums"]
+                expected_names = set(checksums)
+                stored = set(z.files) - {"manifest"}
+                if stored != expected_names:
+                    raise bad("archive arrays do not match the manifest "
+                              f"(missing {sorted(expected_names - stored)}, "
+                              f"unexpected {sorted(stored - expected_names)})")
+                loaded = {}
+                for name in sorted(expected_names):
+                    try:
+                        a = z[name]
+                    except (zipfile.BadZipFile, OSError, EOFError,
+                            ValueError) as e:
+                        raise bad(f"array {name!r} unreadable — truncated "
+                                  f"archive? ({e})") from e
+                    crc = zlib.crc32(np.ascontiguousarray(a).tobytes())
+                    if crc != int(checksums[name]):
+                        raise bad(f"checksum mismatch on array {name!r} "
+                                  "(bit rot or tampering)")
+                    loaded[name] = a
+                bank = cls(seed=manifest["seed"],
+                           auto_replenish=auto_replenish, log=log,
+                           device=device)
+                counts, words = {}, {}
+                for i, entry in enumerate(manifest["classes"]):
+                    key = _key_from_str(entry["key"])
+                    rng = np.random.default_rng(0)
+                    rng.bit_generator.state = entry["rng_state"]
+                    bank._rngs[key] = rng
+                    count = int(entry["count"])
+                    if count:
+                        slots = [np.asarray(loaded[f"c{i}_s{s}"], np.uint64)
+                                 for s in range(_SLOTS[key[0]])]
+                        if any(a.shape[0] != count for a in slots):
+                            raise bad(f"class {entry['key']} declares "
+                                      f"{count} requests but arrays "
+                                      "disagree")
+                        counts[key] = count
+                        words[key] = [(0, slots)]
+                plans_raw = manifest["plans"]
+            except ValueError:
+                raise
+            except (KeyError, IndexError, TypeError, SyntaxError) as e:
+                raise bad(f"malformed manifest structure ({e})") from e
+        with bank._gen_lock:
+            bank._shelve(counts, lambda key, _count: words[key])
+        for kstr, reqs in plans_raw.items():
+            reqs = [PlanRequest(kind,
+                                (tuple(shape[0]), tuple(shape[1]))
+                                if kind == "matmul" else tuple(shape), tag)
+                    for kind, shape, tag in reqs]
+            bank._plans[_key_from_str(kstr)] = TriplePlan(reqs)
+        return bank
+
+
+class BankReplenisher:
+    """Standing top-up daemon for a `TripleBank`: a background thread that
+    watches per-plan stock and regenerates BEFORE the hot path runs dry.
+
+    Policy: whenever a registered plan key's complete-execution stock
+    (`bank.stock_copies`) falls to `low_water` or below, provision enough
+    copies to restore `high_water`. Generation runs on this thread under
+    the bank's `_gen_lock` (on the bank's upload stream on a GPU), so a
+    top-up can never fork a class stream against a hot-path replenish, and
+    since every class FIFO is only ever extended with its own stream's next
+    words, the words SERVED are those of a purely synchronous bank however
+    daemon and hot-path generation interleave. If the daemon falls behind,
+    `TripleBank._pop` still replenishes synchronously.
+
+    A generation failure is recorded (`errors`, `last_error`) and the
+    daemon keeps polling."""
+
+    def __init__(self, bank: TripleBank, *, low_water: int = 1,
+                 high_water: int | None = None, poll_s: float = 0.002,
+                 workers: int = 1, keys=None):
+        self.bank = bank
+        self.low_water = max(0, int(low_water))
+        self.high_water = int(high_water) if high_water is not None \
+            else max(self.low_water + 1, 2 * self.low_water)
+        if self.high_water <= self.low_water:
+            raise ValueError(
+                f"high_water ({self.high_water}) must exceed low_water "
+                f"({self.low_water}) or the daemon top-up never gains stock")
+        self.poll_s = float(poll_s)
+        self.workers = int(workers)
+        self._keys = None if keys is None else [tuple(k) for k in keys]
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self.topups = 0                 # top-up passes that generated
+        self.topup_copies = 0           # plan executions generated
+        self.topup_seconds = 0.0        # daemon-side generation wall
+        self.errors = 0
+        self.last_error: BaseException | None = None
+
+    def poll_once(self) -> int:
+        """Scan every watched key; top up those at or below the low-water
+        mark. Returns the number of plan copies generated."""
+        made = 0
+        keys = self._keys if self._keys is not None else self.bank.keys()
+        for key in keys:
+            if self._stop.is_set():
+                break
+            with self.bank._lock:
+                plan = self.bank._plans.get(tuple(key))
+            if plan is None:
+                continue
+            have = self.bank.stock_copies(key)
+            if have > self.low_water:
+                continue
+            need = self.high_water - have
+            t0 = time.perf_counter()
+            self.bank.provision(key, plan, copies=need, workers=self.workers)
+            self.topup_seconds += time.perf_counter() - t0
+            self.topups += 1
+            self.topup_copies += need
+            made += need
+        return made
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self.poll_once()
+            except Exception as e:        # noqa: BLE001 — the daemon lives on
+                self.errors += 1
+                self.last_error = e
+            self._stop.wait(self.poll_s)
+
+    def start(self) -> "BankReplenisher":
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._loop, name="bank-replenisher", daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def __enter__(self) -> "BankReplenisher":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
+class BankDealer(_TripleServing):
+    """Dealer view over a `TripleBank` for one plan key — the interface of
+    `TrustedDealer` (same methods and counters), so it drops into
+    `SecureKMeans.predict(..., dealer=...)`, `fit(dealer=...)` and
+    `materialize_offline`. `dealer_seconds` counts only the replenishment
+    stalls met while THIS view was serving (online time); provisioned
+    generation stays on the bank's offline clock."""
+
+    def __init__(self, bank: TripleBank, key: tuple,
+                 log: CommLog | None = None):
+        self.bank = bank
+        self.key = tuple(key)
+        self.log = log if log is not None else CommLog()
+        self.device = bank.device
+        self.dealer_seconds = 0.0
+        self.modelled_ot_seconds = 0.0
+        self.n_matmul = 0
+        self.n_mul = 0
+        self.n_bin = 0
+
+    def _next(self, kind: str, shape) -> tuple:
+        r0 = self.bank.replenish_seconds
+        out = self.bank._pop(_class_key(kind, shape), self.key)
+        self.dealer_seconds += self.bank.replenish_seconds - r0
+        return out
+
+    def skip(self, plan, reps: int = 1) -> None:
+        """Drain `reps` executions of `plan` without serving them: realigns
+        the bank's queues past the requests an earlier run consumed."""
+        for _ in range(int(reps)):
+            for r in plan.requests:
+                self.bank._pop(_class_key(r.kind, r.shape), self.key)
+
+
+class BankSlotDealer:
+    """`SlotDealer`'s interface over a provisioned `TripleBank` for the
+    minibatch fit: every slot's entries are popped from the bank's class
+    queues in canonical slot order at construction. The pipelined executor
+    may `acquire` slots ahead of consumption; since the bank's queue
+    positions were fixed at provisioning and this view drains every slot
+    before the loop starts, acquisition order never changes a served word.
+
+    Word for word `SlotDealer(slot_plans, seed)` when the bank was
+    provisioned under the same seed with the concatenated slot plans (the
+    bank's draw per class is the SlotDealer's per-class concatenation in
+    canonical order)."""
+
+    def __init__(self, bank: TripleBank, key: tuple, slot_plans,
+                 log: CommLog | None = None):
+        t0 = time.perf_counter()
+        self.bank = bank
+        self.key = tuple(key)
+        self.slot_plans = [TriplePlan(list(p.requests)) for p in slot_plans]
+        self.log = log if log is not None else CommLog()
+        self.device = bank.device
+        self.n_matmul = 0
+        self.n_mul = 0
+        self.n_bin = 0
+        self.gen_seconds = 0.0
+        self.wait_seconds = 0.0
+        # provisioning's modelled OT cost lives on the bank's offline books
+        self.modelled_ot_seconds = 0.0
+        self._counts = [p.class_counts() for p in self.slot_plans]
+        self._totals = [len(p) for p in self.slot_plans]
+        self._served_class: dict[tuple, int] = {}
+        self._acquired: set[int] = set()
+        self._slots: list[tuple] = []
+        self.pool_bytes = 0
+        for plan in self.slot_plans:
+            pools: dict[tuple, list] = {}
+            nbytes = 0
+            for r in plan.requests:
+                ck = _class_key(r.kind, r.shape)
+                out = bank._pop(ck, self.key)
+                pools.setdefault(ck, []).append(out)
+                nbytes += _entry_bytes(out)
+            self._slots.append((pools, nbytes))
+            self.pool_bytes += nbytes
+        # the pin (pops and any replenish stall) is offline dealer time
+        self.dealer_seconds = time.perf_counter() - t0
+
+    def acquire(self, i: int) -> _SlotView:
+        if not 0 <= i < len(self.slot_plans):
+            raise IndexError(f"slot {i} out of range "
+                             f"({len(self.slot_plans)} slots planned)")
+        if i in self._acquired:
+            raise PoolExhaustedError(
+                f"slot {i} was already acquired: each slot serves its "
+                "plan exactly once")
+        self._acquired.add(i)
+        pools, nbytes = self._slots[i]
+        self._slots[i] = (None, nbytes)          # the view owns the entries
+        view = _SlotView(self, i, pools, self._counts[i], self._totals[i],
+                         nbytes)
+        if self._totals[i] == 0:                 # empty slot: nothing to serve
+            self._release(i, nbytes)
+        return view
+
+    def _release(self, i: int, nbytes: int) -> None:
+        for key, c in self._counts[i].items():
+            self._served_class[key] = self._served_class.get(key, 0) + c
+
+    def remaining(self) -> dict:
+        total: dict[tuple, int] = {}
+        for counts in self._counts:
+            for key, c in counts.items():
+                total[key] = total.get(key, 0) + c
+        return {key: c - self._served_class.get(key, 0)
+                for key, c in total.items()}
+
+    def close(self) -> None:
+        self._slots = [(None, nb) for _pools, nb in self._slots]

@@ -26,7 +26,8 @@ parameterized by a `FitGeometry`; `fit_programs` records the pair's
 schedules once per (geometry, backend, device) and caches it. Minibatch
 Lloyd splits S3 in two: `fit_batch_programs` pairs S1 with the S3 head
 (the running sums) per batch geometry, and `finalize_program` runs the S3
-tail once an iteration on the accumulated sums. PyTorch runs
+tail once an iteration on the accumulated sums. `predict_program` is the S1
+body alone, scoring a new batch against a fitted model. PyTorch runs
 the bodies eagerly: a program is a plain function that launches the ring
 backend's kernels, with no ahead-of-time compilation.
 """
@@ -191,9 +192,12 @@ def _split_he(flat, shapes):
 # Program bodies — ONE implementation per online stage, all combos
 # ---------------------------------------------------------------------------
 
-def _s1_body(ctx, geo: FitGeometry, xa, xb, mu: AShare, he):
+def _s1_body(ctx, geo: FitGeometry, xa, xb, mu: AShare, he,
+             return_min: bool = False):
     """S1: vectorized distances D' = U - 2 X mu^T + tournament argmin, up to
-    the Protocol-2 boundary. Returns the (n, k) assignment shares.
+    the Protocol-2 boundary. Returns the (n, k) assignment shares (plus,
+    with return_min, the (n,) share of the winning D' value — the scoring
+    path's distance to the assigned centroid, free from the tournament).
 
     he=None -> dense: the joint public-x-share blocks are Beaver matmuls
     consuming pool triples inside the program.
@@ -230,7 +234,7 @@ def _s1_body(ctx, geo: FitGeometry, xa, xb, mu: AShare, he):
         xmu = AShare(torch.cat([loc_a + j_a.s0, j_b.s0], 0),
                      torch.cat([j_a.s1, loc_b + j_b.s1], 0))
     d2 = P.sub(AShare(u.s0[None, :], u.s1[None, :]), P.lshift(xmu, 1))
-    return P.argmin_onehot(ctx, P.trunc(d2, ring.F))
+    return P.argmin_onehot(ctx, P.trunc(d2, ring.F), return_min=return_min)
 
 
 def _s3_partial_body(ctx, geo: FitGeometry, xa, xb, c: AShare, he):
@@ -552,8 +556,104 @@ def finalize_program(k: int, d: int, n: int, backend="cuda",
     return prog
 
 
+# ---------------------------------------------------------------------------
+# predict_program — the S1 body alone, scoring new batches against a model
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PredictGeometry:
+    """Shapes of one secure-scoring batch against a fitted (k, d) model.
+    Vertical: both parties hold the same batch rows' column slices,
+    shape_a = (m, d_a), shape_b = (m, d_b). Horizontal: each party owns
+    whole arrival rows, shape_a = (m_a, d), shape_b = (m_b, d); outputs are
+    ordered [A rows; B rows]. Hashable — it keys the program cache."""
+
+    partition: str
+    sparse: bool
+    shape_a: tuple
+    shape_b: tuple
+    k: int
+    with_scores: bool = False
+
+    def fit_geometry(self) -> FitGeometry:
+        """A predict batch is a fit geometry with the batch rows in place
+        of the training rows (validation included)."""
+        return FitGeometry(self.partition, self.sparse,
+                           self.shape_a, self.shape_b, self.k)
+
+
+class PredictProgram(NamedTuple):
+    """One batched scoring call plus the offline schedule it consumes. Per
+    request:
+
+        he1  = host Protocol-2 on the centroid shares          (sparse only)
+        outs = fn(xa, xb, mu0, mu1, *he1, *flat)
+        (c0, c1) = outs[:2]; (v0, v1) = outs[2:]               (with_scores)
+
+    where flat = materialize_offline(requests, dealer). The min-distance
+    shares v are D'(x, mu_c) = ||mu_c||^2 - 2 x.mu_c at scale f; the caller
+    adds the party-local ||x||^2 shares to get the squared distance
+    (core/kmeans.SecureKMeans.score)."""
+
+    geo: PredictGeometry
+    fn: Any
+    requests: list
+
+
+_PREDICT_PROGRAM_CACHE: dict[tuple, PredictProgram] = {}
+
+
+def predict_program(partition: str, sparse: bool, shape_a, shape_b, k: int,
+                    with_scores: bool = False, backend="cuda",
+                    device="cuda") -> PredictProgram:
+    """Build (or fetch from the cross-request cache) the scoring program of
+    one batch geometry — the S1 body of `fit_programs`, its schedule
+    recorded by running the body once on zeros on `device`. Dense combos
+    consume pool triples inside the program; sparse combos take the
+    Protocol-2 joint products (computable from the centroid shares alone,
+    so the host runs the exchange before the call) as share inputs.
+    Hardcodes f = ring.F."""
+    device = torch.device(device)
+    ring_backend = get_backend(backend, device)
+    geo = PredictGeometry(partition, bool(sparse),
+                          tuple(int(s) for s in shape_a),
+                          tuple(int(s) for s in shape_b), int(k),
+                          bool(with_scores))
+    key = (geo, ring_backend.name, str(device))
+    hit = _PREDICT_PROGRAM_CACHE.get(key)
+    if hit is not None:
+        return hit
+
+    fgeo = geo.fit_geometry()
+
+    def ctx_over(dealer):
+        return P.Ctx(dealer=dealer, log=CommLog(), backend=ring_backend)
+
+    rec = RecordingDealer(device)
+    _s1_body(ctx_over(rec), fgeo, _zeros(geo.shape_a, device),
+             _zeros(geo.shape_b, device),
+             AShare(_zeros((k, fgeo.d), device), _zeros((k, fgeo.d), device)),
+             _zero_he(fgeo.he_shapes_s1(), device), return_min=with_scores)
+
+    def fn(xa, xb, mu0, mu1, *rest):
+        he, flat = _split_he(rest, fgeo.he_shapes_s1())
+        ctx = ctx_over(ListDealer(flat, mu0.device))
+        out = _s1_body(ctx, fgeo, xa, xb, AShare(mu0, mu1), he,
+                       return_min=with_scores)
+        if with_scores:
+            c, v = out
+            return c.s0, c.s1, v.s0, v.s1
+        return out.s0, out.s1
+
+    prog = PredictProgram(geo, fn, list(rec.requests))
+    _PREDICT_PROGRAM_CACHE[key] = prog
+    return prog
+
+
 def clear_program_cache() -> None:
-    """Empty the full-batch, the batch and the finalize program caches."""
+    """Empty the full-batch, the batch, the finalize and the predict
+    program caches."""
     _PROGRAM_CACHE.clear()
+    _PREDICT_PROGRAM_CACHE.clear()
     _BATCH_PROGRAM_CACHE.clear()
     _FINALIZE_CACHE.clear()

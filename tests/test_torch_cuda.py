@@ -695,3 +695,201 @@ def test_minibatch_gpu_fit_equals_cpu_fit(cuda, partition, sparse, offline):
             assert g.log.by_tag(phase) == c.log.by_tag(phase)
         assert g.he_seconds == c.he_seconds
         assert all(v == 0 for v in g.dealer.remaining().values())
+
+
+# ---------------------------------------------------------------------------
+# secure scoring, the TripleBank and the ScoringService on the card
+# ---------------------------------------------------------------------------
+
+def _bank_words(bank) -> dict:
+    return {k: [tuple(a.cpu() if torch.is_tensor(a) else a for a in e)
+                for e, _shelf in q] for k, q in bank._queues.items()}
+
+
+def _assert_same_bank(got, want) -> None:
+    g, w = _bank_words(got), _bank_words(want)
+    assert g.keys() == w.keys()
+    for ck in w:
+        assert len(g[ck]) == len(w[ck])
+        for eg, ew in zip(g[ck], w[ck]):
+            for a, b in zip(eg, ew):
+                assert (torch.equal(a, b) if torch.is_tensor(a)
+                        else int(a) == int(b))
+    assert got.pool_bytes == want.pool_bytes
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+@pytest.mark.parametrize("stage_words", [7, None])
+def test_bank_on_the_card_equals_the_cpu_bank(cuda, monkeypatch, tmp_path,
+                                              stage_words, workers):
+    """A bank provisioned on the card (its own upload stream, pinned
+    staging of 7 words or the default) holds the CPU bank's words, for any
+    worker count; a card bank's file loads on the CPU and a CPU bank's on
+    the card, with the same words."""
+    from repro_torch.core import triples as T
+    if stage_words is not None:
+        monkeypatch.setattr(T, "STAGE_WORDS", stage_words)
+        monkeypatch.setattr(T, "DRAW_WORDS", 3 * stage_words)
+    plan = T.TriplePlan([T.PlanRequest("matmul", ((50, 3), (3, 2)), "t"),
+                         T.PlanRequest("mul", (40, 3), "t"),
+                         T.PlanRequest("bin", (9,), "t"),
+                         T.PlanRequest("rand", (33,), "t"),
+                         T.PlanRequest("seed", (), "t")])
+    gpu = T.TripleBank(seed=8, device=cuda)
+    gpu.provision(("k",), plan, copies=3, workers=workers)
+    cpu = T.TripleBank(seed=8, device="cpu")
+    cpu.provision(("k",), plan, copies=3)
+    _assert_same_bank(gpu, cpu)
+    gpu.save(str(tmp_path / "gpu"))
+    cpu.save(str(tmp_path / "cpu"))
+    _assert_same_bank(T.TripleBank.load(str(tmp_path / "gpu"), device="cpu"),
+                      cpu)
+    _assert_same_bank(T.TripleBank.load(str(tmp_path / "cpu"), device=cuda),
+                      cpu)
+
+
+def test_bank_pop_waits_for_the_upload_stream(cuda):
+    """Entries popped from tranches uploaded on the bank's stream while the
+    current stream is busy carry the CPU bank's words: the current stream
+    waits on each tranche's upload before its kernels read them, and a
+    served tranche's memory is reused only after those kernels ran."""
+    from repro_torch.core import triples as T
+    plan = T.TriplePlan([T.PlanRequest("mul", (512, 512), "t")])
+    gpu = T.TripleBank(seed=9, device=cuda)
+    cpu = T.TripleBank(seed=9, device="cpu")
+    gpu.provision(("k",), plan, copies=1)
+    cpu.provision(("k",), plan, copies=1)
+    sums, want = [], []
+    for _ in range(6):                  # 1 provisioned, then replenishes
+        torch.cuda._sleep(2_000_000)
+        t = gpu.dealer(("k",)).mul_triple((512, 512))
+        sums.append(torch.stack([w for share in t for w in share]).sum(0))
+        del t
+        c = cpu.dealer(("k",)).mul_triple((512, 512))
+        want.append(torch.stack([w for share in c for w in share]).sum(0))
+    torch.cuda.synchronize()
+    for s, w in zip(sums, want):
+        assert torch.equal(s.cpu(), w)
+    assert gpu.replenish_events == cpu.replenish_events == 5
+
+
+@pytest.mark.parametrize("batch_size", [None, 36], ids=["full", "minibatch"])
+@pytest.mark.parametrize("partition", ["vertical", "horizontal"])
+def test_bank_fed_gpu_fit_equals_cpu_fit(cuda, partition, batch_size):
+    """plan_fit -> a bank on the card -> fit(dealer=bank.dealer(key)) gives
+    the CPU bank-fed fit's words, counters and traffic, and the pooled
+    GPU fit's shares."""
+    from repro_torch.core.triples import TripleBank
+    x = RNG.normal(size=(96, 8)) + RNG.integers(0, 3, (96, 1)) * 4.0
+    a, b = (x[:, :4], x[:, 4:]) if partition == "vertical" else (x[:40], x[40:])
+    common = dict(k=3, iters=2, partition=partition, seed=2,
+                  offline="pooled", batch_size=batch_size)
+    fits = {}
+    for dev, extra in ((cuda, {}), ("cpu", dict(backend="torch",
+                                                device="cpu"))):
+        km = SecureKMeans(KMeansConfig(**common, **extra))
+        key, plan, _ = km.plan_fit(a.shape, b.shape)
+        bank = TripleBank(seed=2, device=dev)
+        bank.provision(key, plan, workers=2)
+        fits[str(dev)] = km.fit(a, b, dealer=bank.dealer(key))
+        assert bank.served_requests == len(plan)
+    g, c = fits[str(cuda)], fits["cpu"]
+    pooled = SecureKMeans(KMeansConfig(**common)).fit(a, b)
+    for field in ("centroids", "assignment"):
+        for i in (0, 1):
+            assert torch.equal(getattr(g, field)[i].cpu(),
+                               getattr(c, field)[i])
+            assert torch.equal(getattr(g, field)[i],
+                               getattr(pooled, field)[i])
+    for attr in ("n_matmul", "n_mul", "n_bin"):
+        assert getattr(g.dealer, attr) == getattr(c.dealer, attr)
+    for phase in ("online", "offline"):
+        assert g.log.by_tag(phase) == c.log.by_tag(phase)
+
+
+def _fitted_pair(partition, sparse):
+    """A CPU fit and the port model on the card over the same shares."""
+    from repro_torch.core.interop import (result_from_reference,
+                                          shares_to_numpy)
+    x = RNG.normal(size=(96, 8)) + RNG.integers(0, 3, (96, 1)) * 4.0
+    if sparse:
+        x *= RNG.random(x.shape) >= 0.7
+    a, b = (x[:, :4], x[:, 4:]) if partition == "vertical" else (x[:48], x[48:])
+    common = dict(k=3, iters=2, partition=partition, seed=2, sparse=sparse)
+    cpu = SecureKMeans(KMeansConfig(backend="torch", device="cpu", **common))
+    res = cpu.fit(a, b)
+    gpu = SecureKMeans(KMeansConfig(**common))
+    gpu.result_ = result_from_reference(
+        {f: shares_to_numpy(getattr(res, f))
+         for f in ("centroids", "assignment")}, device="cuda")
+    return cpu, gpu
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+@pytest.mark.parametrize("partition", ["vertical", "horizontal"])
+def test_gpu_score_equals_cpu_score(cuda, partition, sparse):
+    """`score` and `predict` on the card, as the scoring program and
+    eagerly, give the CPU's share words and traffic; sparse scoring
+    launches spmm_ell."""
+    from repro_torch.core.triples import TrustedDealer
+    cpu, gpu = _fitted_pair(partition, sparse)
+    q = RNG.normal(size=(40, 8)) + RNG.integers(0, 3, (40, 1)) * 4.0
+    if sparse:
+        q *= RNG.random(q.shape) >= 0.7
+    qa, qb = (q[:, :4], q[:, 4:]) if partition == "vertical" \
+        else (q[:15], q[15:])
+    for method in ("score", "predict"):
+        for compiled in (True, False):
+            before = spmm.LAUNCHES
+            g = getattr(gpu, method)(qa, qb, compiled=compiled,
+                                     dealer=TrustedDealer(seed=7,
+                                                          device=cuda))
+            c = getattr(cpu, method)(qa, qb, compiled=compiled,
+                                     dealer=TrustedDealer(seed=7))
+            fields = ("assignment", "scores") if method == "score" \
+                else ("assignment",)
+            for field in fields:
+                for i in (0, 1):
+                    assert torch.equal(getattr(g, field)[i].cpu(),
+                                       getattr(c, field)[i])
+            assert g.log.by_tag("online") == c.log.by_tag("online")
+            assert (spmm.LAUNCHES > before) == sparse
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_gpu_service_with_replenisher_equals_cpu_service(cuda, sparse):
+    """A service on the card whose bank a BankReplenisher tops up while the
+    drains run (pipeline on and off) answers with the words of a CPU
+    service whose bank only replenishes synchronously."""
+    from repro_torch.serve import ScoringService
+    cpu, gpu = _fitted_pair("vertical", sparse)
+    sizes = RNG.poisson(12, 30)
+    batches = []
+    for m in sizes:
+        q = RNG.normal(size=(int(m) + 1, 8)) + 4.0 * RNG.integers(0, 3, (1, 1))
+        if sparse:
+            q *= RNG.random(q.shape) >= 0.7
+        batches.append((q[:, :4], q[:, 4:]))
+    kw = dict(rungs=(8, 32), d_a=4, d_b=4, provision_copies=1)
+    for pipeline in (True, False):
+        svc_c = ScoringService(cpu, pipeline=pipeline, **kw)
+        svc_g = ScoringService(gpu, pipeline=pipeline,
+                               replenisher={"low_water": 2,
+                                            "poll_s": 0.0005}, **kw)
+        assert svc_g.bank.device.type == "cuda"
+        for svc in (svc_c, svc_g):
+            for qa, qb in batches[:15]:
+                svc.submit(qa, qb)
+        out_c, out_g = svc_c.drain(), svc_g.drain()
+        for svc in (svc_c, svc_g):
+            for qa, qb in batches[15:]:
+                svc.submit(qa, qb)
+        out_c += svc_c.drain()
+        out_g += svc_g.drain()
+        svc_g.close()
+        assert svc_g.replenisher.errors == 0
+        assert svc_g.replenisher.topups >= 1
+        for a, b in zip(out_g, out_c):
+            assert a.error is None and b.error is None
+            np.testing.assert_array_equal(a.labels, b.labels)
+            np.testing.assert_array_equal(a.scores, b.scores)

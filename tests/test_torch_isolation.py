@@ -30,7 +30,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.kernels.spmm", "repro_torch.kernels.ops",
               "repro_torch.kernels.ref", "repro_torch.kernels.esd",
               "repro_torch.kernels.argmin", "repro_torch.launch.kmeans_step",
-              "repro_torch.launch.pipeline"):
+              "repro_torch.launch.pipeline", "repro_torch.serve.service",
+              "repro_torch.core.fraud", "repro_torch.core.normalize"):
         assert m in mods
     code = (
         "import importlib, sys\n"

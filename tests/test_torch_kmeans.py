@@ -186,7 +186,7 @@ def test_minibatch_on_demand_raises_the_reference_error(offline):
     assert errors[0] == errors[1]
 
 
-@pytest.mark.parametrize("arg", ["dealer", "wire", "checkpoint"])
+@pytest.mark.parametrize("arg", ["wire", "checkpoint"])
 def test_later_slice_fit_args_raise(arg):
     x = _blobs(8, 4, 2, seed=0)
     km = SecureKMeans(KMeansConfig(k=2, backend="torch", device="cpu"))
