@@ -74,6 +74,30 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      packing seconds printed); 6e the fraud pipeline at n=100,000
      (`run_secure_fraud`, pooled), the secure Jaccard within 0.05 of the
      plaintext joint one;
+  7. (run after 6, before 5) durability and the wire, each path with the
+     launch counters read around it: 7a `python -m repro_torch.launch.
+     two_party` at n=100,000, d=42 (21 + 21), k=5, 10 iterations, seed 5:
+     party A on the card, party B a CPU wire peer over TCP on 127.0.0.1;
+     A's words, dealer counters and CommLog per tag and phase equal the
+     in-process fit's on the card, the wire's payload bytes and rounds
+     equal the CommLog's online traffic, B never initialized CUDA, and A's
+     loop launched what the in-process loop did; 7b A with
+     `--offline pooled --checkpoint-dir D --die-at-iter 4` exits with
+     KILL_EXIT_CODE, and a resumed A against a fresh B, under 1 % drops,
+     duplicates and corruption each way with keyed frames, ends with the
+     words of an uninterrupted pooled fit on the card, its loop launching
+     6 iterations' kernels; 7c phase 4c's sparse minibatch fit (pipeline
+     off) with a checkpoint after every batch, stopped from `after_save`
+     after its 6th published step (mid-iteration) and resumed, equal to
+     phase 4c's sequential fit, the two runs' loops launching what it
+     launched; 7d a `ScoringServer` (a process of its own, this script with
+     `--scoring-server`) in front of a `ScoringService` of phase 6's model
+     with a `ServeCheckpointer`, 200 Poisson(48)-row requests (seed 11)
+     from a `ScoringClient` through a `FaultyTransport` (keyed), the server
+     killed after its 100th journaled response and restarted on the same
+     port: every response equals an uninterrupted in-process service's,
+     each rid scored once, the bank's consumed counts equal; it prints
+     each part's seconds, traffic, restart seconds and retries;
   5. drives the kernel API (`repro_torch.kernels.ops`) the same way, with
      the launch counters set to 0 just before and read just after:
      plaintext Lloyd iterations (esd -> argmin_onehot -> C^T x through
@@ -86,10 +110,10 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      PyTorch call for the same function where there is one; spmm_ell also
      at the drive's own C^T x (the one-hot of an iteration's argmin_onehot,
      packed as spmm_from_dense packs it, times x at each width);
-  7. prints one JSON line of per-kernel launches (the fit path's, and for
-     the fit kernels the scoring path's as `scoring_launches`), times and
-     bounds, the nvidia-smi line, and finally {"ok": true, "device":
-     {...}}.
+  8. prints one JSON line of per-kernel launches (the fit path's, and for
+     the fit kernels the scoring path's as `scoring_launches` and phase
+     7's as `durability_launches`), times and bounds, the nvidia-smi line,
+     and finally {"ok": true, "device": {...}}.
 
 Phases 2 and 3 cover the sparse slice too: `spmm_ell` against its plain
 version at both main-path shapes and at odd ones, and the sparse GPU fit
@@ -112,6 +136,10 @@ version first, for the repro_torch package under DIR (default: this
 checkout's src/), and prints one JSON line.
 Run on two trees in one call, in turns (A, B, B, A), it compares their
 kernels on one card.
+
+    python3 chip_smoke.py --scoring-server DIR PORT DIE_AFTER
+
+is phase 7d's scoring server process; the smoke starts it itself.
 """
 from __future__ import annotations
 
@@ -1486,9 +1514,10 @@ def pipeline_turns(tag: str, cfg, x, da: int):
     `ring.upload`, favours neither): each held word for word to the first,
     whose kernels must all have been launched by its loop and whose labels
     must agree >= 0.98 with plaintext K-means. Returns (the first fit's
-    record, its loop launches, the four online seconds)."""
+    record, its loop launches, the four online seconds, the first
+    sequential fit's record)."""
     import dataclasses
-    first = launches = None
+    first = launches = sequential = None
     online = []
     for pipeline in (True, False, False, True):
         res, loop, _ = minibatch_fit(
@@ -1506,6 +1535,8 @@ def pipeline_turns(tag: str, cfg, x, da: int):
             # in another order (as the JAX package does)
             same_fit(f"{tag}) pipeline={pipeline} vs the first fit", res,
                      first, he_rel=1e-12)
+            if sequential is None:
+                sequential = fit_record(res)
         del res
     for name, count in launches.items():
         if count <= 0 and (cfg.sparse or name != "spmm_ell"):
@@ -1515,17 +1546,18 @@ def pipeline_turns(tag: str, cfg, x, da: int):
           f"online_seconds in turns pipelined {online[0]:.3f}, sequential "
           f"{online[1]:.3f}, sequential {online[2]:.3f}, pipelined "
           f"{online[3]:.3f}", flush=True)
-    return first, launches, online
+    return first, launches, online, sequential
 
 
-def phase_minibatch_main_path(full_per_iter: dict, full_pooled) -> None:
+def phase_minibatch_main_path(full_per_iter: dict, full_pooled) -> tuple:
     """Phase 4c: minibatch Lloyd through the user's entry point at the
     widths of phases 4 and 4b. Dense: batch_size 25,000 pooled with
     pipeline on, off, off, on (identical), batch_size = n (equal to phase 4's
     pooled fit, with its per-iteration launches), streamed (equal to
     pooled, peak pool under the residency bound), and streamed at n =
     400,000 (3 iterations) under the same bound. Sparse: batch_size 25,000
-    pooled with pipeline on, off, off, on (identical)."""
+    pooled with pipeline on, off, off, on (identical). Returns the sparse
+    sequential fit's record and its loop launches (phase 7c's reference)."""
     import dataclasses
     from repro_torch.core.kmeans import KMeansConfig
     x = _blobs(np.random.default_rng(SEED + 7), N, DA + DB, K)
@@ -1533,7 +1565,7 @@ def phase_minibatch_main_path(full_per_iter: dict, full_pooled) -> None:
     cfg = KMeansConfig(k=K, iters=ITERS, partition="vertical", seed=SEED,
                        offline="pooled", batch_size=MB_BATCH)
     tag = f"dense minibatch (vertical, n={N}, d={DA}+{DB}, k={K}"
-    pipe_rec, _, _ = pipeline_turns(tag, cfg, x, DA)
+    pipe_rec, _, _, _ = pipeline_turns(tag, cfg, x, DA)
     one, launches, _ = minibatch_fit(
         f"{tag}, batch_size = n, pooled)",
         dataclasses.replace(cfg, batch_size=N), xa, xb)
@@ -1591,8 +1623,10 @@ def phase_minibatch_main_path(full_per_iter: dict, full_pooled) -> None:
     cfg = KMeansConfig(k=SP_K, iters=SP_ITERS, partition="vertical",
                        seed=SP_SEED, sparse=True, offline="pooled",
                        batch_size=MB_BATCH)
-    pipeline_turns(f"sparse minibatch (vertical, n={SP_N}, d={SP_DA}+"
-                   f"{SP_DB}, k={SP_K}", cfg, x, SP_DA)
+    _, launches, _, sequential = pipeline_turns(
+        f"sparse minibatch (vertical, n={SP_N}, d={SP_DA}+{SP_DB}, k={SP_K}",
+        cfg, x, SP_DA)
+    return sequential, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2041,6 +2075,564 @@ def phase_scoring(full_per_iter: dict, full_pooled, sp_pooled) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: checkpointed and resumed fits, the two-party wire, crash-safe
+# scoring
+# ---------------------------------------------------------------------------
+
+# 7a/7b: `python -m repro_torch.launch.two_party` at the fraud deployment's
+# width (d = 42 split 21 + 21 by the launcher, k = 5, 10 iterations)
+TP_N, TP_D, TP_K, TP_ITERS, TP_SEED = 100_000, 42, 5, 10, 5
+TP_DIE_AT = 4               # 7b: A dies after this iteration's checkpoint
+TP_KEY = "phase-7b"         # 7b: keyed frames
+TP_FAULTS = ("--fault-drop", "0.01", "--fault-dup", "0.01",
+             "--fault-corrupt", "0.01")
+CK_STOP_AFTER = 6           # 7c: published steps before the stop
+SV_REQUESTS = 200           # 7d: Poisson(48)-row requests over the wire
+SV_CRASH_AT = 100           # 7d: the server dies after this many journaled
+SV_COPIES = 16              # 7d: provisioned calls per rung
+SV_KEY = "phase-7d"
+PHASE7_DIR = ROOT / "build" / "phase7"     # ignored; removed at the end
+
+
+class _SmokeStop(Exception):
+    """Raised from a checkpointer's after_save seam: the fit stops there."""
+
+
+def _src_env(src: pathlib.Path) -> dict:
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(src) + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+    return env
+
+
+def _two_party(src: pathlib.Path, args_a: list, args_b: list = (),
+               b_wait: float = 120.0) -> dict:
+    """Party A (`--device cuda`) and party B as two processes over TCP on
+    127.0.0.1. Returns their exit codes and outputs and A's wall seconds;
+    B is stopped once A has exited and `b_wait` has passed."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.two_party"]
+    env = _src_env(src)
+    t0 = time.perf_counter()
+    a = subprocess.Popen(cmd + ["--role", "A", "--port", "0", "--device",
+                                "cuda", *args_a], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, env=env)
+    b = None
+    try:
+        line = a.stdout.readline()
+        if not line.startswith("LISTENING "):
+            fail(f"party A did not listen: {line}{a.stdout.read()}")
+        b = subprocess.Popen(cmd + ["--role", "B", "--port",
+                                    line.split()[1], *args_b],
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True, env=env)
+        a_out = line + a.communicate(timeout=600)[0]
+        wall = time.perf_counter() - t0
+        try:
+            b_out = b.communicate(timeout=b_wait)[0]
+        except subprocess.TimeoutExpired:
+            b.kill()
+            b_out = b.communicate()[0]
+    finally:
+        for p in (a, b):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+    return {"rc_a": a.returncode, "a": a_out, "rc_b": b.returncode,
+            "b": b_out, "wall": wall}
+
+
+def _wire_stats(out: str, role: str) -> dict:
+    for line in out.splitlines():
+        if line.startswith("WIRE_STATS "):
+            d = json.loads(line[len("WIRE_STATS "):])
+            if d.get("role") == role:
+                return d
+    fail(f"party {role} printed no WIRE_STATS line:\n{out[-2000:]}")
+
+
+def _party_out(path: pathlib.Path) -> tuple:
+    z = np.load(path)
+    return {k: z[k] for k in z.files if k != "meta"}, \
+        json.loads(bytes(z["meta"]))
+
+
+def _same_out(label: str, out: dict, meta: dict, want) -> None:
+    """Fail unless a two-party `--out` holds `want`'s fit words, dealer
+    counters and traffic per tag and phase."""
+    from repro_torch.core import ring
+    for key, share in (("mu0", want.centroids.s0), ("mu1", want.centroids.s1),
+                       ("c0", want.assignment.s0), ("c1", want.assignment.s1)):
+        if not np.array_equal(out[key], ring.to_u64_numpy(share)):
+            fail(f"{label}: {key} words differ")
+    d = want.dealer
+    counters = {a: int(getattr(d, a)) for a in ("n_matmul", "n_mul", "n_bin")}
+    if meta["counters"] != counters:
+        fail(f"{label}: dealer counters {meta['counters']} vs {counters}")
+    for phase in ("online", "offline"):
+        tags = {t: [int(v[0]), int(v[1])]
+                for t, v in want.log.by_tag(phase).items()}
+        if meta[f"fit_{phase}"] != tags:
+            fail(f"{label}: {phase} CommLog {meta[f'fit_{phase}']} vs {tags}")
+    if meta["iters_run"] != want.iters_run:
+        fail(f"{label}: {meta['iters_run']} iterations vs {want.iters_run}")
+
+
+def phase_two_party(src: pathlib.Path) -> dict:
+    """7a: the fit between two processes over TCP, A on the card and B a
+    wire peer on the CPU, held word for word to the in-process fit on the
+    card; the wire's payload equals the CommLog's online traffic; B never
+    initialized CUDA; A's loop launched what the in-process loop did.
+    7b: A killed after iteration 4's checkpoint, then resumed against a
+    fresh B under seeded drops, duplicates and corruption with keyed
+    frames: the words of an uninterrupted pooled fit. Returns the launches
+    of A's two fits (7a's and 7b's resumed)."""
+    import dataclasses
+    from repro_torch.checkpoint.fit import FitCheckpointer
+    from repro_torch.core import faultpoints
+    from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+    from repro_torch.launch import kmeans_step as KS
+    from repro_torch.launch import two_party
+    x = two_party.make_data(TP_N, TP_D, TP_K, TP_SEED)
+    xa, xb = two_party.split_data(x, "vertical")
+    tag = (f"(vertical, n={TP_N}, d={xa.shape[1]}+{xb.shape[1]}, k={TP_K}, "
+           f"{TP_ITERS} iters, seed {TP_SEED})")
+    cfg = KMeansConfig(k=TP_K, iters=TP_ITERS, seed=TP_SEED,
+                       partition="vertical")
+    _cold_caches()
+    _zero_launch_counters()
+    ref = SecureKMeans(cfg).fit(xa, xb)
+    ref_launches = _launch_counters()
+    ref_rec = fit_record(ref)
+    online_b = ref.log.total_bytes("online")
+    online_r = ref.log.total_rounds("online")
+    del ref
+    common = ["--n", str(TP_N), "--d", str(TP_D), "--k", str(TP_K),
+              "--iters", str(TP_ITERS), "--seed", str(TP_SEED)]
+
+    # 7a
+    out = PHASE7_DIR / "7a.npz"
+    run = _two_party(src, common + ["--out", str(out)])
+    if run["rc_a"] != 0 or run["rc_b"] != 0:
+        fail(f"7a: party A exit {run['rc_a']}, B {run['rc_b']}:\n"
+             f"{run['a'][-3000:]}\n{run['b'][-3000:]}")
+    words, meta = _party_out(out)
+    _same_out("7a two-party fit vs the in-process fit", words, meta, ref_rec)
+    b_stats = _wire_stats(run["b"], "B")
+    if b_stats["cuda_initialized"]:
+        fail("7a: party B initialized CUDA")
+    if (meta["fit_wire_payload_bytes"], meta["fit_wire_rounds"]) \
+            != (online_b, online_r):
+        fail(f"7a: the wire carried {meta['fit_wire_payload_bytes']} B in "
+             f"{meta['fit_wire_rounds']} rounds, the CommLog's online "
+             f"traffic is {online_b} B in {online_r} rounds")
+    if meta["fit_launches"] != ref_launches:
+        fail(f"7a: A's fit launched {meta['fit_launches']}, the in-process "
+             f"fit {ref_launches}")
+    per_iter = {n: v / TP_ITERS for n, v in ref_launches.items()}
+    frames = meta["wire_bytes_sent"] + meta["wire_bytes_recv"]
+    print(f"7a two-party fit {tag}: A on the card, B a CPU wire peer "
+          f"(CUDA never initialized); equal to the in-process fit word for "
+          f"word (shares, dealer counters, CommLog per tag and phase); A's "
+          f"wall {run['wall']:.3f} s, fit {meta['fit_seconds']:.3f} s; the "
+          f"fit's online traffic {online_b / 2 ** 20:.2f} MB in {online_r} "
+          f"rounds = the wire's payload; frames A->B "
+          f"{meta['wire_bytes_sent']} B, B->A {meta['wire_bytes_recv']} B "
+          f"(the fit, B's slice and a predict); the fit's payload at "
+          f"{online_b / 2 ** 20 / meta['fit_seconds']:.1f} MB/s, all "
+          f"frames {frames / 2 ** 20 / meta['fit_seconds']:.1f} MB/s over "
+          f"the fit's seconds; kernels per iteration {per_iter} = the "
+          f"in-process fit's; retries {meta['retries']}", flush=True)
+
+    # 7b
+    ck = PHASE7_DIR / "7b_ck"
+    pooled = common + ["--offline", "pooled", "--checkpoint-dir", str(ck)]
+    die = _two_party(src, pooled + ["--die-at-iter", str(TP_DIE_AT)],
+                     b_wait=0.5)
+    if die["rc_a"] != faultpoints.KILL_EXIT_CODE or "DYING" not in die["a"]:
+        fail(f"7b: party A exit {die['rc_a']}, want "
+             f"{faultpoints.KILL_EXIT_CODE} after DYING:\n{die['a'][-3000:]}")
+    steps = FitCheckpointer(str(ck)).all_steps()
+    if not steps or steps[-1] != TP_DIE_AT * 1_000_000:
+        fail(f"7b: published steps {steps}, want the last at iteration "
+             f"{TP_DIE_AT}")
+    out = PHASE7_DIR / "7b.npz"
+    run = _two_party(src, pooled + ["--resume", "--out", str(out),
+                                    "--auth-key", TP_KEY, *TP_FAULTS],
+                     ["--auth-key", TP_KEY, "--fault-seed", "1",
+                      *TP_FAULTS])
+    if run["rc_a"] != 0 or run["rc_b"] != 0:
+        fail(f"7b: resumed party A exit {run['rc_a']}, B {run['rc_b']}:\n"
+             f"{run['a'][-3000:]}\n{run['b'][-3000:]}")
+    pcfg = dataclasses.replace(cfg, offline="pooled")
+    _cold_caches()
+    full = SecureKMeans(pcfg).fit(xa, xb)
+    same_fit(f"7b uninterrupted pooled fit {tag} vs on demand", full,
+             ref_rec)
+    full_rec = fit_record(full)
+    del full
+    torch.cuda.empty_cache()
+    words, rmeta = _party_out(out)
+    _same_out("7b resumed two-party fit vs the uninterrupted pooled fit",
+              words, rmeta, full_rec)
+    words_7a = _party_out(PHASE7_DIR / "7a.npz")[0]
+    for key in ("mu0", "mu1", "c0", "c1"):
+        if not np.array_equal(words[key], words_7a[key]):
+            fail(f"7b: {key} differs from 7a's")
+    # the resumed A planned (trace and program recording) from cold caches
+    _cold_caches()
+    _zero_launch_counters()
+    SecureKMeans(pcfg).plan_offline(xa.shape, xb.shape)
+    KS.fit_programs("vertical", False, xa.shape, xb.shape, TP_K,
+                    backend=pcfg.backend, device=pcfg.device)
+    torch.cuda.synchronize()
+    planning = _launch_counters()
+    _cold_caches()
+    loop = {n: rmeta["fit_launches"][n] - planning[n] for n in planning}
+    want = {n: v * (TP_ITERS - TP_DIE_AT) for n, v in per_iter.items()}
+    if loop != want:
+        fail(f"7b: the resumed loop launched {loop}, {TP_ITERS - TP_DIE_AT} "
+             f"iterations of the uninterrupted loop are {want}")
+    bs = _wire_stats(run["b"], "B")
+    print(f"7b kill and resume {tag}: A died after iteration {TP_DIE_AT}'s "
+          f"checkpoint (exit {die['rc_a']}, A's wall {die['wall']:.3f} s); "
+          f"resumed against a fresh B under drops, duplicates and "
+          f"corruption of 1 % each way with keyed frames, it ends equal "
+          f"word for word to an uninterrupted pooled fit on the card (and "
+          f"to 7a); the resumed A's wall {run['wall']:.3f} s, fit "
+          f"{rmeta['fit_seconds']:.3f} s, of which the dealer's restart "
+          f"(planning and the pool regenerated past iteration {TP_DIE_AT}) "
+          f"{rmeta['offline_dealer_seconds']:.3f} s (plan "
+          f"{rmeta['offline_plan_seconds']:.3f} s); A's retries "
+          f"{rmeta['retries']}, B served {bs['served']} requests; the "
+          f"resumed loop launched {loop} = {TP_ITERS - TP_DIE_AT} "
+          f"iterations of the uninterrupted loop (planning {planning})",
+          flush=True)
+    return {n: meta["fit_launches"][n] + rmeta["fit_launches"][n]
+            for n in planning}
+
+
+def phase_resume_sparse_minibatch(want, want_launches: dict) -> dict:
+    """7c: phase 4c's sparse minibatch fit (sequential executor) with a
+    checkpoint after every batch, stopped from `after_save` after its 6th
+    published step, mid-iteration; resumed, it ends with the uninterrupted
+    fit's words, counters and traffic, and the two runs' loops launch what
+    the uninterrupted loop did. Returns the two runs' launches."""
+    import shutil
+    from repro_torch.checkpoint.fit import FitCheckpointer
+    from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+    x = _one_hot_like(np.random.default_rng(SP_SEED + 7), SP_N,
+                      SP_DA + SP_DB, SP_K, SP_SPARSITY)
+    xa, xb = x[:, :SP_DA], x[:, SP_DA:]
+    cfg = KMeansConfig(k=SP_K, iters=SP_ITERS, partition="vertical",
+                       seed=SP_SEED, sparse=True, offline="pooled",
+                       batch_size=MB_BATCH, pipeline=False)
+    tag = (f"(vertical, n={SP_N}, d={SP_DA}+{SP_DB}, k={SP_K}, batch "
+           f"{MB_BATCH}, pooled, pipeline=False)")
+    planning = _minibatch_planning_launches(cfg, xa.shape, xb.shape)
+    d = PHASE7_DIR / "7c_ck"
+    shutil.rmtree(d, ignore_errors=True)
+    saved = []
+
+    def stop(state, _path):
+        saved.append(state.step)
+        if len(saved) == CK_STOP_AFTER:
+            raise _SmokeStop
+
+    _cold_caches()
+    _zero_launch_counters()
+    t0 = time.perf_counter()
+    try:
+        SecureKMeans(cfg).fit(xa, xb, checkpoint=FitCheckpointer(
+            str(d), every=1, batch_every=1, after_save=stop))
+        fail("7c: the fit did not stop")
+    except _SmokeStop:
+        pass
+    killed_s = time.perf_counter() - t0
+    killed = {n: v - planning[n] for n, v in _launch_counters().items()}
+    cut = saved[-1]
+    if cut % 1_000_000 == 0:
+        fail(f"7c: the stop at step {cut} is not mid-iteration")
+    _cold_caches()
+    _zero_launch_counters()
+    t0 = time.perf_counter()
+    res = SecureKMeans(cfg).fit(xa, xb, checkpoint=FitCheckpointer(str(d)),
+                                resume=True)
+    resumed_s = time.perf_counter() - t0
+    resumed = {n: v - planning[n] for n, v in _launch_counters().items()}
+    # neither package's checkpoint holds he_seconds: the resumed fit counts
+    # the exchanges it ran (held to the JAX package's resume in the tests)
+    same_fit(f"7c resumed sparse minibatch fit {tag} vs uninterrupted", res,
+             want, he_rel=float("inf"))
+    if not 0.0 < res.he_seconds < want.he_seconds:
+        fail(f"7c: resumed he_seconds {res.he_seconds!r}, uninterrupted "
+             f"{want.he_seconds!r}")
+    both = {n: killed[n] + resumed[n] for n in killed}
+    if both != want_launches:
+        fail(f"7c: the stopped and the resumed loop launched {killed} + "
+             f"{resumed}, the uninterrupted loop {want_launches}")
+    print(f"7c mid-iteration resume {tag}: stopped after published step "
+          f"{cut} (iteration {cut // 1_000_000}, batch {cut % 1_000_000}; "
+          f"steps {saved}); the resumed fit equals the uninterrupted one "
+          f"word for word (shares, dealer counters, CommLog per tag and "
+          f"phase); stopped run {killed_s:.3f} s, resumed run "
+          f"{resumed_s:.3f} s (loop {res.loop_seconds:.3f} s); he_seconds "
+          f"of the resumed run's exchanges {res.he_seconds:.3f} of "
+          f"{want.he_seconds:.3f}; loops launched {killed} + {resumed} = "
+          f"the uninterrupted loop's {want_launches}", flush=True)
+    return both
+
+
+def _start_server(src: pathlib.Path, d: pathlib.Path, port: int,
+                  die_after: int) -> tuple:
+    """Start phase 7d's scoring server process; returns (process, its
+    SERVING line's dict, seconds from spawn to serving)."""
+    t0 = time.perf_counter()
+    p = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--scoring-server",
+         str(d), str(port), str(die_after), "--src", str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=_src_env(src))
+    lines = []
+    for line in p.stdout:
+        lines.append(line)
+        if line.startswith("SERVING "):
+            info = json.loads(line[len("SERVING "):])
+            return p, info, time.perf_counter() - t0
+    p.wait()
+    fail(f"7d: the scoring server exited {p.returncode} before serving:\n"
+         + "".join(lines)[-3000:])
+
+
+def _finish(p, timeout: float = 120.0) -> str:
+    try:
+        return p.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        fail("7d: the scoring server did not exit")
+
+
+def _json_after(out: str, prefix: str) -> dict:
+    for line in out.splitlines():
+        if line.startswith(prefix):
+            return json.loads(line[len(prefix):])
+    fail(f"7d: no {prefix.strip()} line in:\n{out[-3000:]}")
+
+
+def phase_serve_crash(src: pathlib.Path, model) -> dict:
+    """7d: a `ScoringServer` on a `SocketTransport`, in front of a
+    `ScoringService` of phase 6's dense model (ladder 32, 128, 512) with a
+    `ServeCheckpointer`, in a process of its own on the card. A
+    `ScoringClient` sends 200 Poisson(48)-row requests (seed 11) through a
+    `FaultyTransport` (seeded drop, dup and corrupt; keyed frames). The
+    server dies (os._exit) after its 100th journaled response; a new one
+    starts from the same checkpoint directory on the same port, and the
+    client's retries of the same rid finish the run. Every response equals
+    an uninterrupted in-process service's, no rid is scored twice, and the
+    bank's consumed counts end as the uninterrupted run's. Returns the two
+    servers' launches."""
+    import dataclasses
+    import shutil
+    from repro_torch.checkpoint.serve import ServeCheckpointer
+    from repro_torch.core import channel as C
+    from repro_torch.core import faultpoints, ring
+    from repro_torch.serve import ScoringClient, ScoringService
+    d = PHASE7_DIR / "7d"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    np.savez(d / "model.npz",
+             **{f"{f[0]}{i}": ring.to_u64_numpy(getattr(model, f)[i])
+                for f in ("centroids", "assignment") for i in (0, 1)})
+    x = _blobs(np.random.default_rng(SEED + 7), N, DA + DB, K)
+    reqs = _requests(np.random.default_rng(SC_SEED), x, SV_REQUESTS)
+    rows = sum(len(r) for r in reqs)
+    del x
+    km = _model_on_card(dict(k=K, iters=ITERS, partition="vertical",
+                             seed=SEED), model)
+    ref_svc = ScoringService(km, km.result_, d_a=DA, d_b=DB, rungs=SC_RUNGS,
+                             provision_copies=SV_COPIES)
+    ref = {}
+    for q in reqs:                 # the wire server's schedule: one at a time
+        ref_svc.submit(q[:, :DA], q[:, DA:])
+        ref.update({r.request_id: r for r in ref_svc.drain()})
+    ref_consumed = ref_svc.bank.consumed_counts()
+    ref_svc.close()
+    del ref_svc
+    torch.cuda.empty_cache()
+
+    first, info1, spawn1 = _start_server(src, d, 0, SV_CRASH_AT)
+    second = None
+    port = info1["port"]
+    t = C.SocketTransport("connect", port=port, io_timeout_s=10.0,
+                          connect_retries=3)
+    ft = C.FaultyTransport(t, seed=SC_SEED, drop=0.01, dup=0.01,
+                           corrupt=0.01)
+    client = ScoringClient(ft, auth_key=C.session_key(SV_KEY),
+                           deadline_s=20.0, max_retries=5, waves=2,
+                           retry_wait_s=0.2)
+    got = {}
+    t_crash = outage = None   # the last answer before the crash; the gap
+    try:                      # from it to the first answer after
+        t0 = t_ok = time.perf_counter()
+        for i, q in enumerate(reqs):
+            while True:
+                try:
+                    got[i] = client.score(q[:, :DA], q[:, DA:], rid=i)
+                    break
+                except C.WireError as e:
+                    if second is not None:
+                        fail(f"7d: request {i} failed after the restart: {e}")
+                    out1 = _finish(first)
+                    if first.returncode != faultpoints.KILL_EXIT_CODE:
+                        fail(f"7d: the first server exited "
+                             f"{first.returncode}:\n{out1[-3000:]}")
+                    second, info2, spawn2 = _start_server(src, d, port, 0)
+                    t_crash = t_ok
+            t_ok = time.perf_counter()
+            if t_crash is not None and outage is None:
+                outage = t_ok - t_crash
+        wall = time.perf_counter() - t0
+        client.bye()
+        out2 = _finish(second) if second is not None else ""
+    finally:
+        ft.close()
+        for p in (first, second):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+    if second is None:
+        fail("7d: the first server never died")
+    if second.returncode != 0:
+        fail(f"7d: the restarted server exited {second.returncode}:\n"
+             f"{out2[-3000:]}")
+    dying = _json_after(out1, "DYING ")
+    stats2 = _json_after(out2, "SERVER_STATS ")
+    for rid, r in ref.items():
+        g = got[rid]
+        if g.error is not None or g.rows != r.rows \
+                or not np.array_equal(g.labels, r.labels) \
+                or not np.array_equal(g.scores, r.scores):
+            fail(f"7d: request {rid} differs from the uninterrupted service")
+    journal, consumed = ServeCheckpointer(str(d / "serve")).load_journal()
+    if sorted(journal) != list(range(SV_REQUESTS)):
+        fail(f"7d: the journal holds {len(journal)} responses")
+    if dying["requests"] != SV_CRASH_AT \
+            or stats2["requests"] != SV_REQUESTS - SV_CRASH_AT \
+            or stats2["replays"] < 1:
+        fail(f"7d: the first server scored {dying['requests']}, the second "
+             f"{stats2['requests']} (replays {stats2['replays']}): a rid "
+             f"was scored twice or not at all")
+    if consumed != ref_consumed:
+        fail(f"7d: the bank consumed {consumed}, the uninterrupted service "
+             f"{ref_consumed}")
+    deduped = dying["dedup_replays"] + stats2["dedup_replays"]
+    print(f"7d scoring over the wire with a crash (vertical, d={DA}+{DB}, "
+          f"k={K}, ladder {SC_RUNGS}, {SV_REQUESTS} requests of "
+          f"Poisson({SC_MEAN_ROWS}) rows, {rows} rows, seed {SC_SEED}; "
+          f"client frames dropped, duplicated and corrupted 1 % each, "
+          f"keyed): the server died after its {SV_CRASH_AT}th journaled "
+          f"response and a new one took the port; every response equals "
+          f"the uninterrupted in-process service's, each rid scored once "
+          f"({dying['requests']} + {stats2['requests']}, "
+          f"{stats2['replays']} replayed from the journal), the bank's "
+          f"consumed counts equal; {rows / wall:.0f} rows/s over the wire "
+          f"({wall:.3f} s, {rows / (wall - outage):.0f} rows/s without the "
+          f"{outage:.3f} s outage); restart: process start to serving "
+          f"{spawn2:.3f} s, of which bank load, realignment and warm "
+          f"{info2['start_seconds']:.3f} s (first start {spawn1:.3f} s, "
+          f"provisioning and warm {info1['start_seconds']:.3f} s); client "
+          f"retries {client.chan.retries}, waves {client.wave_retries}, "
+          f"reconnects {client.chan.reconnects}; faults "
+          f"{dataclasses.asdict(ft.faults)}; duplicates deduped by the "
+          f"servers {deduped}, corrupt frames dropped "
+          f"{dying['crc_drops'] + stats2['crc_drops']}", flush=True)
+    return {n: dying["launches"][n] + stats2["launches"][n]
+            for n in stats2["launches"]}
+
+
+def scoring_server(argv: list) -> None:
+    """`--scoring-server DIR PORT DIE_AFTER [--src SRC]`: phase 7d's server
+    process. Serves phase 6's dense model (DIR/model.npz) through a
+    `ScoringServer` on 127.0.0.1:PORT (0: any free port) with a
+    `ServeCheckpointer` in DIR/serve; with DIE_AFTER > 0 it exits with
+    KILL_EXIT_CODE right after that many journaled responses. Prints
+    `SERVING {json}` once ready and `SERVER_STATS {json}` after the
+    client's BYE."""
+    import os
+    d, port, die_after = pathlib.Path(argv[0]), int(argv[1]), int(argv[2])
+    t0 = time.perf_counter()
+    from repro_torch.checkpoint.serve import ServeCheckpointer
+    from repro_torch.core import channel as C
+    from repro_torch.core import faultpoints
+    from repro_torch.core.interop import result_from_reference
+    from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+    from repro_torch.serve import ScoringServer, ScoringService
+    z = np.load(d / "model.npz")
+    km = SecureKMeans(KMeansConfig(k=K, iters=ITERS, partition="vertical",
+                                   seed=SEED))
+    km.result_ = result_from_reference(
+        {"centroids": (z["c0"], z["c1"]), "assignment": (z["a0"], z["a1"])},
+        device="cuda")
+    held = {}
+
+    def stats() -> dict:
+        svc, server = held["svc"], held.get("server")
+        r = server.responder if server is not None else None
+        return {"requests": svc.stats.requests,
+                "replays": server.replays if server is not None else 0,
+                "dedup_replays": r.dedup_replays if r else 0,
+                "crc_drops": r.crc_drops if r else 0,
+                "launches": _launch_counters()}
+
+    def die(total: int, _path) -> None:
+        if die_after and total >= die_after:
+            print("DYING " + json.dumps(stats()), flush=True)
+            os._exit(faultpoints.KILL_EXIT_CODE)
+
+    ck = ServeCheckpointer(str(d / "serve"), after_record=die)
+    restarted = ck.has_bank()
+    t1 = time.perf_counter()
+    svc = held["svc"] = ScoringService(
+        km, km.result_, d_a=DA, d_b=DB, rungs=SC_RUNGS,
+        provision_copies=SV_COPIES, checkpointer=ck)
+    svc.warm()
+    torch.cuda.synchronize()
+    start_s = time.perf_counter() - t1
+    t = C.SocketTransport("listen", port=port, io_timeout_s=60.0)
+    server = held["server"] = ScoringServer(
+        svc, t, auth_key=C.session_key(SV_KEY), idle_timeout_s=120.0)
+    _zero_launch_counters()
+    print("SERVING " + json.dumps({
+        "port": t.port, "restarted": restarted, "start_seconds": start_s,
+        "process_seconds": time.perf_counter() - t0}), flush=True)
+    server.serve_forever()
+    t.close()
+    print("SERVER_STATS " + json.dumps(stats()), flush=True)
+
+
+def phase_durability(src: pathlib.Path, model, sp_seq,
+                     sp_seq_launches: dict) -> dict:
+    """Phase 7 (7a-7d). Returns the launches per fit kernel of its paths:
+    the two-party fits' (7a, 7b's resumed run), 7c's stopped and resumed
+    runs and the 7d servers'."""
+    import shutil
+    shutil.rmtree(PHASE7_DIR, ignore_errors=True)
+    PHASE7_DIR.mkdir(parents=True)
+    try:
+        out = phase_two_party(src)
+        for part in (phase_resume_sparse_minibatch(sp_seq, sp_seq_launches),
+                     phase_serve_crash(src, model)):
+            for name, v in part.items():
+                out[name] += v
+    finally:
+        shutil.rmtree(PHASE7_DIR, ignore_errors=True)
+    print(f"phase 7 launches (7a and 7b's A, 7c, 7d's servers): {out}",
+          flush=True)
+    return out
+
+
 def kernel_times(src: pathlib.Path, smi_line: str) -> None:
     """`--kernel-times`: ring_matmul at the dense and sparse fits' own
     layouts, esd beside addmm + norms at the phase-5 shapes, and spmm_ell
@@ -2095,6 +2687,10 @@ def main() -> None:
         import repro_torch  # noqa: F401
     except ImportError as exc:
         fail(f"cannot import repro_torch from {src}: {exc}")
+    if "--scoring-server" in args:
+        i = args.index("--scoring-server")
+        scoring_server(args[i + 1:i + 4])
+        return
     smi_line = setup()
     from repro_torch.kernels import spmm
     if hasattr(spmm, "NARROW_WIDTHS") \
@@ -2115,9 +2711,13 @@ def main() -> None:
     phase_scoring_gpu_equals_cpu()
     launches, full_per_iter, full_pooled = phase_main_path()
     sp_launches, sp_iter, sp_pooled = phase_sparse_main_path()
-    phase_minibatch_main_path(full_per_iter, full_pooled)
+    sp_seq, sp_seq_launches = phase_minibatch_main_path(full_per_iter,
+                                                        full_pooled)
     score_launches = phase_scoring(full_per_iter, full_pooled, sp_pooled)
-    del full_pooled, sp_pooled
+    del sp_pooled
+    torch.cuda.empty_cache()
+    durable = phase_durability(src, full_pooled, sp_seq, sp_seq_launches)
+    del full_pooled, sp_seq
     data = api_data()
     api_launches = phase_api_main_path(data)
     api_rows, api_worst = phase_api_kernels(data)
@@ -2154,6 +2754,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/modmatmul.py:71",
          "launches": launches["ring_matmul"],
          "scoring_launches": score_launches["ring_matmul"],
+         "durability_launches": durable["ring_matmul"],
          "max_abs_err": worst["ring_matmul"],
          "ms": mm[0], "plain_ms": mm[1], "bound_ms": mm[2],
          "bound_by": mm[3], "library_ms": None},
@@ -2162,6 +2763,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/ksadder.py:56",
          "launches": launches["ks_carry_share"],
          "scoring_launches": score_launches["ks_carry_share"],
+         "durability_launches": durable["ks_carry_share"],
          "max_abs_err": worst["ks_carry_share"],
          "ms": ks[0], "plain_ms": ks[1], "bound_ms": ks[2],
          "bound_by": ks[3], "library_ms": None},
@@ -2173,6 +2775,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/spmm.py:80",
          "launches": sp_launches["spmm_ell"],
          "scoring_launches": score_launches["spmm_ell"],
+         "durability_launches": durable["spmm_ell"],
          "max_abs_err": worst["spmm_ell"],
          "ms": sp_iter[0], "plain_ms": sp_iter[1], "bound_ms": sp_iter[2],
          "bound_by": sp_iter[3], "library_ms": lib_ms},

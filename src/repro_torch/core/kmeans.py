@@ -44,9 +44,12 @@ as one `predict_program` call split into prepare, launch and collect, the
 phases the scoring service pipelines. `fit(dealer=...)` runs a fit on an
 external provider, a provisioned `TripleBank`'s view (`plan_fit`).
 
-The options that belong to later slices (`wire=`, `checkpoint=`) raise
-NotImplementedError naming their ROADMAP.md item. Entry points run on the
-GPU unless the config asks for the CPU (`backend="torch", device="cpu"`).
+`fit(checkpoint=, resume=, resume_step=)` publishes resumable `FitState`s
+(checkpoint/fit.py) and finishes a killed fit with the uninterrupted one's
+shares, dealer counters and CommLog; `wire=` (and `predict`/`score`'s)
+ships every online CommLog event to the peer process as real frames
+(core/channel.py). Entry points run on the GPU unless the config asks for
+the CPU (`backend="torch", device="cpu"`).
 """
 from __future__ import annotations
 
@@ -57,6 +60,9 @@ from typing import Literal
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.fit import FitState
+from repro_torch.checkpoint.store import config_fingerprint
+from repro_torch.core import faultpoints as _fp
 from repro_torch.core import protocol as P
 from repro_torch.core import ring
 from repro_torch.core.channel import CommLog, NetModel
@@ -69,16 +75,6 @@ from repro_torch.core.triples import (BankSlotDealer, PlanningDealer,
                                       TrustedDealer, serve_seed)
 from repro_torch.launch import kmeans_step as KS
 from repro_torch.launch.pipeline import StageTask, run_pipeline
-
-_LATER = {
-    "wire": "ROADMAP.md Queue 1 item 10 (durability, wire and runtime)",
-    "checkpoint": "ROADMAP.md Queue 1 item 10 (durability, wire and runtime)",
-}
-
-
-def _not_ported(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {_LATER[key]}")
-
 
 @dataclasses.dataclass
 class KMeansConfig:
@@ -268,16 +264,28 @@ class SecureKMeans:
         return device
 
     def fit(self, x_a: np.ndarray, x_b: np.ndarray, *, dealer=None,
-            wire=None, checkpoint=None) -> KMeansResult:
+            wire=None, checkpoint=None, resume: bool = False,
+            resume_step: int | None = None) -> KMeansResult:
         """Jointly cluster the two parties' data. `dealer` (optional)
         supplies the fit's correlated randomness from an external provider:
         a `TripleBank.dealer(key)` view over a bank provisioned with
         `plan_fit`'s (key, plan) fits with no generation work. Under the
         fit's seed the bank serves the built-in dealers' words, so every
-        share and CommLog tally is theirs."""
-        for key, val in (("wire", wire), ("checkpoint", checkpoint)):
-            if val is not None:
-                raise _not_ported(f"fit({key}=...)", key)
+        share and CommLog tally is theirs.
+
+        `wire` (optional `channel.WireSession`): every online CommLog event
+        ships its byte count as frames to the peer process and pays its
+        round trips before it is tallied; the fit's words are the unwired
+        fit's.
+
+        `checkpoint` (optional `checkpoint.fit.FitCheckpointer`): publish
+        a resumable `FitState` at the configured iteration / batch cadence.
+        `resume=True` restores the latest checkpoint (its fingerprint
+        checked against this config and the data shapes) and continues to
+        the uninterrupted fit's shares, dealer counters and CommLog.
+        `resume_step` (the resume negotiation's agreed step) restores the
+        largest published step at or before it instead; none means a fresh
+        start."""
         cfg = self.cfg
         device = self._device()
         if dealer is not None and torch.device(
@@ -286,7 +294,8 @@ class SecureKMeans:
                 f"fit(dealer=...) serves words on {dealer.device}, the "
                 f"config runs on {device}")
         rng = np.random.default_rng(cfg.seed)
-        ctx = P.make_ctx(cfg.seed, backend=cfg.backend, device=device)
+        ctx = P.make_ctx(cfg.seed, backend=cfg.backend, device=device,
+                         wire=wire)
         x_a = np.asarray(x_a, np.float64)
         x_b = np.asarray(x_b, np.float64)
         if cfg.partition == "vertical":
@@ -304,10 +313,25 @@ class SecureKMeans:
         enc_a_np, enc_b_np = _encode_np(x_a, cfg.f), _encode_np(x_b, cfg.f)
         enc_a = ring.from_u64_numpy(enc_a_np, device)
         enc_b = ring.from_u64_numpy(enc_b_np, device)
-        mu = self._init_centroids(ctx, rng, x_a, x_b)
+        st = self._load_fit_state(checkpoint, resume, resume_step,
+                                  x_a.shape, x_b.shape)
+        if st is not None:
+            # the checkpointed shares and restored tallies replace init:
+            # the init exchange happened (and was tallied) in the
+            # interrupted run
+            mu = AShare(_upload_u64(st.mu0, device),
+                        _upload_u64(st.mu1, device))
+            ctx.log.restore(st.comm)
+        else:
+            mu = self._init_centroids(ctx, rng, x_a, x_b)
         if cfg.batch_size is not None:
             return self._fit_minibatch(ctx, enc_a, enc_b, enc_a_np, enc_b_np,
-                                       mu, n, ext_dealer=dealer)
+                                       mu, n, ext_dealer=dealer,
+                                       checkpoint=checkpoint, st=st)
+        if st is not None and st.batch:
+            raise ValueError(
+                "a mid-iteration (batch > 0) checkpoint can only resume a "
+                "minibatch fit; this config has batch_size=None")
         csr_a = CSRMatrix.from_dense(enc_a_np) if cfg.sparse else None
         csr_b = CSRMatrix.from_dense(enc_b_np) if cfg.sparse else None
 
@@ -317,6 +341,22 @@ class SecureKMeans:
         # All of it is data-independent; the loop then runs with no dealer
         # work, the sparse combos' Protocol-2 exchanges on the host around
         # S1.
+        it0 = st.iteration if st is not None else 0
+        iter_counts = None
+        if checkpoint is not None or it0:
+            # the per-class requests one iteration consumes, from the plan:
+            # a checkpoint stores the dealer positions only as a cross-check
+            iter_counts = self._plan_offline_iter(
+                x_a.shape, x_b.shape)[0].class_counts()
+        if it0:
+            adv = {k: c * it0 for k, c in iter_counts.items()}
+            if st.advance and st.advance != adv:
+                raise ValueError(
+                    "checkpoint dealer-stream positions disagree with the "
+                    "plan-derived positions — the checkpoint belongs to a "
+                    "different offline schedule")
+        else:
+            adv = {}
         plan_s = 0.0
         fast = None
         if dealer is not None or cfg.offline in ("pooled", "streamed"):
@@ -334,27 +374,42 @@ class SecureKMeans:
                 csr_bt = csr_b.transpose() if cfg.sparse else None
                 fast = (progs, iter_comm, csr_at, csr_bt)
             plan_s = time.perf_counter() - t0
+            # resume: the restored tallies hold the WHOLE fit's offline
+            # traffic (a dealer books its plan at construction), so a
+            # resumed dealer books to a scratch log, its class streams
+            # advanced past it0 iterations
+            dlog = CommLog() if it0 else ctx.log
             if dealer is not None:
                 # an external provider (a provisioned TripleBank's view):
                 # its generation is on the bank's offline books; this fit
                 # pays the (cached) plan and any stock-out stall
+                if it0:
+                    dealer.skip(iter_plan, it0)
                 ctx.dealer = dealer
             elif cfg.offline == "pooled":
-                ctx.dealer = PooledDealer(iter_plan.repeat(cfg.iters),
-                                          seed=cfg.seed, log=ctx.log,
-                                          device=device)
+                ctx.dealer = PooledDealer(iter_plan.repeat(cfg.iters - it0),
+                                          seed=cfg.seed, log=dlog,
+                                          advance=adv, device=device)
             else:
                 # group="auto": tiny k*d tranches share one worker wakeup
                 ctx.dealer = StreamingPooledDealer(
-                    iter_plan, cfg.iters, seed=cfg.seed, log=ctx.log,
-                    group="auto", device=device)
+                    iter_plan, cfg.iters - it0, seed=cfg.seed, log=dlog,
+                    group="auto", advance=adv, device=device)
+        elif it0:
+            # on-demand resume: a fresh TrustedDealer on the live log (its
+            # remaining offline tallies accrue on top of the restored ones,
+            # as the original loop's would have), its streams advanced
+            ctx.dealer = TrustedDealer(seed=cfg.seed, log=ctx.log,
+                                       advance=adv, device=device)
+        if st is not None:
+            _restore_counters(ctx.dealer, st)
 
         _sync(device)
         t_start = time.perf_counter()
         dealer_s_pre = ctx.dealer.dealer_seconds
-        it = 0
+        it = it0
         try:
-            for it in range(1, cfg.iters + 1):
+            for it in range(it0 + 1, cfg.iters + 1):
                 mu_old = mu
                 if fast is not None:
                     mu, c = self._fast_iteration(ctx, fast, enc_a, enc_b,
@@ -378,6 +433,13 @@ class SecureKMeans:
                     ctx.tag = "CSC"
                     if self._converged(ctx, mu_old, mu, cfg.tol):
                         break
+                if checkpoint is not None \
+                        and checkpoint.want_iter(it, cfg.iters):
+                    # an iteration boundary: the live log holds iterations
+                    # 1..it, nothing ahead
+                    self._save_fit_ckpt(
+                        checkpoint, ctx, it, 0, mu,
+                        {k: c * it for k, c in iter_counts.items()})
             _sync(device)
             wall = time.perf_counter() - t_start
         finally:
@@ -409,6 +471,7 @@ class SecureKMeans:
         progs, iter_comm, csr_at, csr_bt = fast
         he1 = he3 = []
         hx = None
+        _fp.probe("fit.exchange1")
         if self.cfg.sparse:
             # scratch log: the iteration's shape-determined traffic (the
             # exchanges' included) is replayed from iter_comm below; the
@@ -418,11 +481,14 @@ class SecureKMeans:
         flat1 = KS.materialize_offline(progs.s1_requests, ctx.dealer)
         c0, c1 = progs.s1(enc_a, enc_b, mu.s0, mu.s1, *he1, *flat1)
         c = AShare(c0, c1)
+        _fp.probe("fit.mid_s1")
         if self.cfg.sparse:
             hx.tag = "S3"
             he3 = self._s3_he_inputs(hx, csr_at, csr_bt, c)
+        _fp.probe("fit.s2_callback")
         flat3 = KS.materialize_offline(progs.s3_requests, ctx.dealer)
         mu0, mu1 = progs.s3(enc_a, enc_b, mu.s0, mu.s1, c0, c1, *he3, *flat3)
+        _fp.probe("fit.s3_partial")
         # the traced iteration's online tallies (sends inside the programs
         # go to a scratch log)
         ctx.log.merge(iter_comm, phase="online")
@@ -432,7 +498,8 @@ class SecureKMeans:
     # Minibatch Lloyd — batched S1/S3-partial programs, pipelined exchanges
     # ------------------------------------------------------------------ #
     def _fit_minibatch(self, ctx, enc_a, enc_b, enc_a_np, enc_b_np,
-                       mu: AShare, n: int, ext_dealer=None) -> KMeansResult:
+                       mu: AShare, n: int, ext_dealer=None, checkpoint=None,
+                       st: FitState | None = None) -> KMeansResult:
         """Each iteration is one full pass over the data in
         ceil(n / batch_size)-row batches: per batch an S1 program (distances
         and argmin on the CURRENT centroids) and an S3-partial program whose
@@ -445,7 +512,11 @@ class SecureKMeans:
         run on the host while batch t's S1 is on the device
         (launch/pipeline.run_pipeline); the SlotDealer fixes each (iteration,
         batch, stage) slot's words at generation time, in canonical slot
-        order, so pipeline=False is stream-identical."""
+        order, so pipeline=False is stream-identical.
+
+        A checkpoint `st` with `batch > 0` restores the partial sums and the
+        completed batches' assignment shares and runs on from its cursor;
+        the dealer starts at the cut's slot."""
         cfg = self.cfg
         if cfg.offline not in ("pooled", "streamed"):
             raise ValueError(
@@ -456,6 +527,14 @@ class SecureKMeans:
             raise ValueError(
                 "minibatch Lloyd runs on the S1/S3 program fast path only: "
                 f"it needs vectorized=True and f={ring.F}")
+        ckpt = checkpoint
+        if ckpt is not None and ckpt.batch_every is not None and cfg.pipeline:
+            raise ValueError(
+                "batch-granular checkpoints (batch_every) require "
+                "pipeline=False: the pipelined executor merges batch t+1's "
+                "traffic before batch t accumulates, so mid-iteration the "
+                "live CommLog is not the canonical prefix a resume restores "
+                "(iteration-boundary checkpoints work on both executors)")
         device = ctx.device
         t0 = time.perf_counter()
         bounds, stage_plans, (fin_plan, fin_comm) = \
@@ -493,6 +572,28 @@ class SecureKMeans:
         # (the JAX package's plan time also spans the dealer's construction,
         # which its offline_dealer_seconds then counts twice)
         plan_s = time.perf_counter() - t0
+        it0 = st.iteration if st is not None else 0
+        b0 = st.batch if st is not None else 0
+        start_slot = it0 * spi + 2 * b0
+        slot_counts = [p.class_counts() for p in iter_slots]
+
+        def slots_advance(n_slots: int) -> dict:
+            adv: dict = {}
+            for si in range(n_slots):
+                for ck, c in slot_counts[si % spi].items():
+                    adv[ck] = adv.get(ck, 0) + c
+            return adv
+
+        if st is not None and st.advance \
+                and st.advance != slots_advance(start_slot):
+            raise ValueError(
+                "checkpoint dealer-stream positions disagree with the "
+                "plan-derived slot positions — the checkpoint belongs to a "
+                "different offline schedule")
+        # resume: the restored tallies hold the whole schedule's offline
+        # traffic, booked at the original dealer's construction; a resumed
+        # dealer books its remaining slots to a scratch log
+        dlog = CommLog() if start_slot else ctx.log
         if ext_dealer is not None:
             bank = getattr(ext_dealer, "bank", None)
             if bank is None:
@@ -501,31 +602,60 @@ class SecureKMeans:
                     "view (bank.dealer(key) over a plan_fit provisioning); "
                     f"got {type(ext_dealer).__name__}")
             dealer = BankSlotDealer(bank, ext_dealer.key,
-                                    iter_slots * cfg.iters, log=ctx.log)
+                                    iter_slots * cfg.iters, log=dlog,
+                                    start_slot=start_slot)
         else:
             dealer = SlotDealer(iter_slots * cfg.iters, seed=cfg.seed,
-                                log=ctx.log,
+                                log=dlog,
                                 stream=(cfg.offline == "streamed"),
-                                device=device)
+                                start_slot=start_slot, device=device)
         ctx.dealer = dealer
+        if st is not None:
+            _restore_counters(dealer, st)
 
         def zeros(shape):
             return torch.zeros(shape, dtype=ring.DTYPE, device=device)
 
         _sync(device)
         t_start = time.perf_counter()
-        it = 0
+        it = it0
         c_parts = [None] * len(batches)
         try:
-            for it in range(1, cfg.iters + 1):
+            for it in range(it0 + 1, cfg.iters + 1):
                 mu_old = mu
                 base = (it - 1) * spi
-                acc = [zeros((cfg.k, d)), zeros((cfg.k, d)),
-                       zeros((cfg.k,)), zeros((cfg.k,))]
+                start_b = b0 if it == it0 + 1 else 0
+                if start_b:
+                    # mid-iteration resume: the restored partial sums and
+                    # completed batches' assignment shares; the remaining
+                    # batches run from the checkpointed cursor
+                    acc = [_upload_u64(a, device) for a in st.acc]
+                    for t in range(start_b):
+                        c_parts[t] = AShare(
+                            _upload_u64(st.c0_parts[t], device),
+                            _upload_u64(st.c1_parts[t], device))
+                else:
+                    acc = [zeros((cfg.k, d)), zeros((cfg.k, d)),
+                           zeros((cfg.k,)), zeros((cfg.k,))]
+
+                def on_done(t_done: int, _it=it, _acc=acc, _mu=mu):
+                    b_done = t_done + 1
+                    if ckpt is None \
+                            or not ckpt.want_batch(b_done, len(batches)):
+                        return
+                    # sequential executor only (enforced above): after
+                    # batch t's post the live log holds exactly batches
+                    # 0..t, the canonical prefix
+                    self._save_fit_ckpt(
+                        ckpt, ctx, _it - 1, b_done, _mu,
+                        slots_advance((_it - 1) * spi + 2 * b_done),
+                        acc=_acc, c_parts=c_parts[:b_done])
+
                 tasks = [self._batch_task(ctx, dealer, b, mu, base + 2 * t,
-                                          acc, c_parts, t)
-                         for t, b in enumerate(batches)]
+                                          acc, c_parts, t, on_done=on_done)
+                         for t, b in enumerate(batches) if t >= start_b]
                 run_pipeline(tasks, pipeline=cfg.pipeline)
+                _fp.probe("fit.finalize")
                 fin_view = dealer.acquire(base + 2 * len(batches))
                 flat_f = KS.materialize_offline(fin_prog.requests, fin_view)
                 mu0, mu1 = fin_prog.fn(mu.s0, mu.s1, *acc, *flat_f)
@@ -537,6 +667,11 @@ class SecureKMeans:
                                  backend=ctx.backend)
                     if self._converged(cctx, mu_old, mu, cfg.tol):
                         break
+                if ckpt is not None and ckpt.want_iter(it, cfg.iters):
+                    # an iteration boundary: the pipeline drained at
+                    # finalize, so this cut is canonical on both executors
+                    self._save_fit_ckpt(ckpt, ctx, it, 0, mu,
+                                        slots_advance(it * spi))
             _sync(device)
             wall = time.perf_counter() - t_start
         finally:
@@ -561,14 +696,15 @@ class SecureKMeans:
         return self.result_
 
     def _batch_task(self, ctx, dealer, b: dict, mu: AShare, slot0: int,
-                    acc: list, c_parts: list, t: int) -> StageTask:
+                    acc: list, c_parts: list, t: int,
+                    on_done=None) -> StageTask:
         """One minibatch as a 4-phase pipeline step (launch/pipeline.py):
         pre = exchange #1 (centroid shares only) + S1 tranche pin; launch =
         S1; mid = exchange #2 on the assignment shares + S3 tranche pin;
         post = S3-partial + accumulator adds. Each exchange runs on a fresh
         ctx whose modelled HE time is added to the fit's when the exchange
         ends, in the JAX package's order (so he_seconds agrees to the last
-        bit)."""
+        bit). `on_done(t)` runs after the adds: the checkpoint seam."""
         cfg = self.cfg
         progs = b["progs"]
 
@@ -577,6 +713,7 @@ class SecureKMeans:
                          backend=ctx.backend)
 
         def pre():
+            _fp.probe("fit.exchange1")
             view = dealer.acquire(slot0)
             he1 = []
             if cfg.sparse:
@@ -592,9 +729,11 @@ class SecureKMeans:
             he1, flat1 = prep
             c0, c1 = progs.s1(b["dev_a"], b["dev_b"], mu.s0, mu.s1,
                               *he1, *flat1)
+            _fp.probe("fit.mid_s1")
             return AShare(c0, c1)
 
         def mid(prep, c):
+            _fp.probe("fit.s2_callback")
             view = dealer.acquire(slot0 + 1)
             he3 = []
             if cfg.sparse:
@@ -606,6 +745,7 @@ class SecureKMeans:
             return he3, flat3
 
         def post(prep, c, m):
+            _fp.probe("fit.s3_partial")
             he3, flat3 = m
             n0, n1, d0, d1 = progs.s3p(b["dev_a"], b["dev_b"], c.s0, c.s1,
                                        *he3, *flat3)
@@ -614,6 +754,8 @@ class SecureKMeans:
             acc[2] = acc[2] + d0
             acc[3] = acc[3] + d1
             c_parts[t] = c
+            if on_done is not None:
+                on_done(t)
 
         return StageTask(pre, launch, mid, post)
 
@@ -757,8 +899,6 @@ class SecureKMeans:
     def _predict(self, x_a, x_b, result, *, dealer, compiled,
                  with_scores: bool, wire=None) -> PredictResult:
         cfg = self.cfg
-        if wire is not None:
-            raise _not_ported("predict(wire=...)", "wire")
         x_a, x_b, result = self._check_predict_args(x_a, x_b, result)
         if compiled and cfg.f != ring.F:
             # an explicit request for the program path must not truncate
@@ -770,10 +910,10 @@ class SecureKMeans:
             else self._runs_programs()
         if use_fast:
             prep = self.predict_prepare(x_a, x_b, result, dealer=dealer,
-                                        with_scores=with_scores)
+                                        with_scores=with_scores, wire=wire)
             return self.predict_collect(prep, self.predict_launch(prep))
         return self._predict_eager(x_a, x_b, result, dealer=dealer,
-                                   with_scores=with_scores)
+                                   with_scores=with_scores, wire=wire)
 
     def _encode_batch(self, x_a, x_b, device) -> tuple:
         """(enc_a, enc_b, csr_a, csr_b): the parties' encoded batch on
@@ -800,11 +940,12 @@ class SecureKMeans:
                      backend=self.cfg.backend)
 
     def _predict_eager(self, x_a, x_b, result, *, dealer,
-                       with_scores: bool) -> PredictResult:
+                       with_scores: bool, wire=None) -> PredictResult:
         t0 = time.perf_counter()
         device = self._device()
         enc_a, enc_b, csr_a, csr_b = self._encode_batch(x_a, x_b, device)
         log = CommLog()
+        log.wire = wire
         ctx = self._predict_ctx(dealer, log, device)
         dist = self._distances(ctx, enc_a, enc_b, csr_a, csr_b,
                                result.centroids)
@@ -824,8 +965,8 @@ class SecureKMeans:
 
     # -- the program path, split into pipelineable phases ----------------- #
     def predict_prepare(self, x_a, x_b, result: KMeansResult | None = None,
-                        *, dealer=None,
-                        with_scores: bool = False) -> PreparedPredict:
+                        *, dealer=None, with_scores: bool = False,
+                        wire=None) -> PreparedPredict:
         """Host phase of ONE scoring-program call: validate, encode and
         upload, run the Protocol-2 exchange (computable from the centroid
         shares alone), draw the offline tensors and stage the program's
@@ -834,7 +975,8 @@ class SecureKMeans:
         sequence IS the program path, and the scoring service overlaps
         request t+1's prepare with request t's kernels — the same calls in
         the same order per request, so the pipelined and sequential drains
-        give the same words. Nothing here waits for the device."""
+        give the same words. Nothing here waits for the device. With a
+        `wire`, the call's traffic ships when `predict_collect` replays it."""
         cfg = self.cfg
         x_a, x_b, result = self._check_predict_args(x_a, x_b, result)
         if not self._runs_programs():
@@ -846,6 +988,7 @@ class SecureKMeans:
         device = self._device()
         enc_a, enc_b, csr_a, csr_b = self._encode_batch(x_a, x_b, device)
         log = CommLog()
+        log.wire = wire
         ctx = self._predict_ctx(dealer, log, device)
         mu = result.centroids
         prog = KS.predict_program(cfg.partition, cfg.sparse, enc_a.shape,
@@ -970,6 +1113,60 @@ class SecureKMeans:
     def _fit_plan_key(self, shape_a, shape_b) -> tuple:
         return ("fit", self.cfg.iters, self.cfg.batch_size) \
             + self._plan_cache_key(shape_a, shape_b)
+
+    # -- checkpoints ------------------------------------------------------ #
+    def _fit_fingerprint(self, shape_a, shape_b) -> str:
+        """Checkpoint identity: everything that shapes the fit's schedule,
+        streams and init — a resumed run with any of these changed would
+        not be the same fit. The key is the JAX package's, so a config
+        gives the same fingerprint in both packages. `pipeline` is left
+        out: the executors are stream-identical at checkpointable cuts."""
+        cfg = self.cfg
+        key = self._fit_plan_key(shape_a, shape_b) + (
+            "fit-ckpt", cfg.seed, cfg.offline, cfg.init, cfg.tol)
+        return config_fingerprint(key)
+
+    def _load_fit_state(self, checkpoint, resume: bool, resume_step,
+                        shape_a, shape_b) -> FitState | None:
+        """Bind `checkpoint` to this (config, shapes) run, so a foreign
+        checkpoint fails the fingerprint check at load, and return the
+        state to resume from (None: a fresh start)."""
+        if checkpoint is not None:
+            checkpoint.fingerprint = checkpoint.fingerprint \
+                or self._fit_fingerprint(shape_a, shape_b)
+        if not resume and resume_step is None:
+            return None
+        if checkpoint is None:
+            raise ValueError(
+                "fit(resume=True) needs checkpoint=FitCheckpointer(...) to "
+                "restore from")
+        if resume_step is not None:
+            s = checkpoint.step_at_or_before(int(resume_step))
+            st = checkpoint.load(s) if s is not None else None
+        else:
+            st = checkpoint.latest()
+        if st is not None and st.iteration >= self.cfg.iters:
+            raise ValueError(
+                f"checkpoint is at iteration {st.iteration} of a "
+                f"{self.cfg.iters}-iteration fit: nothing left to resume")
+        return st
+
+    def _save_fit_ckpt(self, ckpt, ctx, it: int, batch: int, mu: AShare,
+                       advance: dict, acc=None, c_parts=None) -> None:
+        """Publish one cut. The device words are copied to the host on the
+        current stream, after the iteration's (or batch's) last launch;
+        the dealers' own streams are not waited on."""
+        d = ctx.dealer
+        ckpt.save(FitState(
+            iteration=it, batch=batch,
+            mu0=ring.to_u64_numpy(mu.s0), mu1=ring.to_u64_numpy(mu.s1),
+            counters={"n_matmul": int(d.n_matmul), "n_mul": int(d.n_mul),
+                      "n_bin": int(d.n_bin)},
+            comm=ctx.log.state(), advance=advance,
+            fingerprint=ckpt.fingerprint,
+            acc=None if acc is None else [ring.to_u64_numpy(a) for a in acc],
+            c0_parts=[ring.to_u64_numpy(p.s0) for p in (c_parts or [])],
+            c1_parts=[ring.to_u64_numpy(p.s1) for p in (c_parts or [])]))
 
     # ------------------------------------------------------------------ #
     def plan_offline(self, shape_a, shape_b) -> TriplePlan:
@@ -1336,6 +1533,18 @@ def _sync_stream(device: torch.device) -> None:
     `BankReplenisher` top-up may still be copying on the bank's stream."""
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
+
+
+def _upload_u64(words: np.ndarray, device) -> torch.Tensor:
+    """Checkpointed uint64 words -> an int64 ring tensor on `device`, the
+    same 64 bits (`ring.upload`: the host does not wait for the device)."""
+    host = np.array(words, np.uint64, order="C")     # writable, contiguous
+    return ring.upload(torch.from_numpy(host.view(np.int64)), device)
+
+
+def _restore_counters(dealer, st: FitState) -> None:
+    for attr in ("n_matmul", "n_mul", "n_bin"):
+        setattr(dealer, attr, st.counters[attr])
 
 
 def _encode_np(x: np.ndarray, f: int) -> np.ndarray:

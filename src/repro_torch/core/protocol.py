@@ -77,8 +77,9 @@ class Ctx:
 
 
 def make_ctx(seed: int = 0, backend: RingBackend | str = "cuda",
-             device="cuda") -> Ctx:
+             device="cuda", wire=None) -> Ctx:
     log = CommLog()
+    log.wire = wire  # online sends ship over the attached WireSession
     return Ctx(dealer=TrustedDealer(seed=seed, log=log, device=device),
                log=log, backend=backend)
 

@@ -1836,16 +1836,24 @@ class BankSlotDealer:
     Word for word `SlotDealer(slot_plans, seed)` when the bank was
     provisioned under the same seed with the concatenated slot plans (the
     bank's draw per class is the SlotDealer's per-class concatenation in
-    canonical order)."""
+    canonical order).
+
+    ``start_slot`` resumes a checkpointed fit against a freshly provisioned
+    bank: the slots an interrupted run consumed are popped and dropped, so
+    slot ``start_slot`` serves the entries it would have served."""
 
     def __init__(self, bank: TripleBank, key: tuple, slot_plans,
-                 log: CommLog | None = None):
+                 log: CommLog | None = None, start_slot: int = 0):
         t0 = time.perf_counter()
         self.bank = bank
         self.key = tuple(key)
         self.slot_plans = [TriplePlan(list(p.requests)) for p in slot_plans]
         self.log = log if log is not None else CommLog()
         self.device = bank.device
+        self.start_slot = int(start_slot)
+        if not 0 <= self.start_slot <= len(self.slot_plans):
+            raise IndexError(f"start_slot {start_slot} out of range "
+                             f"({len(self.slot_plans)} slots planned)")
         self.n_matmul = 0
         self.n_mul = 0
         self.n_bin = 0
@@ -1859,7 +1867,15 @@ class BankSlotDealer:
         self._acquired: set[int] = set()
         self._slots: list[tuple] = []
         self.pool_bytes = 0
-        for plan in self.slot_plans:
+        for si, plan in enumerate(self.slot_plans):
+            if si < self.start_slot:
+                for r in plan.requests:
+                    bank._pop(_class_key(r.kind, r.shape), self.key)
+                for ck, c in self._counts[si].items():
+                    self._served_class[ck] = self._served_class.get(ck, 0) + c
+                self._acquired.add(si)
+                self._slots.append((None, 0))
+                continue
             pools: dict[tuple, list] = {}
             nbytes = 0
             for r in plan.requests:

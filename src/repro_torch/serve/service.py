@@ -26,11 +26,17 @@ bounded retries of a failing group (a poisoned request resolves as an
 error response and cannot livelock the drain), and a background loop
 (`start`/`stop`, `response(rid)`, `health`).
 
+Durability: with a `ServeCheckpointer` (checkpoint/serve.py) the first
+`warm` snapshots the provisioned bank, every drain journals its responses
+plus the bank's consumed counts BEFORE exposing them, and a restarted
+service replays the journal and realigns the bank (`discard`), so every
+request is answered exactly once across a crash. `serve/wire.py` puts the
+service on the wire.
+
 The service reveals ONLY the per-transaction outputs (cluster label and/or
 outlier score); centroids and per-cluster structure stay secret-shared.
-The JAX package's exactly-once restart (`checkpointer=`) and wire frontend
-belong to ROADMAP.md Queue 1 item 10, its metrics and trace spans to item
-11.
+The JAX package's metrics and trace spans belong to ROADMAP.md Queue 1
+item 11.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ import time
 
 import numpy as np
 
-from repro_torch.core.kmeans import KMeansResult, SecureKMeans, _not_ported
+from repro_torch.core.kmeans import KMeansResult, SecureKMeans
 from repro_torch.core.triples import BankReplenisher, TripleBank, serve_seed
 from repro_torch.launch import kmeans_step as KS
 from repro_torch.launch.pipeline import PipelineError, StageTask, run_pipeline
@@ -237,8 +243,11 @@ class ScoringService:
     past it returns a shed `ScoringResponse`), `default_deadline_s`
     (applied to requests that carry none), `replenisher` (a
     `BankReplenisher` bound to this service's bank, or a kwargs dict to
-    build one; started by `warm()`, stopped by `close()`).
-    `checkpointer=` is ROADMAP.md Queue 1 item 10's and raises.
+    build one; started by `warm()`, stopped by `close()`), `checkpointer`
+    (a `ServeCheckpointer`: a fresh service snapshots its bank after
+    `warm()`, every drain journals responses and consumed counts before
+    exposing them, and a restart replays the journal and realigns the
+    bank — exactly-once responses across a crash).
     """
 
     def __init__(self, model: SecureKMeans,
@@ -251,9 +260,6 @@ class ScoringService:
                  max_queue: int | None = None,
                  default_deadline_s: float | None = None,
                  checkpointer=None, replenisher=None):
-        if checkpointer is not None:
-            raise _not_ported("ScoringService(checkpointer=...)",
-                              "checkpoint")
         self.model = model
         self.result = result if result is not None \
             else getattr(model, "result_", None)
@@ -300,12 +306,27 @@ class ScoringService:
         self._closed = False
         self.loop_errors = 0
         self.last_loop_error: BaseException | None = None
+        self.checkpointer = checkpointer
+        if checkpointer is not None and checkpointer.has_bank():
+            # restart: reload the provision-time bank snapshot, replay the
+            # response journal, and discard exactly the requests the dead
+            # incarnation consumed, so every class stream resumes at the
+            # right word (the argument is in checkpoint/serve.py)
+            self.bank = checkpointer.load_bank(device=model.cfg.device)
+            journal, consumed = checkpointer.load_journal()
+            if consumed:
+                self.bank.discard(consumed)
+            self._done.update(journal)
+            if journal:
+                self._next_id = max(journal) + 1
         if replenisher is None:
             self.replenisher = None
         elif isinstance(replenisher, BankReplenisher):
             if replenisher.bank is not self.bank:
                 raise ValueError("replenisher must be bound to this "
-                                 "service's bank (or pass a kwargs dict)")
+                                 "service's bank (after a checkpoint "
+                                 "restart the bank is the reloaded one — "
+                                 "pass a kwargs dict instead)")
             self.replenisher = replenisher
         else:
             self.replenisher = BankReplenisher(self.bank,
@@ -319,7 +340,10 @@ class ScoringService:
 
     def warm(self) -> None:
         """Offline: record every rung's program and provision its triples
-        (idempotent; re-warming only provisions unprovisioned rungs).
+        (idempotent; re-warming only provisions unprovisioned rungs). With
+        a checkpointer, the FIRST warm also snapshots the provisioned bank —
+        the restart baseline; a restarted service loads that snapshot
+        instead of provisioning, so the snapshot is never rewritten.
         Starts the replenisher daemon if one is configured."""
         t0 = time.perf_counter()
         cfg = self.model.cfg
@@ -333,6 +357,8 @@ class ScoringService:
                 KS.predict_program(cfg.partition, cfg.sparse, sa, sb, cfg.k,
                                    with_scores=self.with_scores,
                                    backend=cfg.backend, device=cfg.device)
+        if self.checkpointer is not None and not self.checkpointer.has_bank():
+            self.checkpointer.save_bank(self.bank)
         if self.replenisher is not None and not self.replenisher.running:
             self.replenisher.start()
         self._warmed = True
@@ -509,9 +535,13 @@ class ScoringService:
 
     def _publish(self, responses: list[ScoringResponse],
                  pending: list[_Pending]) -> None:
-        """Expose one drain's responses and record their latencies."""
+        """Journal (with a checkpointer) then expose one drain's responses
+        and record their latencies — in that order, so a crash between the
+        two replays rather than re-scores (checkpoint/serve.py)."""
         if not responses:
             return
+        if self.checkpointer is not None:
+            self.checkpointer.record(responses, self.bank.consumed_counts())
         now = time.monotonic()
         by_rid = {p.rid: p for p in pending}
         with self._cond:

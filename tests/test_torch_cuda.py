@@ -893,3 +893,130 @@ def test_gpu_service_with_replenisher_equals_cpu_service(cuda, sparse):
             assert a.error is None and b.error is None
             np.testing.assert_array_equal(a.labels, b.labels)
             np.testing.assert_array_equal(a.scores, b.scores)
+
+
+# ---------------------------------------------------------------------------
+# checkpointed, resumed and wired fits; the service restart
+# ---------------------------------------------------------------------------
+
+def _same_fit(got, want) -> None:
+    """Shares (wherever they live), iterations, dealer counters and
+    traffic per tag and phase."""
+    for field in ("centroids", "assignment"):
+        for i in (0, 1):
+            assert torch.equal(getattr(got, field)[i].cpu(),
+                               getattr(want, field)[i].cpu())
+    assert got.iters_run == want.iters_run
+    for attr in ("n_matmul", "n_mul", "n_bin"):
+        assert getattr(got.dealer, attr) == getattr(want.dealer, attr)
+    for phase in ("online", "offline"):
+        assert got.log.by_tag(phase) == want.log.by_tag(phase)
+
+
+class _Stop(Exception):
+    """Raised from the checkpointer's after_save seam: the fit dies."""
+
+
+@pytest.mark.parametrize("case", [
+    dict(offline="on_demand"), dict(offline="pooled", sparse=True),
+    dict(offline="streamed", batch_size=36, pipeline=False)],
+    ids=["on_demand", "pooled_sparse", "minibatch"])
+def test_resumed_gpu_fit_equals_uninterrupted_and_cpu(cuda, tmp_path, case):
+    """A GPU fit stopped after its second published cut and resumed ends
+    with the uninterrupted GPU fit's and the CPU fit's words."""
+    from repro_torch.checkpoint.fit import FitCheckpointer
+    x = RNG.normal(size=(96, 8)) + RNG.integers(0, 3, (96, 1)) * 4.0
+    if case.get("sparse"):
+        x *= RNG.random(x.shape) >= 0.7
+    a, b = x[:, :4], x[:, 4:]
+    common = dict(k=3, iters=3, seed=2, **case)
+    gpu = SecureKMeans(KMeansConfig(**common))
+    want = gpu.fit(a, b)
+    cpu = SecureKMeans(KMeansConfig(backend="torch", device="cpu",
+                                    **common)).fit(a, b)
+    _same_fit(want, cpu)
+    saved = []
+
+    def stop(state, _path):
+        saved.append(state.step)
+        if len(saved) == 2:
+            raise _Stop
+
+    d = str(tmp_path / "ck")
+    batch_every = 1 if case.get("batch_size") else None
+    with pytest.raises(_Stop):
+        gpu.fit(a, b, checkpoint=FitCheckpointer(
+            d, every=1, batch_every=batch_every, after_save=stop))
+    got = gpu.fit(a, b, checkpoint=FitCheckpointer(d), resume=True)
+    assert got.centroids.s0.device.type == "cuda"
+    _same_fit(got, want)
+
+
+@pytest.mark.parametrize("case", [
+    dict(), dict(offline="pooled", sparse=True),
+    dict(offline="pooled", batch_size=36, pipeline=True)],
+    ids=["on_demand", "pooled_sparse", "minibatch_pipe"])
+def test_wired_gpu_fit_equals_unwired(cuda, case):
+    """Over a LoopbackTransport the GPU fit pays the CommLog's online
+    bytes and rounds and ends with the unwired fit's words; scoring over
+    the same session too."""
+    import threading
+    from repro_torch.core import channel as C
+    x = RNG.normal(size=(96, 8)) + RNG.integers(0, 3, (96, 1)) * 4.0
+    if case.get("sparse"):
+        x *= RNG.random(x.shape) >= 0.7
+    a, b = x[:, :4], x[:, 4:]
+    km = SecureKMeans(KMeansConfig(k=3, iters=2, seed=2, **case))
+    want = km.fit(a, b)
+    ta, tb = C.LoopbackTransport.pair()
+    th = threading.Thread(target=C.serve_peer, args=(tb,), daemon=True)
+    th.start()
+    ws = C.WireSession(C.ReliableChannel(ta))
+    got = km.fit(a, b, wire=ws)
+    assert ws.payload_bytes == got.log.total_bytes("online")
+    assert ws.rounds == got.log.total_rounds("online")
+    p_wired = km.score(a[:20], b[:20], wire=ws)
+    ws.bye()
+    th.join(timeout=30)
+    _same_fit(got, want)
+    p = km.score(a[:20], b[:20])
+    for i in (0, 1):
+        assert torch.equal(p_wired.scores[i], p.scores[i])
+
+
+def test_gpu_service_restart_from_checkpointer(cuda, tmp_path):
+    """A service on the card journals its drains; a restart from the same
+    ServeCheckpointer replays the journaled responses and answers the rest
+    with the words of a CPU service that never stopped."""
+    from repro_torch.checkpoint.serve import ServeCheckpointer
+    from repro_torch.serve import ScoringService
+    cpu, gpu = _fitted_pair("vertical", False)
+    batches = []
+    for m in RNG.poisson(12, 8):
+        q = RNG.normal(size=(int(m) + 1, 8)) + 4.0 * RNG.integers(0, 3, (1, 1))
+        batches.append((q[:, :4], q[:, 4:]))
+    kw = dict(rungs=(8, 32), d_a=4, d_b=4, provision_copies=2)
+
+    def one_at_a_time(svc, reqs):
+        out = {}
+        for qa, qb in reqs:
+            svc.submit(qa, qb)
+            out.update({r.request_id: r for r in svc.drain()})
+        return out
+
+    ref_svc = ScoringService(cpu, **kw)
+    ref = one_at_a_time(ref_svc, batches)
+    d = str(tmp_path / "sck")
+    svc = ScoringService(gpu, checkpointer=ServeCheckpointer(d), **kw)
+    got = one_at_a_time(svc, batches[:4])
+    del svc                                    # no close: a crash
+    svc = ScoringService(gpu, checkpointer=ServeCheckpointer(d), **kw)
+    assert svc.bank.device.type == "cuda"
+    got.update({rid: svc.lookup(rid) for rid in got})
+    got.update(one_at_a_time(svc, batches[4:]))
+    assert svc.stats.requests == 4
+    assert set(got) == set(ref)
+    for rid, r in ref.items():
+        np.testing.assert_array_equal(got[rid].labels, r.labels)
+        np.testing.assert_array_equal(got[rid].scores, r.scores)
+    assert svc.bank.consumed_counts() == ref_svc.bank.consumed_counts()

@@ -31,7 +31,11 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.kernels.ref", "repro_torch.kernels.esd",
               "repro_torch.kernels.argmin", "repro_torch.launch.kmeans_step",
               "repro_torch.launch.pipeline", "repro_torch.serve.service",
-              "repro_torch.core.fraud", "repro_torch.core.normalize"):
+              "repro_torch.core.fraud", "repro_torch.core.normalize",
+              "repro_torch.core.channel", "repro_torch.core.faultpoints",
+              "repro_torch.checkpoint.store", "repro_torch.checkpoint.fit",
+              "repro_torch.checkpoint.serve", "repro_torch.serve.wire",
+              "repro_torch.launch.two_party"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -186,14 +186,6 @@ def test_minibatch_on_demand_raises_the_reference_error(offline):
     assert errors[0] == errors[1]
 
 
-@pytest.mark.parametrize("arg", ["wire", "checkpoint"])
-def test_later_slice_fit_args_raise(arg):
-    x = _blobs(8, 4, 2, seed=0)
-    km = SecureKMeans(KMeansConfig(k=2, backend="torch", device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        km.fit(x[:, :2], x[:, 2:], **{arg: object()})
-
-
 def test_config_validation():
     for iters in (0, -3):
         with pytest.raises(ValueError, match="iters"):

@@ -4,8 +4,9 @@ both partitions, dense and sparse, over the reference's fitted model
 carried across with `result_from_reference` — the assignment and score
 share words, the dealer counters, the per-tag CommLog and the
 `plan_predict` request list. Also the default dealer's domain separation,
-the rejection of configs the program path cannot run, and the item-10
-arguments. The contracts are those of the reference's tests/test_serve.py.
+and the rejection of configs the program path cannot run (wired scoring
+is in tests/test_torch_wire.py). The contracts are those of the
+reference's tests/test_serve.py.
 """
 import numpy as np
 import pytest
@@ -231,12 +232,6 @@ def test_program_path_rejects_unsupported_configs():
             with pytest.raises(ValueError, match=match):
                 km.predict(qa, qb, compiled=True)
         _assert_same_predict(jk.score(qa, qb), tk.score(qa, qb), True)
-
-
-def test_predict_wire_raises_for_item_10():
-    _, tk = fitted("vertical", False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tk.predict(np.zeros((4, 2)), np.zeros((4, 2)), wire=object())
 
 
 def test_predict_prepare_launch_collect_is_the_program_path():

@@ -3,18 +3,25 @@ the fraud pipeline and the normalizations beside it: the service's
 responses, bank draws and traffic equal the JAX service's word for word,
 pipeline on and off; padded, coalesced scoring equals direct scoring
 (labels exactly, scores to the fixed-point LSB); admission control,
-deadlines and the bounded retries of a poisoned request; the item-10
-arguments raise. The contracts are those of the reference's
-tests/test_serve.py."""
+deadlines and the bounded retries of a poisoned request; the exactly-once
+restart from a `ServeCheckpointer` (either package's directory) and the
+wire frontend (`ScoringServer` / `ScoringClient`) under keyed faults. The
+contracts are those of the reference's tests/test_serve.py and
+tests/test_serve_plane.py."""
+import threading
+
 import numpy as np
 import pytest
 import torch
 
+from repro.checkpoint.serve import ServeCheckpointer as JServeCheckpointer
 from repro.core import fraud as JF
 from repro.core import kmeans as JK
 from repro.core import normalize as JN
 from repro.core import protocol as JP
 from repro.serve import ScoringService as JScoringService
+from repro_torch.checkpoint.serve import ServeCheckpointer
+from repro_torch.core import channel as C
 from repro_torch.core import fraud as F
 from repro_torch.core import normalize as N
 from repro_torch.core import protocol as P
@@ -22,7 +29,8 @@ from repro_torch.core import triples as T
 from repro_torch.core.interop import result_from_reference, shares_to_numpy
 from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
 from repro_torch.serve import (ERR_DEADLINE, ERR_QUEUE_FULL, BatchLadder,
-                               ScoringResponse, ScoringService)
+                               ScoringClient, ScoringResponse, ScoringServer,
+                               ScoringService)
 
 
 def _blobs(n, d, k, seed, sparse_frac=0.0):
@@ -109,8 +117,6 @@ def test_service_arguments():
     with pytest.raises(ValueError, match="fitted"):
         ScoringService(SecureKMeans(KMeansConfig(k=3, backend="torch",
                                                  device="cpu")), d_a=2, d_b=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ScoringService(tk, d_a=2, d_b=2, checkpointer=object())
     with pytest.raises(ValueError, match="replenisher"):
         ScoringService(tk, d_a=2, d_b=2, replenisher=T.BankReplenisher(
             T.TripleBank(device="cpu")))
@@ -370,3 +376,120 @@ def test_normalize_equals_reference():
     both = np.concatenate([a_t, b_t])
     np.testing.assert_allclose(both.min(0), 0.0, atol=1e-5)
     np.testing.assert_allclose(both.max(0), 1.0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# exactly once across a restart, and over a faulty wire
+# ---------------------------------------------------------------------------
+
+PLANE = dict(rungs=(16,), with_scores=True, d_a=2, d_b=2,
+             provision_copies=4)
+
+
+def _plane_batches(n, rows=8):
+    return [_batch("vertical", m=rows, seed=300 + i)[1:] for i in range(n)]
+
+
+def _one_at_a_time(svc, batches):
+    """Submit and drain each batch alone — the wire server's schedule
+    (one outstanding request per sequential channel)."""
+    out = {}
+    for xa, xb in batches:
+        svc.submit(xa, xb)
+        out.update({r.request_id: r for r in svc.drain()})
+    return out
+
+
+def _assert_same_responses(got: dict, want: dict):
+    assert set(got) == set(want)
+    for rid in want:
+        assert got[rid].error is None and want[rid].error is None
+        assert got[rid].rows == want[rid].rows
+        np.testing.assert_array_equal(got[rid].labels, want[rid].labels)
+        np.testing.assert_array_equal(got[rid].scores, want[rid].scores)
+
+
+@pytest.mark.parametrize("writer", ["torch", "jax"])
+def test_restart_replays_and_realigns_equals_reference(tmp_path, writer):
+    """A service "crashes" after three journaled drains; a restarted port
+    service on the same directory replays them verbatim and, its reloaded
+    bank realigned, answers the rest as the uninterrupted JAX service
+    does. The directory may be the JAX package's."""
+    jk, tk = fitted("vertical")
+    b = _plane_batches(6)
+    ref_svc = JScoringService(jk, **PLANE)
+    ref = _one_at_a_time(ref_svc, b)
+    d = str(tmp_path / "ck")
+    first = ScoringService(tk, checkpointer=ServeCheckpointer(d), **PLANE) \
+        if writer == "torch" else \
+        JScoringService(jk, checkpointer=JServeCheckpointer(d), **PLANE)
+    got = _one_at_a_time(first, b[:3])
+    consumed = first.bank.consumed_counts()
+    del first                                  # no close: a crash
+    svc = ScoringService(tk, checkpointer=ServeCheckpointer(d), **PLANE)
+    assert svc.bank.consumed_counts() == consumed
+    for rid in got:                            # replayed, not re-scored
+        r = svc.lookup(rid)
+        np.testing.assert_array_equal(r.labels, got[rid].labels)
+        np.testing.assert_array_equal(r.scores, got[rid].scores)
+    got.update(_one_at_a_time(svc, b[3:]))
+    _assert_same_responses(got, ref)
+    assert svc.stats.requests == 3
+    assert svc.bank.consumed_counts() == ref_svc.bank.consumed_counts()
+
+
+def test_restart_never_double_draws(tmp_path):
+    """The reloaded bank starts exactly where the dead one stopped: a
+    request the dead service drew for but never journaled is re-scored on
+    the same words; journaled ones never re-enter a drain."""
+    _, tk = fitted("vertical")
+    b = _plane_batches(3)
+    d = str(tmp_path / "ck")
+    svc = ScoringService(tk, checkpointer=ServeCheckpointer(d), **PLANE)
+    got = _one_at_a_time(svc, b[:1])
+    before = svc.bank.consumed_counts()
+    # drawn, then lost before the journal: the restart re-draws its words
+    svc.checkpointer.record = lambda *a, **k: None
+    lost = _one_at_a_time(svc, b[1:2])
+    svc2 = ScoringService(tk, checkpointer=ServeCheckpointer(d), **PLANE)
+    assert svc2.bank.consumed_counts() == before
+    assert svc2.submit(*b[0], rid=0) == 0      # journaled: deduped
+    again = _one_at_a_time(svc2, b[1:2])
+    _assert_same_responses(again, lost)
+    assert svc2.stats.requests == 1
+    after = svc2.bank.consumed_counts()
+    assert all(after[k] > v for k, v in before.items())
+    assert set(got) == {0}
+
+
+def test_wire_chaos_keyed_exactly_once():
+    """Drops, duplicates and corruption on the client's frames, keyed
+    (tampered frames rejected like corrupt ones): every response equals
+    the direct run's, each rid is scored once, and a retried rid is
+    answered from the published responses."""
+    jk, tk = fitted("vertical")
+    b = _plane_batches(4)
+    ref = _one_at_a_time(JScoringService(jk, **PLANE), b)
+    key = C.session_key("serving-plane-test")
+    ta, tb = C.LoopbackTransport.pair()
+    ft = C.FaultyTransport(ta, seed=9, drop=0.15, dup=0.15, corrupt=0.2)
+    svc = ScoringService(tk, **dict(PLANE, provision_copies=8))
+    server = ScoringServer(svc, tb, idle_timeout_s=30.0, auth_key=key)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    client = ScoringClient(ft, auth_key=key, deadline_s=20.0)
+    got = {}
+    for xa, xb in b:
+        r = client.score(xa, xb)
+        got[r.request_id] = r
+    # a retry wave of an answered rid: replayed, not re-scored
+    again = client.score(*b[0], rid=0)
+    client.bye()
+    th.join(timeout=30)
+    assert not th.is_alive()
+    _assert_same_responses(got, ref)
+    np.testing.assert_array_equal(again.labels, ref[0].labels)
+    assert svc.stats.requests == len(b) and server.replays == 1
+    f = ft.faults
+    assert f.dropped + f.duplicated + f.corrupted > 0
+    assert server.responder.crc_drops > 0 or f.corrupted == 0
