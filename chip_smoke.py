@@ -97,7 +97,33 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      killed after its 100th journaled response and restarted on the same
      port: every response equals an uninterrupted in-process service's,
      each rid scored once, the bank's consumed counts equal; it prints
-     each part's seconds, traffic, restart seconds and retries;
+     each part's seconds, traffic, restart seconds and retries (the
+     server's replays are its tracer's `serve.replay` instants);
+  8. (run after 7) observability, the serving launcher and the
+     supervisor: 8a phase 4's on-demand fit, phase 4b's sparse pooled fit
+     and phase 4c's dense pooled minibatch fit (batch 25,000, pipeline
+     on) with the port's tracer on, each equal word for word to its
+     untraced fit (the on-demand one launching what phase 4's did), with
+     the code's span counts (those of a CPU fit of the configuration),
+     `repro_fit_iteration_seconds` grown by the iterations and a Chrome
+     trace that loads, printing each fit's flame summary and its step
+     spans against loop_seconds, traced against untraced; 8b
+     `launch/serve_kmeans.serve()` at the fraud deployment's widths over
+     2,000 Poisson(48)-row requests: the registry's online traffic equals
+     phase 4's, the serve gauges count the stream, the bank gauges read
+     the bank's own counts, no NaN in the exposition; 8c `python -m
+     repro_torch.launch.serve_kmeans --supervised` at those widths, the
+     server killed after 50 journaled responses of 100 (6c's stream):
+     one crash (rc 17) and one restart, every rid answered once with the
+     words of the in-process service `serve_wire` builds, /health 503
+     until READY and 200 after, /metrics after the restart with phase
+     4's online traffic, a parent without CUDA, and the client's and the
+     surviving server's traces merged on the client's trace ids; 8d phase
+     7a's two-party command at 2 iterations with `--trace-out` on both
+     parties: A's wire.exchange spans carry its session's payload bytes
+     and rounds, B handled every request A sent, B without CUDA, both
+     parties on the merged timeline; scratch files go to the ignored
+     `build/phase8/` and are removed;
   5. drives the kernel API (`repro_torch.kernels.ops`) the same way, with
      the launch counters set to 0 just before and read just after:
      plaintext Lloyd iterations (esd -> argmin_onehot -> C^T x through
@@ -110,10 +136,11 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      PyTorch call for the same function where there is one; spmm_ell also
      at the drive's own C^T x (the one-hot of an iteration's argmin_onehot,
      packed as spmm_from_dense packs it, times x at each width);
-  8. prints one JSON line of per-kernel launches (the fit path's, and for
-     the fit kernels the scoring path's as `scoring_launches` and phase
-     7's as `durability_launches`), times and bounds, the nvidia-smi line,
-     and finally {"ok": true, "device": {...}}.
+  9. prints one JSON line of per-kernel launches (the fit path's, and for
+     the fit kernels the scoring path's as `scoring_launches`, phase 7's
+     as `durability_launches` and phase 8's in-process and party-A
+     launches as `observability_launches`), times and bounds, the
+     nvidia-smi line, and finally {"ok": true, "device": {...}}.
 
 Phases 2 and 3 cover the sparse slice too: `spmm_ell` against its plain
 version at both main-path shapes and at odd ones, and the sparse GPU fit
@@ -786,12 +813,14 @@ def _cold_caches() -> None:
 
 
 def fit_record(res):
-    """What `same_fit` compares of a fit, without its dealer's pool."""
+    """What `same_fit` compares of a fit, without its dealer's pool, and
+    its loop seconds."""
     from types import SimpleNamespace
     d = res.dealer
     return SimpleNamespace(
         centroids=res.centroids, assignment=res.assignment, log=res.log,
         he_seconds=res.he_seconds, iters_run=res.iters_run,
+        loop_seconds=res.loop_seconds,
         dealer=SimpleNamespace(n_matmul=d.n_matmul, n_mul=d.n_mul,
                                n_bin=d.n_bin))
 
@@ -1365,7 +1394,8 @@ def phase_main_path():
     per_iter, pooled = phase_offline_fits(
         f"main path (vertical, n={N}, d={DA}+{DB}, k={K})", cfg,
         x[:, :DA], x[:, DA:], res, {**launches, "spmm_ell": dense_spmm})
-    return launches, per_iter["pooled"], pooled
+    return launches, per_iter["pooled"], pooled, \
+        (fit_record(res), {**launches, "spmm_ell": dense_spmm})
 
 
 # ---------------------------------------------------------------------------
@@ -1557,7 +1587,8 @@ def phase_minibatch_main_path(full_per_iter: dict, full_pooled) -> tuple:
     pooled, peak pool under the residency bound), and streamed at n =
     400,000 (3 iterations) under the same bound. Sparse: batch_size 25,000
     pooled with pipeline on, off, off, on (identical). Returns the sparse
-    sequential fit's record and its loop launches (phase 7c's reference)."""
+    sequential fit's record and its loop launches (phase 7c's reference)
+    and the dense pipelined fit's record (phase 8a's)."""
     import dataclasses
     from repro_torch.core.kmeans import KMeansConfig
     x = _blobs(np.random.default_rng(SEED + 7), N, DA + DB, K)
@@ -1586,7 +1617,7 @@ def phase_minibatch_main_path(full_per_iter: dict, full_pooled) -> tuple:
     bound = residency_bound(streamed.dealer)
     pool100 = streamed.dealer.pool_bytes
     rest100 = peak100 - resident_bytes(streamed, N, DA + DB)
-    del streamed, pipe_rec, x, xa, xb
+    del streamed, x, xa, xb
     if pool100 > bound:
         fail(f"streamed minibatch pool peak {pool100} B > bound {bound} B")
     if rest100 > bound:
@@ -1626,7 +1657,7 @@ def phase_minibatch_main_path(full_per_iter: dict, full_pooled) -> tuple:
     _, launches, _, sequential = pipeline_turns(
         f"sparse minibatch (vertical, n={SP_N}, d={SP_DA}+{SP_DB}, k={SP_K}",
         cfg, x, SP_DA)
-    return sequential, launches
+    return sequential, launches, pipe_rec
 
 
 # ---------------------------------------------------------------------------
@@ -1696,12 +1727,12 @@ def _requests(rng, x: np.ndarray, count: int) -> list:
 def _turn_line(label: str, svc, st: dict, held: int, pool: int) -> str:
     """One service turn's readings (ServiceStats, the bank, memory)."""
     from repro_torch.core import sparse
-    host = st["host_seconds"]
+    host = svc.stats.host_seconds
     pack = (f", ELL packing and upload enqueue "
             f"{sparse.ELL_PACK_SECONDS:.3f} s" if svc.model.cfg.sparse
             else "")
     return (f"{label}: {st['requests']} requests, {st['rows']} rows in "
-            f"{st['launches']} calls {st['rung_calls']}, drain "
+            f"{st['launches']} calls {svc.stats.rung_calls}, drain "
             f"{st['online_seconds']:.3f} s (host prepare {host['prepare']:.3f}"
             f", launch {host['launch']:.3f}, collect {host['collect']:.3f})"
             f"{pack}, {st['rows_per_s']} rows/s, pad_overhead "
@@ -1762,7 +1793,7 @@ def _serve_turns(label: str, km, result, reqs: list, da: int,
                      f"{r.topup_copies} calls in {r.topup_seconds:.3f} s")
             if first is None:
                 first = out
-                copies = max(st["rung_calls"].values())
+                copies = max(svc.stats.rung_calls.values())
         else:
             if st["replenish_events"]:
                 fail(f"{name}: {st['replenish_events']} replenishments "
@@ -2559,7 +2590,8 @@ def scoring_server(argv: list) -> None:
     `ServeCheckpointer` in DIR/serve; with DIE_AFTER > 0 it exits with
     KILL_EXIT_CODE right after that many journaled responses. Prints
     `SERVING {json}` once ready and `SERVER_STATS {json}` after the
-    client's BYE."""
+    client's BYE; its `replays` are the tracer's `serve.replay` instants
+    (rids answered from the published responses)."""
     import os
     d, port, die_after = pathlib.Path(argv[0]), int(argv[1]), int(argv[2])
     t0 = time.perf_counter()
@@ -2568,7 +2600,9 @@ def scoring_server(argv: list) -> None:
     from repro_torch.core import faultpoints
     from repro_torch.core.interop import result_from_reference
     from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+    from repro_torch.obs import trace as _trace
     from repro_torch.serve import ScoringServer, ScoringService
+    tracer = _trace.configure(enabled=True, process="server")
     z = np.load(d / "model.npz")
     km = SecureKMeans(KMeansConfig(k=K, iters=ITERS, partition="vertical",
                                    seed=SEED))
@@ -2581,7 +2615,7 @@ def scoring_server(argv: list) -> None:
         svc, server = held["svc"], held.get("server")
         r = server.responder if server is not None else None
         return {"requests": svc.stats.requests,
-                "replays": server.replays if server is not None else 0,
+                "replays": tracer.span_counts().get("serve.replay", 0),
                 "dedup_replays": r.dedup_replays if r else 0,
                 "crc_drops": r.crc_drops if r else 0,
                 "launches": _launch_counters()}
@@ -2630,6 +2664,596 @@ def phase_durability(src: pathlib.Path, model, sp_seq,
         shutil.rmtree(PHASE7_DIR, ignore_errors=True)
     print(f"phase 7 launches (7a and 7b's A, 7c, 7d's servers): {out}",
           flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: observability, the serving launcher and the supervisor
+# ---------------------------------------------------------------------------
+
+PHASE8_DIR = ROOT / "build" / "phase8"     # ignored; removed at the end
+OB_COPIES = 200        # 8b: provisioned calls per rung, sized as phase 6c
+                       # sizes its banks (~197 calls at the 512 rung)
+OB_SUP_REQUESTS = 100  # 8c: the first requests of 6c's stream
+OB_DIE_AFTER = 50      # 8c: the first server dies after this many
+                       # journaled responses
+OB_WIRE_ITERS = 2      # 8d: phase 7a's command cut to 2 iterations
+OB_CPU_N = 512         # 8a: the CPU fits the span counts are held to
+OB_CPU_BATCH = 128     # 8a: 4 batches, as phase 4c's n / MB_BATCH
+
+
+def _recorded(tracer) -> list:
+    """The tracer's events in the order they were recorded (a span records
+    when it closes)."""
+    with tracer._lock:
+        return [dict(e) for e in tracer._events]
+
+
+def _seconds(events, names) -> float:
+    return sum(e.get("dur", 0) for e in events if e["name"] in names) / 1e6
+
+
+def _hist_count(name: str) -> int:
+    from repro_torch.obs import metrics as _metrics
+    return _metrics.get_registry().snapshot().get(name, {"count": 0})[
+        "count"]
+
+
+def _traced_fit(label: str, cfg, xa, xb) -> tuple:
+    """One fit from cold caches with the port's global tracer on and empty
+    and the launch counters at 0. Exports the trace to PHASE8_DIR and
+    loads it back. Returns (result, launches, span counts, events in
+    record order, fit iterations the histogram observed)."""
+    from repro_torch.core.kmeans import SecureKMeans
+    from repro_torch.obs import trace as _trace
+    tracer = _trace.get_tracer()
+    tracer.reset()
+    h0 = _hist_count("repro_fit_iteration_seconds")
+    _cold_caches()
+    _zero_launch_counters()
+    res = SecureKMeans(cfg).fit(xa, xb)
+    launches = _launch_counters()
+    path = PHASE8_DIR / f"8a_{label}.json"
+    tracer.export_chrome(str(path))
+    doc = json.loads(path.read_text())
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    if not spans:
+        fail(f"8a {label}: the exported trace holds no span")
+    return (res, launches, tracer.span_counts(), _recorded(tracer),
+            _hist_count("repro_fit_iteration_seconds") - h0)
+
+
+def _cpu_span_counts(cfg, xa, xb) -> tuple:
+    """The span counts and record-ordered events of the same fit on the
+    CPU, from cold caches."""
+    import dataclasses
+    from repro_torch.core.kmeans import SecureKMeans
+    from repro_torch.obs import trace as _trace
+    tracer = _trace.get_tracer()
+    tracer.reset()
+    _cold_caches()
+    SecureKMeans(dataclasses.replace(cfg, backend="torch", device="cpu")) \
+        .fit(xa, xb)
+    _cold_caches()
+    return tracer.span_counts(), _recorded(tracer)
+
+
+def _fit_line(label: str, res, untraced_loop: float, events, steps,
+              tracer_summary: str) -> None:
+    step_s = _seconds(events, steps)
+    print(f"8a {label}: loop_seconds traced {res.loop_seconds:.3f} against "
+          f"untraced {untraced_loop:.3f}; the step spans ({', '.join(steps)}) "
+          f"sum to {step_s:.3f} s of the traced loop's "
+          f"{res.loop_seconds:.3f} s (host time: a span around queued "
+          f"kernels measures their enqueue)\n" + "\n".join(
+              "    " + line for line in tracer_summary.splitlines()),
+          flush=True)
+
+
+def phase_traced_fits(dense_ref, dense_launches: dict, sp_pooled,
+                      mb_pooled) -> dict:
+    """8a: phase 4's on-demand fit, phase 4b's sparse pooled fit and phase
+    4c's dense pooled minibatch fit (batch 25,000, pipeline on) with the
+    port's global tracer on: each equals its untraced fit word for word,
+    the on-demand fit launches what phase 4's did, the span counts are the
+    code's (and a CPU fit's), the iteration histogram grows by the
+    iterations, and each exported Chrome trace loads. Returns the three
+    fits' launches."""
+    import dataclasses
+    from repro_torch.core.kmeans import KMeansConfig
+    from repro_torch.obs import trace as _trace
+    tracer = _trace.configure(enabled=True, process="chip_smoke")
+    total = {n: 0 for n in dense_launches}
+
+    def add(launches):
+        for n in total:
+            total[n] += launches[n]
+
+    try:
+        # dense, on demand
+        x = _blobs(np.random.default_rng(SEED + 7), N, DA + DB, K)
+        cfg = KMeansConfig(k=K, iters=ITERS, partition="vertical", seed=SEED)
+        res, launches, counts, events, hist = _traced_fit(
+            "dense_on_demand", cfg, x[:, :DA], x[:, DA:])
+        same_fit("8a traced dense on-demand fit vs phase 4's", res,
+                 dense_ref)
+        if launches != dense_launches:
+            fail(f"8a dense: the traced fit launched {launches}, phase 4's "
+                 f"{dense_launches}")
+        want = {"fit": 1, "fit.s1_distances": ITERS, "fit.s2_argmin": ITERS,
+                "fit.s3_update": ITERS}
+        if {n: counts.get(n, 0) for n in want} != want or hist != ITERS:
+            fail(f"8a dense: spans {counts}, histogram +{hist}")
+        add(launches)
+        steps = ("fit.s1_distances", "fit.s2_argmin", "fit.s3_update")
+        split = {n: _seconds(events, (n,)) for n in steps}
+        print(f"8a dense on-demand fit (n={N}, d={DA}+{DB}, k={K}, {ITERS} "
+              f"iters), traced: equal word for word to phase 4's, kernels "
+              f"{launches} = phase 4's; spans {counts}; "
+              f"repro_fit_iteration_seconds +{hist}; step split "
+              + ", ".join(f"{n} {v:.3f} s" for n, v in split.items()),
+              flush=True)
+        _fit_line("dense on demand", res, dense_ref.loop_seconds, events,
+                  steps, tracer.flame_summary(top=6))
+        del res, x
+
+        # sparse, pooled
+        x = _one_hot_like(np.random.default_rng(SP_SEED + 7), SP_N,
+                          SP_DA + SP_DB, SP_K, SP_SPARSITY)
+        cfg = KMeansConfig(k=SP_K, iters=SP_ITERS, partition="vertical",
+                           seed=SP_SEED, sparse=True, offline="pooled")
+        res, launches, counts, events, hist = _traced_fit(
+            "sparse_pooled", cfg, x[:, :SP_DA], x[:, SP_DA:])
+        same_fit("8a traced sparse pooled fit vs phase 4b's", res, sp_pooled)
+        steps = ("fit.s1_exchange", "fit.s1_launch", "fit.s2_callback",
+                 "fit.s3_launch")
+        if any(counts.get(n, 0) != SP_ITERS for n in steps) \
+                or hist != SP_ITERS:
+            fail(f"8a sparse: spans {counts}, histogram +{hist}")
+        summary = tracer.flame_summary(top=6)
+        small = _one_hot_like(np.random.default_rng(SP_SEED + 7), OB_CPU_N,
+                              SP_DA + SP_DB, SP_K, SP_SPARSITY)
+        cpu_counts, _ = _cpu_span_counts(cfg, small[:, :SP_DA],
+                                         small[:, SP_DA:])
+        if cpu_counts != counts:
+            fail(f"8a sparse: spans {counts}, the CPU fit at n={OB_CPU_N} "
+                 f"{cpu_counts}")
+        t_loop = min(e["ts"] for e in events if e["name"] in steps)
+        in_loop = sum(1 for e in events
+                      if e["name"] == "he.exchange" and e["ts"] >= t_loop)
+        add(launches)
+        print(f"8a sparse pooled fit (n={SP_N}, d={SP_DA}+{SP_DB}, k={SP_K}, "
+              f"{SP_ITERS} iters), traced: equal word for word to phase "
+              f"4b's pooled fit; spans {counts} = the CPU fit's at "
+              f"n={OB_CPU_N}; he.exchange {counts['he.exchange']} in all, "
+              f"{in_loop / SP_ITERS:g} an iteration in the loop (the rest "
+              f"the planning trace's); kernels {launches} (planning "
+              f"included)", flush=True)
+        _fit_line("sparse pooled", res, sp_pooled.loop_seconds, events,
+                  steps, summary)
+        del res, x, small
+
+        # dense, pooled minibatch, pipelined
+        x = _blobs(np.random.default_rng(SEED + 7), N, DA + DB, K)
+        cfg = KMeansConfig(k=K, iters=ITERS, partition="vertical", seed=SEED,
+                           offline="pooled", batch_size=MB_BATCH,
+                           pipeline=True)
+        res, launches, counts, events, hist = _traced_fit(
+            "minibatch", cfg, x[:, :DA], x[:, DA:])
+        same_fit("8a traced minibatch fit vs phase 4c's", res, mb_pooled,
+                 he_rel=1e-12)
+        summary = tracer.flame_summary(top=6)
+        small = _blobs(np.random.default_rng(SEED + 7), OB_CPU_N, DA + DB, K)
+        cpu_counts, cpu_events = _cpu_span_counts(
+            dataclasses.replace(cfg, batch_size=OB_CPU_BATCH),
+            small[:, :DA], small[:, DA:])
+
+        def schedule(evs):
+            return [(e["name"], e["args"]["task"]) for e in evs
+                    if e["name"].startswith("pipeline.")]
+
+        pipe = {n: c for n, c in counts.items() if n.startswith("pipeline.")}
+        if schedule(events) != schedule(cpu_events) \
+                or pipe != {n: c for n, c in cpu_counts.items()
+                            if n.startswith("pipeline.")} \
+                or hist != ITERS:
+            fail(f"8a minibatch: pipeline spans {pipe}, the CPU fit's with "
+                 f"{N // MB_BATCH} batches {cpu_counts}; histogram +{hist}")
+        # run_pipeline is single-threaded: the overlap is the order, batch
+        # t+1's pre between batch t's launch and its post
+        order = schedule(events)
+        for i, (name, task) in enumerate(order):
+            if name == "pipeline.pre" and task > 0:
+                # the nearest earlier launch or post of batch t-1 (batches
+                # count from 0 in each iteration) must be its launch
+                last = next(n for n, tk in reversed(order[:i])
+                            if tk == task - 1 and n in ("pipeline.launch",
+                                                        "pipeline.post"))
+                if last != "pipeline.launch":
+                    fail(f"8a minibatch: pre of batch {task} ran outside "
+                         f"batch {task - 1}'s launch-to-post window")
+        lanes = {e["tid"] for e in events if e["name"].startswith("pipe")}
+        add(launches)
+        print(f"8a dense pooled minibatch fit (batch {MB_BATCH}, pipeline), "
+              f"traced: equal word for word to phase 4c's; pipeline spans "
+              f"{pipe} in the CPU fit's order with the same batches; every "
+              f"batch t+1's pre between batch t's launch and post, on "
+              f"{len(lanes)} thread lane (run_pipeline is single-threaded); "
+              f"kernels {launches} (planning included)", flush=True)
+        _fit_line("minibatch", res, mb_pooled.loop_seconds, events,
+                  tuple(pipe), summary)
+        del res, x
+    finally:
+        _trace.configure(enabled=False)
+        tracer.reset()
+    return total
+
+
+def _prom_value(text: str, series: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    fail(f"no series {series} in the exposition")
+
+
+def phase_serve_in_process(dense_ref) -> dict:
+    """8b: `repro_torch.launch.serve_kmeans.serve()` at the fraud
+    deployment's widths over 6c's stream shape: the registry's online
+    comm gauges equal phase 4's fit's totals, the serve gauges count the
+    stream, the bank gauges agree with the service's calls, the exposition
+    has no NaN. Returns its launches."""
+    from repro_torch.launch import serve_kmeans
+    from repro_torch.obs import metrics as _metrics
+    from repro_torch.obs import trace as _trace
+    _metrics.get_registry().reset()
+    _cold_caches()
+    _zero_launch_counters()
+    trace_path = PHASE8_DIR / "8b.json"
+    try:
+        out = serve_kmeans.serve(
+            n_train=N, d_a=DA, d_b=DB, k=K, iters=ITERS, rungs=SC_RUNGS,
+            requests=SC_REQUESTS, mean_batch=SC_MEAN_ROWS,
+            provision_copies=OB_COPIES, stats_interval=1.0,
+            trace_out=str(trace_path))
+    finally:
+        _trace.configure(enabled=False)
+        _trace.get_tracer().reset()
+    launches = _launch_counters()
+    reg = _metrics.get_registry()
+    text = reg.render_prometheus()
+    snap = reg.snapshot()
+    rows = int(np.maximum(1, np.random.default_rng(1).poisson(
+        SC_MEAN_ROWS, SC_REQUESTS)).sum())
+    comm = (snap['repro_comm_bytes_total{phase="online"}'],
+            snap['repro_comm_rounds_total{phase="online"}'])
+    want = (dense_ref.log.total_bytes("online"),
+            dense_ref.log.total_rounds("online"))
+    if comm != want:
+        fail(f"8b: the registry's online traffic {comm}, phase 4's {want}")
+    if "NaN" in text.split():
+        fail("8b: the exposition holds NaN")
+    if (snap["repro_serve_requests"], snap["repro_serve_rows"]) \
+            != (SC_REQUESTS, rows) or out["rows"] != rows:
+        fail(f"8b: served {snap['repro_serve_requests']} requests of "
+             f"{snap['repro_serve_rows']} rows, want {SC_REQUESTS} of {rows}")
+    # the bank the gauges read: their callbacks close over it
+    fn = reg.gauge("repro_bank_served_requests_total")._fn
+    bank = fn.__closure__[0].cell_contents
+    own = {"repro_bank_served_requests_total": bank.served_requests,
+           "repro_bank_consumed_requests_total":
+           sum(bank.consumed_counts().values()),
+           "repro_bank_replenish_events_total": bank.replenish_events,
+           **{f'repro_bank_stock_copies{{key="{k}"}}': bank.stock_copies(k)
+              for k in bank.keys()}}
+    gauges = {k: snap[k] for k in own}
+    if gauges != own or bank.replenish_events != out["replenish_events"]:
+        fail(f"8b: bank gauges {gauges}, the bank's counts {own}")
+    stock = sum(v for k, v in own.items() if "stock" in k)
+    served = own["repro_bank_served_requests_total"]
+    del bank, fn
+    json.loads(trace_path.read_text())
+    print(f"8b serve() in process (n_train={N}, d={DA}+{DB}, k={K}, {ITERS} "
+          f"iters, ladder {SC_RUNGS}, {SC_REQUESTS} requests of "
+          f"Poisson({SC_MEAN_ROWS}) rows = {rows} rows, provision_copies "
+          f"{OB_COPIES}): registry online traffic {int(comm[0])} B in "
+          f"{int(comm[1])} "
+          f"rounds = phase 4's fit; repro_serve_requests "
+          f"{int(snap['repro_serve_requests'])}, rows "
+          f"{int(snap['repro_serve_rows'])}; "
+          f"bank gauges = the bank's own counts ({served} requests served, "
+          f"{stock} calls left in stock of {len(SC_RUNGS) * OB_COPIES} after "
+          f"{out['launches']} calls, replenish events "
+          f"{out['replenish_events']}); no NaN in {len(text.splitlines())} "
+          f"exposition lines; {out['rows_per_s']} rows/s, p50 "
+          f"{out['p50_ms']} ms, p99 {out['p99_ms']} ms, jaccard_stream "
+          f"{out['jaccard_stream']}; fit {out['fit_s']} s, warm "
+          f"{out['warm_s']} s, drain {out['drain_s']} s; kernels "
+          f"{launches}", flush=True)
+    return launches
+
+
+def _http(url: str) -> tuple:
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=2) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+    except OSError:
+        return None, ""
+
+
+def phase_supervised(src: pathlib.Path, dense_ref) -> None:
+    """8c: `python -m repro_torch.launch.serve_kmeans --supervised` on the
+    card, the first server killed after OB_DIE_AFTER journaled responses:
+    the supervisor restarts it once; every one of the first OB_SUP_REQUESTS
+    requests of 6c's stream is answered once, equal to an in-process
+    service built as `serve_wire` builds it; /health answers 503 before
+    READY and 200 after; /metrics after the restart has phase 4's online
+    traffic; the parent never initialized CUDA; the client's and the
+    surviving server's traces merge on the client's trace ids."""
+    import queue
+    import re
+    import threading
+    from repro_torch.core import channel as C
+    from repro_torch.core.fraud import FraudDataset
+    from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+    from repro_torch.obs import trace as _trace
+    from repro_torch.serve import ScoringClient, ScoringService
+    x = _blobs(np.random.default_rng(SEED + 7), N, DA + DB, K)
+    # the first OB_SUP_REQUESTS of 6c's stream (Poisson draws in sequence)
+    reqs = _requests(np.random.default_rng(SC_SEED), x, OB_SUP_REQUESTS)
+    rows = sum(len(q) for q in reqs)
+    del x
+    # the reference: the model and service serve_wire builds (seed 0)
+    ds = FraudDataset.synthesize(n=N, d_a=DA, d_b=DB, n_clusters=K, seed=0)
+    km = SecureKMeans(KMeansConfig(k=K, iters=ITERS, seed=0,
+                                   offline="pooled"))
+    res = km.fit(ds.x_a, ds.x_b)
+    del ds
+    svc = ScoringService(km, res, rungs=SC_RUNGS, with_scores=True, d_a=DA,
+                         d_b=DB, provision_copies=8)
+    ref = {}
+    for i, q in enumerate(reqs):
+        svc.submit(q[:, :DA], q[:, DA:])
+        (r,) = svc.drain()
+        ref[i] = r
+    svc.close()
+    del svc, km, res
+    torch.cuda.empty_cache()
+
+    import shutil
+    d = PHASE8_DIR / "8c"
+    shutil.rmtree(d, ignore_errors=True)
+    strace, ctrace = PHASE8_DIR / "8c_server.json", PHASE8_DIR / "8c_client.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_kmeans",
+           "--supervised", "--serve-port", "0", "--metrics-port", "0",
+           "--serve-checkpoint-dir", str(d), "--die-after-responses",
+           str(OB_DIE_AFTER), "--n-train", str(N), "--d-a", str(DA),
+           "--d-b", str(DB), "--k", str(K), "--iters", str(ITERS),
+           "--rungs", ",".join(map(str, SC_RUNGS)), "--trace-out",
+           str(strace)]
+    sup = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True,
+                           env=_src_env(src))
+    lines: queue.Queue = queue.Queue()
+    out_lines = []
+
+    def read():
+        for line in sup.stdout:
+            out_lines.append(line)
+            lines.put(line)
+        lines.put(None)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    health = []              # /health's status codes, 50 ms apart
+    state = {"mport": None, "stop": False}
+    t_spawn = time.perf_counter()
+
+    def poll():
+        while not state["stop"]:
+            if state["mport"] is not None:
+                code, _ = _http(f"http://127.0.0.1:{state['mport']}/health")
+                if code is not None:
+                    health.append(code)
+            time.sleep(0.05)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+
+    def wait_for(pattern: str, timeout: float = 300.0):
+        end = time.perf_counter() + timeout
+        while time.perf_counter() < end:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            if line is None:
+                fail(f"8c: the supervisor exited {sup.wait()}:\n"
+                     + "".join(out_lines)[-3000:])
+            m = re.search(r"METRICS (\d+)", line)
+            if m:
+                state["mport"] = int(m.group(1))
+            m = re.search(pattern, line)
+            if m:
+                return m
+        fail(f"8c: no {pattern!r} line in {timeout} s:\n"
+             + "".join(out_lines)[-3000:])
+
+    try:
+        port = int(wait_for(r"SERVING (\d+)").group(1))
+        ready_s = time.perf_counter() - t_spawn
+        tracer = _trace.Tracer(enabled=True, process="client")
+        t = C.SocketTransport("connect", port=port, io_timeout_s=10.0,
+                              connect_retries=3)
+        client = ScoringClient(t, deadline_s=15.0, try_timeout_s=0.5,
+                               waves=40, retry_wait_s=1.0, tracer=tracer)
+        got = {}
+        gaps = []
+        t0 = t_last = time.perf_counter()
+        for i, q in enumerate(reqs):
+            got[i] = client.score(q[:, :DA], q[:, DA:], rid=i)
+            now = time.perf_counter()
+            gaps.append(now - t_last)
+            t_last = now
+        wall = time.perf_counter() - t0
+        m_text = _http(f"http://127.0.0.1:{state['mport']}/metrics")[1]
+        client.bye()
+        t.close()
+        reader.join(timeout=180)
+        sup.wait(timeout=60)
+    finally:
+        state["stop"] = True
+        if sup.poll() is None:
+            sup.kill()
+            sup.wait()
+    out = "".join(out_lines)
+    if sup.returncode != 0:
+        fail(f"8c: the supervisor exited {sup.returncode}:\n{out[-3000:]}")
+    if "restart 1 after rc=17" not in out or \
+            "SUPERVISOR terminal: clean exit (rc=0, restarts=1)" not in out:
+        fail(f"8c: want one crash (rc 17) and one restart:\n{out[-3000:]}")
+    stats = json.loads(out.split("SUPERVISOR_STATS ")[1].splitlines()[0])
+    if stats["cuda_initialized"]:
+        fail("8c: the supervising parent initialized CUDA")
+    for i, r in ref.items():
+        g = got[i]
+        if g.error is not None or g.request_id != i \
+                or not np.array_equal(g.labels, r.labels) \
+                or not np.array_equal(g.scores, r.scores):
+            fail(f"8c: request {i} differs from the in-process service")
+    # the first incarnation's probes, in order: 503 STARTING while it
+    # warmed, then 200 READY (its SERVING line follows READY)
+    first_ok = health.index(200) if 200 in health else len(health)
+    if first_ok in (0, len(health)) or set(health[:first_ok]) != {503}:
+        fail(f"8c: /health answered {health[:20]}... before and at READY, "
+             f"want 503 until 200")
+    comm = (_prom_value(m_text, 'repro_comm_bytes_total{phase="online"}'),
+            _prom_value(m_text, 'repro_comm_rounds_total{phase="online"}'))
+    want = (dense_ref.log.total_bytes("online"),
+            dense_ref.log.total_rounds("online"))
+    if comm != want:
+        fail(f"8c: /metrics after the restart has online traffic {comm}, "
+             f"phase 4's fit {want}")
+    tracer.export_chrome(str(ctrace))
+    merged = _trace.merge_traces([str(ctrace), str(strace)])
+    evs = merged["traceEvents"]
+    client_ids = {e["args"]["trace"] for e in evs
+                  if e["pid"] == 1 and e["name"] == "client.score"}
+    served = [e for e in evs if e["pid"] == 2
+              and e["name"] == "serve.request"]
+    replayed = sorted(e["args"]["rid"] for e in evs if e["pid"] == 2
+                      and e["name"] == "serve.replay")
+    if len(client_ids) != OB_SUP_REQUESTS \
+            or any(e["args"].get("trace") not in client_ids for e in served):
+        fail("8c: a server request span carries no client trace id")
+    if sorted(e["args"]["rid"] for e in served) \
+            != list(range(OB_DIE_AFTER, OB_SUP_REQUESTS)) \
+            or replayed != [OB_DIE_AFTER - 1]:
+        fail(f"8c: the surviving server's request spans cover "
+             f"{sorted(e['args']['rid'] for e in served)}, replays "
+             f"{replayed}")
+    ev = {}
+    for kind, ts, inc in stats["events"]:
+        ev.setdefault((kind, inc), ts)
+    spawn_ready = [ev[("ready", i)] - ev[("spawn", i)] for i in (0, 1)]
+    outage = max(gaps)
+    print(f"8c supervised wire server (n_train={N}, d={DA}+{DB}, k={K}, "
+          f"{ITERS} iters, ladder {SC_RUNGS}; {OB_SUP_REQUESTS} requests of "
+          f"6c's stream, {rows} rows): the server died after its "
+          f"{OB_DIE_AFTER}th journaled response (rc 17), the supervisor "
+          f"restarted it once; every response equals the in-process "
+          f"service's, each rid answered once ({len(served)} request spans "
+          f"in the surviving server, rid {replayed} replayed from the "
+          f"journal, every span under a client trace id); /health 503 "
+          f"before the first READY ({first_ok} probes, 50 ms apart) and "
+          f"200 after; /metrics after the restart: online "
+          f"traffic {int(comm[0])} B in {int(comm[1])} rounds = phase 4's; "
+          f"the parent never initialized CUDA; spawn to ready "
+          f"{spawn_ready[0]:.3f} s first, {spawn_ready[1]:.3f} s restarted "
+          f"(death to ready {stats['restart_latencies'][0]:.3f} s); first "
+          f"SERVING {ready_s:.3f} s after the supervisor's spawn; outage "
+          f"{outage:.3f} s; {rows / wall:.0f} rows/s over the run "
+          f"({wall:.3f} s), {rows / (wall - outage):.0f} without the outage",
+          flush=True)
+
+
+def phase_two_party_traced(src: pathlib.Path) -> dict:
+    """8d: phase 7a's two-party command at OB_WIRE_ITERS iterations with
+    `--trace-out` on both parties: A's wire.exchange spans carry exactly
+    its session's payload bytes and rounds, B handled every request A
+    sent, B never initialized CUDA, the merged timeline has both pids.
+    Returns A's fit launches."""
+    import re
+    from repro_torch.obs import trace as _trace
+    fa, fb = PHASE8_DIR / "8d_a.json", PHASE8_DIR / "8d_b.json"
+    common = ["--n", str(TP_N), "--d", str(TP_D), "--k", str(TP_K),
+              "--iters", str(OB_WIRE_ITERS), "--seed", str(TP_SEED)]
+    run = _two_party(src, common + ["--out", str(PHASE8_DIR / "8d.npz"),
+                                    "--trace-out", str(fa)],
+                     ["--trace-out", str(fb)])
+    if run["rc_a"] != 0 or run["rc_b"] != 0:
+        fail(f"8d: party A exit {run['rc_a']}, B {run['rc_b']}:\n"
+             f"{run['a'][-3000:]}\n{run['b'][-3000:]}")
+    if _wire_stats(run["b"], "B")["cuda_initialized"]:
+        fail("8d: party B initialized CUDA")
+    m = re.search(r"wire (\d+) payload bytes / (\d+) rounds", run["a"])
+    if m is None:
+        fail(f"8d: party A printed no wire totals:\n{run['a'][-3000:]}")
+    payload, rounds = int(m.group(1)), int(m.group(2))
+    merged = _trace.merge_traces([str(fa), str(fb)])
+    evs = [e for e in merged["traceEvents"] if e["ph"] != "M"]
+    count = {}
+    for e in evs:
+        count[(e["pid"], e["name"])] = count.get((e["pid"], e["name"]), 0) + 1
+    ex = [e for e in evs if e["pid"] == 1 and e["name"] == "wire.exchange"]
+    ex_bytes = sum(e["args"]["nbytes"] for e in ex)
+    ex_rounds = sum(e["args"]["rounds"] for e in ex)
+    if (ex_bytes, ex_rounds) != (payload, rounds):
+        fail(f"8d: A's wire.exchange spans carry {ex_bytes} B in "
+             f"{ex_rounds} rounds, its session {payload} B in {rounds}")
+    if count.get((2, "wire.handle")) != count.get((1, "wire.request")):
+        fail(f"8d: B handled {count.get((2, 'wire.handle'))} requests, A "
+             f"sent {count.get((1, 'wire.request'))}")
+    if {e["pid"] for e in evs} != {1, 2}:
+        fail("8d: the merged timeline lacks a party")
+    meta = _party_out(PHASE8_DIR / "8d.npz")[1]
+    print(f"8d two-party fit with --trace-out (n={TP_N}, d={TP_D}, k={TP_K}, "
+          f"{OB_WIRE_ITERS} iters): A's {len(ex)} wire.exchange spans carry "
+          f"its session's {payload} B in {rounds} rounds (the CommLog's "
+          f"online traffic of the fit and the predict); A sent "
+          f"{count[(1, 'wire.request')]} requests, B handled "
+          f"{count[(2, 'wire.handle')]}; B never initialized CUDA; the "
+          f"merged timeline has both parties ({len(evs)} events); A's wall "
+          f"{run['wall']:.3f} s, fit {meta['fit_seconds']:.3f} s; kernels "
+          f"{meta['fit_launches']}", flush=True)
+    return meta["fit_launches"]
+
+
+def phase_observability(src: pathlib.Path, dense: tuple, sp_pooled,
+                        mb_pooled) -> dict:
+    """Phase 8 (8a-8d). Returns the launches per fit kernel of its
+    in-process paths (8a's traced fits, 8b's serve()) and 8d's party A;
+    8c's server processes count their own and are not read."""
+    import shutil
+    dense_ref, dense_launches = dense
+    shutil.rmtree(PHASE8_DIR, ignore_errors=True)
+    PHASE8_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        out = phase_traced_fits(dense_ref, dense_launches, sp_pooled,
+                                mb_pooled)
+        for part in (phase_serve_in_process(dense_ref),
+                     phase_two_party_traced(src)):
+            for name in out:
+                out[name] += part.get(name, 0)
+        phase_supervised(src, dense_ref)
+    finally:
+        shutil.rmtree(PHASE8_DIR, ignore_errors=True)
+    print(f"phase 8 launches (8a, 8b, 8d's A): {out}; phase 8 took "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
     return out
 
 
@@ -2709,15 +3333,17 @@ def main() -> None:
     phase_sparse_gpu_equals_cpu(SP_WIDE_K)
     phase_minibatch_gpu_equals_cpu()
     phase_scoring_gpu_equals_cpu()
-    launches, full_per_iter, full_pooled = phase_main_path()
+    launches, full_per_iter, full_pooled, dense = phase_main_path()
     sp_launches, sp_iter, sp_pooled = phase_sparse_main_path()
-    sp_seq, sp_seq_launches = phase_minibatch_main_path(full_per_iter,
-                                                        full_pooled)
+    sp_seq, sp_seq_launches, mb_pooled = phase_minibatch_main_path(
+        full_per_iter, full_pooled)
     score_launches = phase_scoring(full_per_iter, full_pooled, sp_pooled)
-    del sp_pooled
     torch.cuda.empty_cache()
     durable = phase_durability(src, full_pooled, sp_seq, sp_seq_launches)
     del full_pooled, sp_seq
+    observed = phase_observability(src, dense, sp_pooled, mb_pooled)
+    del dense, sp_pooled, mb_pooled
+    torch.cuda.empty_cache()
     data = api_data()
     api_launches = phase_api_main_path(data)
     api_rows, api_worst = phase_api_kernels(data)
@@ -2755,6 +3381,7 @@ def main() -> None:
          "launches": launches["ring_matmul"],
          "scoring_launches": score_launches["ring_matmul"],
          "durability_launches": durable["ring_matmul"],
+         "observability_launches": observed["ring_matmul"],
          "max_abs_err": worst["ring_matmul"],
          "ms": mm[0], "plain_ms": mm[1], "bound_ms": mm[2],
          "bound_by": mm[3], "library_ms": None},
@@ -2764,6 +3391,7 @@ def main() -> None:
          "launches": launches["ks_carry_share"],
          "scoring_launches": score_launches["ks_carry_share"],
          "durability_launches": durable["ks_carry_share"],
+         "observability_launches": observed["ks_carry_share"],
          "max_abs_err": worst["ks_carry_share"],
          "ms": ks[0], "plain_ms": ks[1], "bound_ms": ks[2],
          "bound_by": ks[3], "library_ms": None},
@@ -2776,6 +3404,7 @@ def main() -> None:
          "launches": sp_launches["spmm_ell"],
          "scoring_launches": score_launches["spmm_ell"],
          "durability_launches": durable["spmm_ell"],
+         "observability_launches": observed["spmm_ell"],
          "max_abs_err": worst["spmm_ell"],
          "ms": sp_iter[0], "plain_ms": sp_iter[1], "bound_ms": sp_iter[2],
          "bound_by": sp_iter[3], "library_ms": lib_ms},

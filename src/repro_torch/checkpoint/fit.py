@@ -39,6 +39,7 @@ import numpy as np
 from repro_torch.checkpoint.store import fsync_path, fsync_tree
 from repro_torch.core import faultpoints as _fp
 from repro_torch.core.triples import _key_from_str, _key_to_str
+from repro_torch.obs import trace as _trace
 
 
 class FingerprintMismatch(ValueError):
@@ -111,6 +112,12 @@ class FitCheckpointer:
         return os.path.join(self.dir, f"step_{step:010d}")
 
     def save(self, state: FitState) -> str:
+        with _trace.span("checkpoint.fit_save", step=int(state.step),
+                         iteration=int(state.iteration),
+                         batch=int(state.batch)):
+            return self._save(state)
+
+    def _save(self, state: FitState) -> str:
         arrays = {"mu0": np.asarray(state.mu0, np.uint64),
                   "mu1": np.asarray(state.mu1, np.uint64)}
         if state.acc is not None:

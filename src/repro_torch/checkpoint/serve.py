@@ -44,6 +44,7 @@ import numpy as np
 
 from repro_torch.checkpoint.store import fsync_path
 from repro_torch.core.triples import TripleBank, _key_from_str, _key_to_str
+from repro_torch.obs import trace as _trace
 
 JOURNAL_FORMAT = "repro.servejournal"
 JOURNAL_VERSION = 1
@@ -93,6 +94,11 @@ class ServeCheckpointer:
         the bank's CUMULATIVE per-class consumed counts at publish time.
         Later batches carry larger counts, so the newest file alone
         realigns a reloaded bank."""
+        with _trace.span("checkpoint.journal", batch=int(self._batch),
+                         responses=len(responses)):
+            return self._record(responses, consumed)
+
+    def _record(self, responses, consumed: dict) -> str:
         arrays = {}
         metas = []
         for j, r in enumerate(responses):

@@ -45,6 +45,8 @@ from collections import defaultdict
 import numpy as np
 
 from repro_torch.core import faultpoints as _fp
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _trace
 
 _WIRE_LOG = logging.getLogger("repro_torch.wire")
 
@@ -372,16 +374,20 @@ class FrameDecoder:
     Integrity-failed frames are dropped and counted (`crc_errors`; keyed
     decoders additionally count MAC failures in `auth_errors`); a bad
     magic means the byte stream itself desynced — unrecoverable without a
-    reconnect — so it raises `FrameError`. Every drop/desync also
-    surfaces as a rate-limited `repro_torch.wire` warning, so chaos-test
-    noise is diagnosable from logs alone instead of sitting in a bare
-    counter."""
+    reconnect — so it raises `FrameError`. Every drop/desync is also
+    routed to the metrics registry (`repro_frame_*_total`) and surfaces
+    as a rate-limited `repro_torch.wire` warning, so chaos-test noise is
+    diagnosable from logs alone instead of sitting in a bare counter."""
 
     def __init__(self, key: bytes | None = None) -> None:
         self._buf = bytearray()
         self.key = key
         self.crc_errors = 0
         self.auth_errors = 0
+        reg = _metrics.get_registry()
+        self._m_crc = reg.counter("repro_frame_crc_errors_total")
+        self._m_auth = reg.counter("repro_frame_auth_errors_total")
+        self._m_desync = reg.counter("repro_frame_resync_events_total")
 
     def feed(self, data: bytes) -> list[tuple[int, int, bytes]]:
         self._buf += data
@@ -390,12 +396,14 @@ class FrameDecoder:
             magic, _ftype, _seq, length, _crc_f = _HEADER.unpack_from(
                 self._buf)
             if magic != FRAME_MAGIC:
+                self._m_desync.inc()
                 _rate_warn.warn("desync",
                                 f"frame stream desync: bad magic "
                                 f"{magic:#x} with {len(self._buf)} B "
                                 "buffered; connection must reconnect")
                 raise FrameError(f"bad magic {magic:#x}: stream desync")
             if length > MAX_FRAME_PAYLOAD:
+                self._m_desync.inc()
                 _rate_warn.warn("desync",
                                 f"frame stream desync: oversized frame "
                                 f"({length} B)")
@@ -411,9 +419,11 @@ class FrameDecoder:
                 self.crc_errors += 1
                 if self.key is not None:
                     self.auth_errors += 1
+                    self._m_auth.inc()
                     _rate_warn.warn("auth",
                                     f"dropped unauthenticated frame: {e}")
                 else:
+                    self._m_crc.inc()
                     _rate_warn.warn("crc",
                                     f"dropped corrupt frame: {e}")
         return out
@@ -837,6 +847,16 @@ class ReliableChannel:
         self.crc_drops = 0
         self.reconnects = 0
         self.parked_s = 0.0
+        reg = _metrics.get_registry()
+        self._m_retries = reg.counter("repro_wire_retries_total")
+        self._m_crc_drops = reg.counter("repro_wire_resp_drops_total")
+        self._m_reconnects = reg.counter("repro_wire_reconnects_total")
+        self._h_rtt = reg.histogram(
+            "repro_wire_request_seconds",
+            buckets=_metrics.log_buckets(1e-5, 30.0))
+        self._h_backoff = reg.histogram(
+            "repro_wire_backoff_seconds",
+            buckets=_metrics.log_buckets(1e-3, 10.0))
 
     def request(self, ftype: int, payload: bytes = b"", *,
                 deadline_s: float | None = None,
@@ -844,6 +864,13 @@ class ReliableChannel:
         """Send one request and return the matching response's payload.
         One request at a time: the fit loops (the pipelined minibatch
         executor included) call in from one host thread."""
+        with _trace.span("wire.request", ftype=ftype, seq=self._seq):
+            return self._request(ftype, payload, deadline_s=deadline_s,
+                                 trace_id=trace_id)
+
+    def _request(self, ftype: int, payload: bytes, *,
+                 deadline_s: float | None,
+                 trace_id: bytes | None) -> bytes:
         seq = self._seq
         self._seq += 1
         frame = encode_frame(ftype, seq, payload, key=self.auth_key,
@@ -880,12 +907,15 @@ class ReliableChannel:
                             raw, key=self.auth_key, with_trace=True)
                     except FrameError:
                         self.crc_drops += 1   # corrupt/forged: wait/resend
+                        self._m_crc_drops.inc()
                         continue
                     if ft == want and rseq == seq:
+                        self._h_rtt.observe(time.monotonic() - t0)
                         return rpayload
                     # stale duplicate response of an earlier seq: ignore
             except ConnectionError:
                 self.reconnects += 1
+                self._m_reconnects.inc()
                 self.t.reconnect()
                 if self.reconnect_wait_s > 0.0:
                     now = time.monotonic()
@@ -902,16 +932,20 @@ class ReliableChannel:
                         pause = min(self.backoff_max_s, 0.2) \
                             * (0.5 + float(self._jitter.random()))
                         self.parked_s += pause
+                        _trace.instant("wire.park", seq=seq)
                         time.sleep(pause)
                         continue
             attempt += 1
             self.retries += 1
+            self._m_retries.inc()
+            _trace.instant("wire.retry", seq=seq, attempt=attempt)
             if attempt > self.max_retries:
                 raise WireError(
                     f"request seq={seq} ftype={ftype} failed after "
                     f"{attempt} tries (retries exhausted)")
             base = min(self.backoff_max_s, self.backoff_s * (2 ** (attempt - 1)))
             pause = base * (0.5 + float(self._jitter.random()))
+            self._h_backoff.observe(pause)
             time.sleep(pause)
 
 
@@ -951,6 +985,10 @@ class Responder:
         self._last_seq = -1
         self._last_resp: bytes | None = None
         self._incarnation: str | None = None
+        reg = _metrics.get_registry()
+        self._m_crc_drops = reg.counter("repro_responder_crc_drops_total")
+        self._m_dedup = reg.counter("repro_responder_dedup_replays_total")
+        self._m_stale = reg.counter("repro_responder_stale_drops_total")
 
     def _reply(self, resp: bytes) -> None:
         try:
@@ -988,6 +1026,7 @@ class Responder:
                     raw, key=self.auth_key, with_trace=True)
             except FrameError:
                 self.crc_drops += 1
+                self._m_crc_drops.inc()
                 continue
             if ftype & RESP_BIT:
                 continue                           # echo of our own class
@@ -1007,14 +1046,25 @@ class Responder:
                     self._last_seq, self._last_resp = -1, None
             if seq == self._last_seq:
                 self.dedup_replays += 1
+                self._m_dedup.inc()
                 self._reply(self._last_resp)
                 continue
             if seq < self._last_seq:
                 self.stale_drops += 1              # late duplicate
+                self._m_stale.inc()
                 continue
-            resp_payload = self.handler(ftype, payload)
-            # a request's trace id is echoed on its response so the
-            # requester can match them
+            # the frame's trace id becomes this thread's ambient trace for
+            # the handler's whole downstream (spans tag themselves with it)
+            # and is echoed on the response so the requester can match
+            if trace_id is not None:
+                _trace.set_current_trace(_trace.trace_id_from_bytes(
+                    trace_id))
+            try:
+                with _trace.span("wire.handle", ftype=ftype, seq=seq):
+                    resp_payload = self.handler(ftype, payload)
+            finally:
+                if trace_id is not None:
+                    _trace.set_current_trace(None)
             resp = encode_frame(ftype | RESP_BIT, seq, resp_payload,
                                 key=self.auth_key, trace_id=trace_id)
             self._last_seq, self._last_resp = seq, resp
@@ -1207,7 +1257,11 @@ class WireSession:
                               "step": int(step), "fp": fingerprint})
 
     def exchange(self, nbytes: int, rounds: int = 1) -> int:
-        nbytes = int(nbytes)
+        with _trace.span("wire.exchange", nbytes=int(nbytes),
+                         rounds=int(rounds)):
+            return self._exchange(int(nbytes), int(rounds))
+
+    def _exchange(self, nbytes: int, rounds: int) -> int:
         rounds = max(1, int(rounds)) if nbytes else int(rounds)
         total = 0
         for r in range(rounds):

@@ -75,6 +75,15 @@ from repro_torch.core.triples import (BankSlotDealer, PlanningDealer,
                                       TrustedDealer, serve_seed)
 from repro_torch.launch import kmeans_step as KS
 from repro_torch.launch.pipeline import StageTask, run_pipeline
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _trace
+
+
+def _h_iter_seconds():
+    return _metrics.get_registry().histogram(
+        "repro_fit_iteration_seconds",
+        buckets=_metrics.log_buckets(1e-3, 100.0))
+
 
 @dataclasses.dataclass
 class KMeansConfig:
@@ -286,6 +295,17 @@ class SecureKMeans:
         `resume_step` (the resume negotiation's agreed step) restores the
         largest published step at or before it instead; none means a fresh
         start."""
+        with _trace.span("fit", rows=int(np.asarray(x_a).shape[0]),
+                         k=self.cfg.k, iters=self.cfg.iters,
+                         sparse=self.cfg.sparse,
+                         wired=wire is not None):
+            return self._fit(x_a, x_b, dealer=dealer, wire=wire,
+                             checkpoint=checkpoint, resume=resume,
+                             resume_step=resume_step)
+
+    def _fit(self, x_a: np.ndarray, x_b: np.ndarray, *, dealer, wire,
+             checkpoint, resume: bool,
+             resume_step: int | None) -> KMeansResult:
         cfg = self.cfg
         device = self._device()
         if dealer is not None and torch.device(
@@ -407,28 +427,34 @@ class SecureKMeans:
         _sync(device)
         t_start = time.perf_counter()
         dealer_s_pre = ctx.dealer.dealer_seconds
+        h_iter = _h_iter_seconds()
         it = it0
         try:
             for it in range(it0 + 1, cfg.iters + 1):
+                # host time, as in the JAX package: no wait for the device
+                t_iter = time.perf_counter()
                 mu_old = mu
                 if fast is not None:
                     mu, c = self._fast_iteration(ctx, fast, enc_a, enc_b,
-                                                 csr_a, csr_b, mu)
+                                                 csr_a, csr_b, mu, it)
                 else:
                     ctx.tag = "S1"
-                    dist = self._distances(ctx, enc_a, enc_b, csr_a, csr_b,
-                                           mu)
+                    with _trace.span("fit.s1_distances", iter=it):
+                        dist = self._distances(ctx, enc_a, enc_b, csr_a,
+                                               csr_b, mu)
                     ctx.tag = "S2"
                     r_before = ctx.log.total_rounds("online")
-                    c = P.argmin_onehot(ctx, dist)            # (n, k) scale 1
+                    with _trace.span("fit.s2_argmin", iter=it):
+                        c = P.argmin_onehot(ctx, dist)    # (n, k) scale 1
                     if not cfg.vectorized:
                         # pre-vectorization: each of the n samples runs its
                         # own tournament (n interaction chains per round)
                         dr = ctx.log.total_rounds("online") - r_before
                         _naive_extra_rounds(ctx, (n - 1) * dr + 1)
                     ctx.tag = "S3"
-                    mu = self._update(ctx, enc_a, enc_b, csr_a, csr_b, c,
-                                      mu_old, n)
+                    with _trace.span("fit.s3_update", iter=it):
+                        mu = self._update(ctx, enc_a, enc_b, csr_a, csr_b,
+                                          c, mu_old, n)
                 if cfg.tol is not None:
                     ctx.tag = "CSC"
                     if self._converged(ctx, mu_old, mu, cfg.tol):
@@ -440,6 +466,7 @@ class SecureKMeans:
                     self._save_fit_ckpt(
                         checkpoint, ctx, it, 0, mu,
                         {k: c * it for k, c in iter_counts.items()})
+                h_iter.observe(time.perf_counter() - t_iter)
             _sync(device)
             wall = time.perf_counter() - t_start
         finally:
@@ -462,7 +489,7 @@ class SecureKMeans:
         return self.result_
 
     def _fast_iteration(self, ctx, fast, enc_a, enc_b, csr_a, csr_b,
-                        mu: AShare) -> tuple:
+                        mu: AShare, it: int) -> tuple:
         """One iteration as the S1 and S3 programs over the pool's tensors
         (ListDealer discipline). The sparse combos run Protocol 2 on the
         host on a forked ctx: exchange #1 needs only the centroid shares,
@@ -477,17 +504,23 @@ class SecureKMeans:
             # exchanges' included) is replayed from iter_comm below; the
             # modelled HE time flows into ctx
             hx = ctx.fork(tag="S1")
-            he1 = self._s1_he_inputs(hx, enc_a, enc_b, csr_a, csr_b, mu)
-        flat1 = KS.materialize_offline(progs.s1_requests, ctx.dealer)
-        c0, c1 = progs.s1(enc_a, enc_b, mu.s0, mu.s1, *he1, *flat1)
+            with _trace.span("fit.s1_exchange", iter=it):
+                he1 = self._s1_he_inputs(hx, enc_a, enc_b, csr_a, csr_b,
+                                         mu)
+        with _trace.span("fit.s1_launch", iter=it):
+            flat1 = KS.materialize_offline(progs.s1_requests, ctx.dealer)
+            c0, c1 = progs.s1(enc_a, enc_b, mu.s0, mu.s1, *he1, *flat1)
         c = AShare(c0, c1)
         _fp.probe("fit.mid_s1")
         if self.cfg.sparse:
             hx.tag = "S3"
-            he3 = self._s3_he_inputs(hx, csr_at, csr_bt, c)
+            with _trace.span("fit.s2_callback", iter=it):
+                he3 = self._s3_he_inputs(hx, csr_at, csr_bt, c)
         _fp.probe("fit.s2_callback")
-        flat3 = KS.materialize_offline(progs.s3_requests, ctx.dealer)
-        mu0, mu1 = progs.s3(enc_a, enc_b, mu.s0, mu.s1, c0, c1, *he3, *flat3)
+        with _trace.span("fit.s3_launch", iter=it):
+            flat3 = KS.materialize_offline(progs.s3_requests, ctx.dealer)
+            mu0, mu1 = progs.s3(enc_a, enc_b, mu.s0, mu.s1, c0, c1, *he3,
+                                *flat3)
         _fp.probe("fit.s3_partial")
         # the traced iteration's online tallies (sends inside the programs
         # go to a scratch log)
@@ -618,10 +651,12 @@ class SecureKMeans:
 
         _sync(device)
         t_start = time.perf_counter()
+        h_iter = _h_iter_seconds()
         it = it0
         c_parts = [None] * len(batches)
         try:
             for it in range(it0 + 1, cfg.iters + 1):
+                t_iter = time.perf_counter()
                 mu_old = mu
                 base = (it - 1) * spi
                 start_b = b0 if it == it0 + 1 else 0
@@ -672,6 +707,7 @@ class SecureKMeans:
                     # finalize, so this cut is canonical on both executors
                     self._save_fit_ckpt(ckpt, ctx, it, 0, mu,
                                         slots_advance(it * spi))
+                h_iter.observe(time.perf_counter() - t_iter)
             _sync(device)
             wall = time.perf_counter() - t_start
         finally:
@@ -912,8 +948,10 @@ class SecureKMeans:
             prep = self.predict_prepare(x_a, x_b, result, dealer=dealer,
                                         with_scores=with_scores, wire=wire)
             return self.predict_collect(prep, self.predict_launch(prep))
-        return self._predict_eager(x_a, x_b, result, dealer=dealer,
-                                   with_scores=with_scores, wire=wire)
+        with _trace.span("predict.eager", rows=int(x_a.shape[0]),
+                         scores=with_scores):
+            return self._predict_eager(x_a, x_b, result, dealer=dealer,
+                                       with_scores=with_scores, wire=wire)
 
     def _encode_batch(self, x_a, x_b, device) -> tuple:
         """(enc_a, enc_b, csr_a, csr_b): the parties' encoded batch on
@@ -984,50 +1022,55 @@ class SecureKMeans:
                 "predict_prepare stages the scoring program only; non-"
                 "default f or unvectorized configs must score through "
                 "predict/score (eager path)")
-        t0 = time.perf_counter()
-        device = self._device()
-        enc_a, enc_b, csr_a, csr_b = self._encode_batch(x_a, x_b, device)
-        log = CommLog()
-        log.wire = wire
-        ctx = self._predict_ctx(dealer, log, device)
-        mu = result.centroids
-        prog = KS.predict_program(cfg.partition, cfg.sparse, enc_a.shape,
-                                  enc_b.shape, cfg.k, with_scores=with_scores,
-                                  backend=ctx.backend, device=device)
-        _, comm = self._plan_predict_cached(x_a.shape, x_b.shape,
-                                            with_scores)
-        he1 = []
-        if cfg.sparse:
-            # scratch log: the call's shape-determined traffic, the
-            # exchange's included, is replayed from the plan at collect
-            he1 = self._s1_he_inputs(ctx.fork(tag="predict"), enc_a, enc_b,
-                                     csr_a, csr_b, mu)
-        flat = KS.materialize_offline(prog.requests, ctx.dealer)
-        return PreparedPredict(prog=prog,
-                               args=(enc_a, enc_b, mu.s0, mu.s1, *he1, *flat),
-                               log=log, comm=comm, with_scores=with_scores,
-                               x_a=x_a, x_b=x_b, t0=t0)
+        with _trace.span("predict.prepare", rows=int(x_a.shape[0]),
+                         scores=with_scores):
+            t0 = time.perf_counter()
+            device = self._device()
+            enc_a, enc_b, csr_a, csr_b = self._encode_batch(x_a, x_b, device)
+            log = CommLog()
+            log.wire = wire
+            ctx = self._predict_ctx(dealer, log, device)
+            mu = result.centroids
+            prog = KS.predict_program(cfg.partition, cfg.sparse, enc_a.shape,
+                                      enc_b.shape, cfg.k,
+                                      with_scores=with_scores,
+                                      backend=ctx.backend, device=device)
+            _, comm = self._plan_predict_cached(x_a.shape, x_b.shape,
+                                                with_scores)
+            he1 = []
+            if cfg.sparse:
+                # scratch log: the call's shape-determined traffic, the
+                # exchange's included, is replayed from the plan at collect
+                he1 = self._s1_he_inputs(ctx.fork(tag="predict"), enc_a,
+                                         enc_b, csr_a, csr_b, mu)
+            flat = KS.materialize_offline(prog.requests, ctx.dealer)
+            return PreparedPredict(
+                prog=prog, args=(enc_a, enc_b, mu.s0, mu.s1, *he1, *flat),
+                log=log, comm=comm, with_scores=with_scores, x_a=x_a,
+                x_b=x_b, t0=t0)
 
     def predict_launch(self, prep: PreparedPredict):
         """Run the staged scoring program: its kernels are queued on the
         current stream and the output tensors come back at once."""
-        return prep.prog.fn(*prep.args)
+        with _trace.span("predict.launch"):
+            return prep.prog.fn(*prep.args)
 
     def predict_collect(self, prep: PreparedPredict, outs) -> PredictResult:
         """Assemble one call's outputs (waits for the device): assignment
         shares, optional score shares (winning D' plus the local ||x||^2
         encodings), replayed traffic."""
-        c = AShare(outs[0], outs[1])
-        scores = None
-        if prep.with_scores:
-            scores = P.add(AShare(outs[2], outs[3]),
-                           self._norm_shares(prep.x_a, prep.x_b,
-                                             outs[0].device))
-        prep.log.merge(prep.comm, phase="online")
-        _sync_stream(outs[0].device)
-        return PredictResult(assignment=c, scores=scores, log=prep.log,
-                             seconds=time.perf_counter() - prep.t0,
-                             f=self.cfg.f)
+        with _trace.span("predict.collect"):
+            c = AShare(outs[0], outs[1])
+            scores = None
+            if prep.with_scores:
+                scores = P.add(AShare(outs[2], outs[3]),
+                               self._norm_shares(prep.x_a, prep.x_b,
+                                                 outs[0].device))
+            prep.log.merge(prep.comm, phase="online")
+            _sync_stream(outs[0].device)
+            return PredictResult(assignment=c, scores=scores, log=prep.log,
+                                 seconds=time.perf_counter() - prep.t0,
+                                 f=self.cfg.f)
 
     def _norm_shares(self, x_a, x_b, device) -> AShare:
         """(m,) shares of ||x||^2 at scale f from party-local plaintext.

@@ -34,8 +34,8 @@ Port of the JAX package's `repro/core/sparse.py`, word for word. X stays a
 host numpy CSR matrix (Protocol 2's data is host-resident by design); its
 blocked-ELL packing is uploaded once per device and memoized on it. On the
 "ou-sim" fast path the step-2 product stays on the ring backend's device,
-and only the mask is drawn on the host. The reference's `he.exchange`
-trace span is not ported (ROADMAP.md Queue 1 item 11).
+and only the mask is drawn on the host. Each exchange records an
+`he.exchange` span, as the reference's does.
 """
 from __future__ import annotations
 
@@ -51,6 +51,7 @@ from repro_torch.core.he import KAPPA_STAT
 from repro_torch.core.protocol import Ctx
 from repro_torch.core.sharing import AShare
 from repro_torch.kernels.spmm import csr_to_ell
+from repro_torch.obs import trace as _trace
 
 # host seconds spent packing CSR matrices into blocked-ELL and starting
 # their upload (`CSRMatrix.ell`: the copy into pinned memory and the
@@ -204,6 +205,21 @@ def secure_sparse_matmul(ctx: Ctx, x: CSRMatrix, y_share_b: torch.Tensor,
                          trunc_f: int | None = None,
                          time_model: dict | None = None,
                          batched: bool = True) -> AShare:
+    """Traced entry point for Protocol 2: the HE joint-product exchange is
+    the dominant host-side seam of a sparse fit, so it gets its own span
+    (`he.exchange`, tagged with the problem shape)."""
+    with _trace.span("he.exchange", n=x.shape[0], d=x.shape[1],
+                     k=int(y_share_b.shape[1]), nnz=int(x.nnz)):
+        return _secure_sparse_matmul(ctx, x, y_share_b, he,
+                                     value_bits=value_bits, trunc_f=trunc_f,
+                                     time_model=time_model, batched=batched)
+
+
+def _secure_sparse_matmul(ctx: Ctx, x: CSRMatrix, y_share_b: torch.Tensor,
+                          he, *, value_bits: int | None = None,
+                          trunc_f: int | None = None,
+                          time_model: dict | None = None,
+                          batched: bool = True) -> AShare:
     """Protocol 2. `y_share_b` is party B's plaintext-held (d, k) ring matrix
     (e.g. its additive share of the centroids), an int64 tensor; A's share
     of Y is handled by the caller with a plain local matmul (X is public to

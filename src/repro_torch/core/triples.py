@@ -53,6 +53,7 @@ import torch
 from repro_torch.core import ring
 from repro_torch.core.channel import CommLog
 from repro_torch.core.sharing import AShare, BShare
+from repro_torch.obs import trace as _trace
 
 KAPPA = 128  # computational security parameter (paper Sec 5.1)
 
@@ -1454,11 +1455,13 @@ class TripleBank:
         with self._lock:
             self._plans[key] = TriplePlan(list(plan.requests))
         if copies > 0:
-            counts = {ck: c * int(copies)
-                      for ck, c in plan.class_counts().items()}
-            self._gen(counts, workers=workers)
-            self.modelled_ot_seconds += _account_offline_plan(
-                plan.repeat(copies), self.log)
+            with _trace.span("bank.provision", key=str(key),
+                             copies=int(copies), workers=int(workers)):
+                counts = {ck: c * int(copies)
+                          for ck, c in plan.class_counts().items()}
+                self._gen(counts, workers=workers)
+                self.modelled_ot_seconds += _account_offline_plan(
+                    plan.repeat(copies), self.log)
 
     def keys(self) -> list:
         with self._lock:
@@ -1520,7 +1523,8 @@ class TripleBank:
                 f"TripleBank stock-out for {class_key}: provisioned pool "
                 "consumed and auto_replenish=False")
         t0 = time.perf_counter()
-        with self._gen_lock:
+        with _trace.span("bank.replenish", class_key=str(class_key)), \
+                self._gen_lock:
             with self._lock:
                 restocked = bool(self._queues.get(class_key))
                 plan = self._plans.get(tuple(plan_key))
@@ -1750,7 +1754,10 @@ class BankReplenisher:
                 continue
             need = self.high_water - have
             t0 = time.perf_counter()
-            self.bank.provision(key, plan, copies=need, workers=self.workers)
+            with _trace.span("bank.topup", key=str(key), copies=need,
+                             stock=have):
+                self.bank.provision(key, plan, copies=need,
+                                    workers=self.workers)
             self.topup_seconds += time.perf_counter() - t0
             self.topups += 1
             self.topup_copies += need

@@ -23,8 +23,10 @@ identical shares and CommLog tallies.
 
 The overlap comes from PyTorch's asynchronous kernel launches, as JAX's
 asynchronous dispatch gives it in the JAX package; nothing in a `pre` may
-wait for the device (`core.ring.upload`). The JAX package's `pipeline.*`
-trace spans are not ported (ROADMAP.md Queue 1 item 11).
+wait for the device (`core.ring.upload`). Each phase records a
+`pipeline.pre` / `.launch` / `.mid` / `.post` span, as the JAX package's
+executor does; all on the calling thread, since the executor is
+single-threaded.
 
 Used by `SecureKMeans._fit_minibatch` (overlap batch t+1's Protocol-2
 exchange and tranche pin with batch t's S1 launch).
@@ -33,6 +35,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, NamedTuple
+
+from repro_torch.obs import trace as _trace
 
 
 @dataclasses.dataclass
@@ -77,35 +81,49 @@ def run_pipeline(tasks, pipeline: bool = True,
     skipped; the other tasks still run — right for independent requests."""
     tasks = list(tasks)
     results = []
+    span = _trace.span   # per-phase spans: one branch each when disabled
 
-    def _mid_post(t, prep, out):
-        m = t.mid(prep, out) if t.mid is not None else None
+    def _launch(t, i, prep):
+        with span("pipeline.launch", task=i):
+            return t.launch(prep)
+
+    def _mid_post(t, i, prep, out):
+        if t.mid is not None:
+            with span("pipeline.mid", task=i):
+                m = t.mid(prep, out)
+        else:
+            m = None
         if t.post is None:
             return out
-        return t.post(prep, out, m)
+        with span("pipeline.post", task=i):
+            return t.post(prep, out, m)
 
-    def _phases(t):
-        prep = t.pre()
-        return _mid_post(t, prep, t.launch(prep))
+    def _phases(t, i):
+        with span("pipeline.pre", task=i):
+            prep = t.pre()
+        out = _launch(t, i, prep)
+        return _mid_post(t, i, prep, out)
 
     if not pipeline:
         for i, t in enumerate(tasks):
             if capture_errors:
                 try:
-                    results.append(_phases(t))
+                    results.append(_phases(t, i))
                 except Exception as e:
                     results.append(PipelineError(i, e))
             else:
-                results.append(_phases(t))
+                results.append(_phases(t, i))
         return results
 
     def _pre(i):
         if i >= len(tasks):
             return None
         if not capture_errors:
-            return tasks[i].pre()
+            with span("pipeline.pre", task=i):
+                return tasks[i].pre()
         try:
-            return tasks[i].pre()
+            with span("pipeline.pre", task=i):
+                return tasks[i].pre()
         except Exception as e:
             return PipelineError(i, e)
 
@@ -119,9 +137,9 @@ def run_pipeline(tasks, pipeline: bool = True,
         nxt = _unset
         if capture_errors:
             try:
-                out = t.launch(prep)
+                out = _launch(t, i, prep)
                 nxt = _pre(i + 1)
-                res = _mid_post(t, prep, out)
+                res = _mid_post(t, i, prep, out)
             except Exception as e:
                 res = PipelineError(i, e)
                 if nxt is _unset:
@@ -130,9 +148,9 @@ def run_pipeline(tasks, pipeline: bool = True,
                     # dealer words, so re-running it would corrupt streams)
                     nxt = _pre(i + 1)
         else:
-            out = t.launch(prep)
+            out = _launch(t, i, prep)
             nxt = _pre(i + 1)
-            res = _mid_post(t, prep, out)
+            res = _mid_post(t, i, prep, out)
         results.append(res)
         prep = nxt
     return results

@@ -34,7 +34,9 @@ no operator action; `--state-dir` gives B a durable progress marker so
 the negotiation survives B's own crashes; `--peer-wait S` parks either
 side through a supervised peer restart instead of dying. `--die-at
 point[:nth]` arms the chaos kill-points (core/faultpoints.py) and
-`--fault-*` inject deterministic wire faults.
+`--fault-*` inject deterministic wire faults. `--trace-out FILE` records
+this role's spans and exports them as Chrome-trace JSON on exit (merge
+both roles' files with `repro_torch.obs.merge_traces`).
 
 Party A builds the CUDA kernels before the fit starts, so a kill-point
 never lands mid-build (a build is published atomically either way).
@@ -56,6 +58,21 @@ from repro_torch.core.channel import (FaultyTransport, PeerProgress,
                                       SocketTransport, WireSession,
                                       WireTimeout, serve_peer, session_key)
 from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+from repro_torch.obs import trace as _trace
+
+
+def _trace_setup(args) -> None:
+    if args.trace_out:
+        _trace.configure(enabled=True,
+                         process=f"party_{args.role.lower()}")
+
+
+def _trace_finish(args) -> None:
+    if args.trace_out:
+        t = _trace.get_tracer()
+        t.export_chrome(args.trace_out)
+        print(f"{args.role}: trace {len(t.events())} spans -> "
+              f"{args.trace_out}", flush=True)
 
 
 def make_data(n: int, d: int, k: int, seed: int,
@@ -115,6 +132,7 @@ def _launches() -> dict:
 
 
 def _party_b(args) -> None:
+    _trace_setup(args)
     if args.die_at:
         faultpoints.arm(args.die_at)
     t = SocketTransport("connect", host=args.host, port=args.port,
@@ -164,6 +182,7 @@ def _party_b(args) -> None:
                               int(stats.incarnation_resets),
                               "cuda_initialized": bool(cuda)})
     ft.close()
+    _trace_finish(args)
     if cuda:
         print("B: a CUDA context was created; the wire peer must not touch "
               "the device", flush=True)
@@ -171,6 +190,7 @@ def _party_b(args) -> None:
 
 
 def _party_a(args) -> None:
+    _trace_setup(args)
     device = torch.device(args.device)
     if device.type == "cuda":
         # build (or load) every kernel before a kill-point can fire
@@ -306,6 +326,7 @@ def _party_a(args) -> None:
                               "reconnects": int(chan.reconnects)})
     ws.bye()
     ft.close()
+    _trace_finish(args)
 
 
 def main(argv=None) -> None:
@@ -367,6 +388,10 @@ def main(argv=None) -> None:
     ap.add_argument("--fault-sever-at", default=None,
                     help="comma-separated send indices at which to tear "
                          "the connection down (deterministic)")
+    ap.add_argument("--trace-out", default=None,
+                    help="enable span tracing; export this role's "
+                         "Chrome-trace JSON here on exit (merge A+B "
+                         "files with repro_torch.obs.merge_traces)")
     args = ap.parse_args(argv)
     try:
         if args.role == "B":

@@ -35,8 +35,10 @@ service on the wire.
 
 The service reveals ONLY the per-transaction outputs (cluster label and/or
 outlier score); centroids and per-cluster structure stay secret-shared.
-The JAX package's metrics and trace spans belong to ROADMAP.md Queue 1
-item 11.
+`warm` exposes the service's stats, its bank and its replenisher through
+the process-wide metrics registry (callback gauges, repro_torch/obs), and
+admission, drains and each request's lifetime record trace spans, as the
+JAX package's service does.
 """
 from __future__ import annotations
 
@@ -51,6 +53,8 @@ from repro_torch.core.kmeans import KMeansResult, SecureKMeans
 from repro_torch.core.triples import BankReplenisher, TripleBank, serve_seed
 from repro_torch.launch import kmeans_step as KS
 from repro_torch.launch.pipeline import PipelineError, StageTask, run_pipeline
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _trace
 
 # Stable error-string prefixes (the `ScoringResponse.error` type tags).
 ERR_QUEUE_FULL = "QueueFull"
@@ -127,7 +131,9 @@ class ServiceStats:
                                       # prepare (pad, upload, bank draw,
                                       # Protocol-2 exchange), launch (queue
                                       # the kernels), collect (waits for the
-                                      # device, reveals)
+                                      # device, reveals). Neither dict is in
+                                      # `as_dict`, whose keys are the JAX
+                                      # service's (each a scalar gauge)
     latencies: collections.deque = dataclasses.field(
         default_factory=lambda: collections.deque(maxlen=LATENCY_WINDOW),
         repr=False)                   # submit->publish seconds, per request
@@ -192,9 +198,6 @@ class ServiceStats:
             "expired_requests": self.expired_requests,
             "queue_depth": self.queue_depth,
             "max_queue_depth": self.max_queue_depth,
-            "rung_calls": dict(self.rung_calls),
-            "host_seconds": {k: round(v, 4)
-                             for k, v in self.host_seconds.items()},
             "p50_ms": round(self.latency_quantile(0.50) * 1e3, 3),
             "p99_ms": round(self.latency_quantile(0.99) * 1e3, 3),
             "queue_wait_p50_ms": round(
@@ -216,7 +219,9 @@ class _Pending:
     x_b: np.ndarray
     deadline: float | None            # time.monotonic() cutoff, or None
     t_submit: float                   # time.monotonic() at admission
+    t_submit_us: int = 0              # epoch µs at admission (span clock)
     t_dequeue: float | None = None    # time.monotonic() when a drain took it
+    trace: str | None = None          # ambient trace id at admission
 
 
 class ScoringService:
@@ -361,6 +366,12 @@ class ScoringService:
             self.checkpointer.save_bank(self.bank)
         if self.replenisher is not None and not self.replenisher.running:
             self.replenisher.start()
+        # expose this service's live stats and bank through the process-
+        # wide registry (callback gauges: no second tally to drift)
+        _metrics.register_service(self)
+        _metrics.register_bank(self.bank)
+        if self.replenisher is not None:
+            _metrics.register_replenisher(self.replenisher)
         self._warmed = True
         self.offline_seconds += time.perf_counter() - t0
 
@@ -399,6 +410,7 @@ class ScoringService:
             if self.max_queue is not None \
                     and len(self._queue) >= self.max_queue:
                 self.stats.shed_requests += 1
+                _trace.instant("serve.shed", rid=-1 if rid is None else rid)
                 return ScoringResponse(
                     rid if rid is not None else -1,
                     labels=np.zeros(0, np.int64), scores=None, rows=0,
@@ -409,11 +421,15 @@ class ScoringService:
                 rid = self._next_id
                 self._next_id += 1
             deadline = None if deadline_s is None else now + float(deadline_s)
-            self._queue.append(_Pending(rid, x_a, x_b, deadline, now))
+            self._queue.append(_Pending(
+                rid, x_a, x_b, deadline, now,
+                t_submit_us=time.time_ns() // 1_000,
+                trace=_trace.current_trace()))
             self.stats.queue_depth = len(self._queue)
             self.stats.max_queue_depth = max(self.stats.max_queue_depth,
                                              len(self._queue))
             self._cond.notify_all()
+        _trace.instant("serve.admit", rid=rid)
         return rid
 
     def pending(self) -> int:
@@ -444,6 +460,10 @@ class ScoringService:
         (KeyboardInterrupt and friends) requeue everything and propagate."""
         if not self._warmed:
             self.warm()
+        with _trace.span("serve.drain"):
+            return self._drain_batch()
+
+    def _drain_batch(self) -> list[ScoringResponse]:
         t0 = time.perf_counter()
         served0 = self.bank.served_requests
         repl0 = self.bank.replenish_events
@@ -553,6 +573,26 @@ class ScoringService:
                         now - p.t_submit, queue_wait=p.t_dequeue - p.t_submit,
                         inflight=now - p.t_dequeue)
             self._cond.notify_all()
+        tracer = _trace.get_tracer()
+        if tracer.enabled:
+            # one request span per rid: submit-level dedup queues (and
+            # publishes) a rid once; retry waves replay the cached response
+            # without entering a drain
+            for r in responses:
+                p = by_rid.get(r.request_id)
+                if p is None:
+                    continue
+                args = {"rid": p.rid,
+                        "rows": r.rows,
+                        "queue_wait_ms": round(
+                            (p.t_dequeue - p.t_submit) * 1e3, 3)
+                        if p.t_dequeue is not None else None,
+                        "error": r.error}
+                if p.trace is not None:
+                    args["trace"] = p.trace
+                tracer.complete_span(
+                    "serve.request", p.t_submit_us,
+                    round((now - p.t_submit) * 1e6), **args)
 
     # -- background serving loop ------------------------------------------
     def start(self) -> None:

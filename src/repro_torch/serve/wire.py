@@ -26,14 +26,14 @@ either package talks to a server of the other.
 """
 from __future__ import annotations
 
-import secrets
 import time
 
 import numpy as np
 
-from repro_torch.core.channel import (TRACE_ID_BYTES, ReliableChannel,
-                                      Responder, T_BYE, T_SCORE, Transport,
-                                      WireError, _pack_blob, _unpack_blob)
+from repro_torch.core.channel import (ReliableChannel, Responder, T_BYE,
+                                      T_SCORE, Transport, WireError,
+                                      _pack_blob, _unpack_blob)
+from repro_torch.obs import trace as _trace
 from repro_torch.serve.service import (ERR_DEADLINE, ScoringResponse,
                                        ScoringService)
 
@@ -71,28 +71,31 @@ class ScoringServer:
                  result_timeout_s: float = 120.0):
         self.service = service
         self.result_timeout_s = float(result_timeout_s)
-        self.replays = 0        # rids answered from the published responses
         self.responder = Responder(transport, self._handle,
                                    idle_timeout_s=idle_timeout_s,
                                    auth_key=auth_key)
 
     def _resolve(self, meta: dict, arrays: dict) -> ScoringResponse:
+        # runs on the responder thread with the frame's trace id installed
+        # as the ambient trace (core/channel.Responder), so this span, and
+        # everything submit() stamps, carries the client's id
         rid = int(meta["rid"])
-        r = self.service.lookup(rid)
-        if r is not None:
-            self.replays += 1
-            return r                               # exactly-once replay
-        sub = self.service.submit(arrays["x_a"], arrays["x_b"], rid=rid,
-                                  deadline_s=meta.get("deadline_s"))
-        if isinstance(sub, ScoringResponse):
-            return sub                             # shed at admission
-        r = self.service.response(rid, timeout=self.result_timeout_s)
-        if r is None:
-            return ScoringResponse(
-                rid, np.zeros(0, np.int64), None, 0,
-                error=f"{ERR_DEADLINE}: server result wait exceeded "
-                f"{self.result_timeout_s}s")
-        return r
+        with _trace.span("serve.resolve", rid=rid):
+            r = self.service.lookup(rid)
+            if r is not None:
+                _trace.instant("serve.replay", rid=rid)
+                return r                           # exactly-once replay
+            sub = self.service.submit(arrays["x_a"], arrays["x_b"], rid=rid,
+                                      deadline_s=meta.get("deadline_s"))
+            if isinstance(sub, ScoringResponse):
+                return sub                         # shed at admission
+            r = self.service.response(rid, timeout=self.result_timeout_s)
+            if r is None:
+                return ScoringResponse(
+                    rid, np.zeros(0, np.int64), None, 0,
+                    error=f"{ERR_DEADLINE}: server result wait exceeded "
+                    f"{self.result_timeout_s}s")
+            return r
 
     def _handle(self, ftype: int, payload: bytes) -> bytes:
         if ftype != T_SCORE:
@@ -126,14 +129,16 @@ class ScoringClient:
     — typically the server dying mid-request), `score` starts a new wave
     with the SAME rid after `retry_wait_s`, up to `waves` times — riding
     the server's rid dedup, so redelivery never re-scores. Each request's
-    frames carry one random trace id, the same on every wave (the
-    reference client's; the port records no spans)."""
+    frames carry one trace id, the same on every wave, and its
+    `client.score` span on `tracer` (default: the process-global tracer)
+    carries it too."""
 
     def __init__(self, transport: Transport, *,
                  auth_key: bytes | None = None, deadline_s: float = 30.0,
                  try_timeout_s: float = 0.5, max_retries: int = 10,
                  waves: int = 4, retry_wait_s: float = 0.5,
-                 jitter_seed: int = 11):
+                 jitter_seed: int = 11,
+                 tracer: _trace.Tracer | None = None):
         self.chan = ReliableChannel(transport, deadline_s=deadline_s,
                                     try_timeout_s=try_timeout_s,
                                     max_retries=max_retries,
@@ -143,6 +148,9 @@ class ScoringClient:
         self.retry_wait_s = float(retry_wait_s)
         self.wave_retries = 0
         self._next_rid = 0
+        # client-side spans go here; injectable so a client and a server
+        # sharing one process can still export separate span files
+        self.tracer = tracer if tracer is not None else _trace.get_tracer()
 
     def score(self, x_a, x_b, *, rid: int | None = None,
               deadline_s: float | None = None) -> ScoringResponse:
@@ -155,19 +163,24 @@ class ScoringClient:
         payload = _pack_blob(meta, {"x_a": np.asarray(x_a, np.float64),
                                     "x_b": np.asarray(x_b, np.float64)})
         # one trace id per request — pinned like the rid, so every retry
-        # wave carries the SAME id
-        tid_raw = secrets.token_bytes(TRACE_ID_BYTES)
+        # wave carries the SAME id and the server's spans join up
+        tid = _trace.new_trace_id()
+        tid_raw = _trace.trace_id_to_bytes(tid)
         last: WireError | None = None
-        for wave in range(self.waves):
-            if wave:
-                self.wave_retries += 1
-                time.sleep(self.retry_wait_s)
-                self.chan.t.reconnect()
-            try:
-                return _response_from_blob(
-                    self.chan.request(T_SCORE, payload, trace_id=tid_raw))
-            except WireError as e:
-                last = e
+        with self.tracer.span("client.score", rid=int(rid), trace=tid):
+            for wave in range(self.waves):
+                if wave:
+                    self.wave_retries += 1
+                    self.tracer.instant("client.wave_retry", rid=int(rid),
+                                        wave=wave, trace=tid)
+                    time.sleep(self.retry_wait_s)
+                    self.chan.t.reconnect()
+                try:
+                    return _response_from_blob(
+                        self.chan.request(T_SCORE, payload,
+                                          trace_id=tid_raw))
+                except WireError as e:
+                    last = e
         raise WireError(f"score rid={rid} failed after {self.waves} "
                         f"waves: {last}") from last
 

@@ -1020,3 +1020,101 @@ def test_gpu_service_restart_from_checkpointer(cuda, tmp_path):
         np.testing.assert_array_equal(got[rid].labels, r.labels)
         np.testing.assert_array_equal(got[rid].scores, r.scores)
     assert svc.bank.consumed_counts() == ref_svc.bank.consumed_counts()
+
+
+# ---------------------------------------------------------------------------
+# tracing and metrics on the card
+# ---------------------------------------------------------------------------
+
+def _kernel_launches() -> dict:
+    return {"ring_matmul": modmatmul.LAUNCHES,
+            "ks_carry_share": ksadder.LAUNCHES, "spmm_ell": spmm.LAUNCHES}
+
+
+@pytest.mark.parametrize("case", [
+    dict(offline="on_demand"), dict(offline="pooled"),
+    dict(offline="pooled", sparse=True),
+    dict(offline="pooled", batch_size=40, pipeline=True)],
+    ids=["dense-on-demand", "dense-pooled", "sparse-pooled", "minibatch"])
+def test_traced_gpu_fit_equals_untraced(cuda, case):
+    """Tracing on changes nothing on the card: a traced GPU fit has the
+    untraced fit's words, counters, traffic and kernel launches, and the
+    spans of a traced CPU fit of the same configuration."""
+    from repro_torch.core import kmeans as KM
+    from repro_torch.launch import kmeans_step as KS
+    from repro_torch.obs import trace as _trace
+    x = RNG.normal(size=(96, 8)) + RNG.integers(0, 3, (96, 1)) * 4.0
+    if case.get("sparse"):
+        x *= RNG.random(x.shape) >= 0.7
+    a, b = x[:, :4], x[:, 4:]
+    common = dict(k=3, iters=2, seed=2, **case)
+    tracer = _trace.get_tracer()
+    runs = {}
+    try:
+        for label, traced, kw in (("plain", False, {}), ("traced", True, {}),
+                                  ("cpu", True, dict(backend="torch",
+                                                     device="cpu"))):
+            KM.clear_plan_cache()
+            KS.clear_program_cache()
+            tracer.reset()
+            _trace.configure(enabled=traced)
+            before = _kernel_launches()
+            res = SecureKMeans(KMeansConfig(**common, **kw)).fit(a, b)
+            torch.cuda.synchronize()
+            after = _kernel_launches()
+            runs[label] = (res, {n: after[n] - before[n] for n in after},
+                           tracer.span_counts())
+    finally:
+        _trace.configure(enabled=False)
+        tracer.reset()
+    (plain, lp, sp), (traced, lt, st), (cpu, _, sc) = (
+        runs["plain"], runs["traced"], runs["cpu"])
+    _same_fit(traced, plain)
+    _same_fit(traced, cpu)
+    assert lt == lp and lt["ring_matmul"] > 0
+    assert sp == {} and st == sc and st["fit"] == 1
+
+
+def test_metrics_scrape_during_topup_answers_within_a_second(cuda):
+    """`/metrics` and `/health` of a service on the card answer within a
+    second while a replenisher tops its bank up: the gauges read the bank
+    under its queue lock only, never waiting for a generation."""
+    import threading
+    import time
+    import urllib.request
+
+    from repro_torch.core.triples import BankReplenisher
+    from repro_torch.obs import metrics as _metrics
+    from repro_torch.serve import ScoringService
+    _, gpu = _fitted_pair("vertical", False)
+    svc = ScoringService(gpu, rungs=(8, 512), d_a=4, d_b=4,
+                         provision_copies=1)
+    svc.warm()
+    reg = _metrics.MetricsRegistry()
+    _metrics.register_service(svc, registry=reg)
+    _metrics.register_bank(svc.bank, registry=reg)
+    srv = _metrics.MetricsServer(port=0, registry=reg,
+                                 health_cb=lambda: svc.health).start()
+    # about 1 GB of 512-row calls: seconds of host generation
+    rep = BankReplenisher(svc.bank, low_water=1, high_water=1000)
+    th = threading.Thread(target=rep.poll_once, daemon=True)
+    try:
+        th.start()
+        time.sleep(0.3)                    # the top-up is generating
+        scrapes = []
+        while th.is_alive():
+            t0 = time.perf_counter()
+            for path in ("/metrics", "/health"):
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{srv.port}{path}",
+                        timeout=5) as r:
+                    assert r.status == 200
+            scrapes.append((time.perf_counter() - t0, th.is_alive()))
+        th.join()
+    finally:
+        srv.stop()
+        svc.close()
+    assert rep.topups >= 1 and rep.errors == 0
+    during = [s for s, alive in scrapes if alive]
+    assert during, "the top-up ended before a scrape completed"
+    assert max(s for s, _ in scrapes) < 1.0

@@ -35,7 +35,10 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.core.channel", "repro_torch.core.faultpoints",
               "repro_torch.checkpoint.store", "repro_torch.checkpoint.fit",
               "repro_torch.checkpoint.serve", "repro_torch.serve.wire",
-              "repro_torch.launch.two_party"):
+              "repro_torch.launch.two_party", "repro_torch.obs",
+              "repro_torch.obs.trace", "repro_torch.obs.metrics",
+              "repro_torch.launch.supervisor",
+              "repro_torch.launch.serve_kmeans"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -28,6 +28,7 @@ from repro_torch.core import protocol as P
 from repro_torch.core import triples as T
 from repro_torch.core.interop import result_from_reference, shares_to_numpy
 from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+from repro_torch.obs import trace as _trace
 from repro_torch.serve import (ERR_DEADLINE, ERR_QUEUE_FULL, BatchLadder,
                                ScoringClient, ScoringResponse, ScoringServer,
                                ScoringService)
@@ -180,7 +181,7 @@ def test_service_stats_calls_per_rung_and_host_seconds(partition, calls):
     js.drain()
     ts.drain()
     st, sj = ts.stats.as_dict(), js.stats.as_dict()
-    assert st["rung_calls"] == calls
+    assert ts.stats.rung_calls == calls
     assert sum(calls.values()) == st["launches"] == sj["launches"]
     per_call = 2 if partition == "horizontal" else 1
     assert sum(r * c * per_call for r, c in calls.items()) \
@@ -466,7 +467,7 @@ def test_wire_chaos_keyed_exactly_once():
     """Drops, duplicates and corruption on the client's frames, keyed
     (tampered frames rejected like corrupt ones): every response equals
     the direct run's, each rid is scored once, and a retried rid is
-    answered from the published responses."""
+    answered from the published responses (one `serve.replay` instant)."""
     jk, tk = fitted("vertical")
     b = _plane_batches(4)
     ref = _one_at_a_time(JScoringService(jk, **PLANE), b)
@@ -477,19 +478,29 @@ def test_wire_chaos_keyed_exactly_once():
     server = ScoringServer(svc, tb, idle_timeout_s=30.0, auth_key=key)
     th = threading.Thread(target=server.serve_forever, daemon=True)
     th.start()
-    client = ScoringClient(ft, auth_key=key, deadline_s=20.0)
-    got = {}
-    for xa, xb in b:
-        r = client.score(xa, xb)
-        got[r.request_id] = r
-    # a retry wave of an answered rid: replayed, not re-scored
-    again = client.score(*b[0], rid=0)
-    client.bye()
-    th.join(timeout=30)
+    client = ScoringClient(ft, auth_key=key, deadline_s=20.0,
+                           tracer=_trace.Tracer())
+    tracer = _trace.get_tracer()
+    was = (tracer.enabled, tracer.process)
+    tracer.reset()
+    _trace.configure(enabled=True, process="server")
+    try:
+        got = {}
+        for xa, xb in b:
+            r = client.score(xa, xb)
+            got[r.request_id] = r
+        # a retry wave of an answered rid: replayed, not re-scored
+        again = client.score(*b[0], rid=0)
+        client.bye()
+        th.join(timeout=30)
+        replays = tracer.span_counts().get("serve.replay", 0)
+    finally:
+        _trace.configure(enabled=was[0], process=was[1])
+        tracer.reset()
     assert not th.is_alive()
     _assert_same_responses(got, ref)
     np.testing.assert_array_equal(again.labels, ref[0].labels)
-    assert svc.stats.requests == len(b) and server.replays == 1
+    assert svc.stats.requests == len(b) and replays == 1
     f = ft.faults
     assert f.dropped + f.duplicated + f.corrupted > 0
     assert server.responder.crc_drops > 0 or f.corrupted == 0
