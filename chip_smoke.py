@@ -136,7 +136,23 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      PyTorch call for the same function where there is one; spmm_ell also
      at the drive's own C^T x (the one-hot of an iteration's argmin_onehot,
      packed as spmm_from_dense packs it, times x at each width);
-  9. prints one JSON line of per-kernel launches (the fit path's, and for
+  9. (run after 5) the LM substrate, no kernel of the table on its path:
+     9a every reduced config on the card against the CPU, one CPU-drawn
+     tree carried to both (`params_to_numpy` / `params_from_numpy`):
+     forward, lm_loss and one train step in bf16 and in f32 (but for
+     seamless, whose encoder casts to bf16), three serve_step positions;
+     9b granite-moe-3b-a800m at full width (32 layers, d=1536, 40 experts
+     top-8 padded to 48, per-example dispatch, 3.98e9 parameters):
+     `serve()` (batch 4, prompt 32, 64 tokens), serve_step against the
+     teacher-forced forward over 8 positions (capacity 8, within 0.15,
+     argmax equal), one serve_step and one train step under torch.profiler
+     (device ms, launches, idle share), `run()` for 20 steps at batch 4 x
+     256 tokens (losses finite, the last five below the first; p50/p95 and
+     peak memory); 9c examples/train_lm_torch.py's granite-100m killed at
+     step 25, resumed from its step-20 `CheckpointStore` step and held to
+     an uninterrupted run within rtol 1e-4, and 5 compressed steps; it
+     prints one `LM {...}` line; scratch in the ignored `build/phase9/`;
+ 10. prints one JSON line of per-kernel launches (the fit path's, and for
      the fit kernels the scoring path's as `scoring_launches`, phase 7's
      as `durability_launches` and phase 8's in-process and party-A
      launches as `observability_launches`), times and bounds, the
@@ -3257,6 +3273,330 @@ def phase_observability(src: pathlib.Path, dense: tuple, sp_pooled,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the LM substrate (models, decode, training, CheckpointStore)
+# ---------------------------------------------------------------------------
+
+PHASE9_DIR = ROOT / "build" / "phase9"     # ignored; removed at the end
+LM_FULL_ARCH = "granite-moe-3b-a800m"      # 9b: 32L d=1536, 40e top-8
+LM_SERVE = dict(batch=4, prompt_len=32, gen=64)
+# run()'s default lr (3e-4, 100 warmup steps) moves each weight by 6.9e-4 in
+# 20 steps in all: the losses stay within the batch-to-batch spread
+# (11.25-11.35 on an H100, the last five above the first); at 3e-3 the
+# loss falls by ~0.2 in 20 steps
+LM_TRAIN = dict(steps=20, batch=4, seq=256, lr=3e-3)
+LM_DECODE_T = 8                            # 9b: serve_step vs forward
+LM_RESUME = dict(steps=30, ckpt_every=10, batch=8, seq=256, keep=2)
+LM_PREEMPT_AT = 25                         # 9c: resumes from step 20
+# bf16 models, GPU against CPU: the relative L2 error of hidden states and
+# logits within 0.05 (tests/test_models.py's MoE-vs-dense value), the loss
+# within rtol 1e-3; f32 models within rtol 1e-4 (the resume test's); the
+# first AdamW step's parameters within 2 lr_1 plus one ulp (Adam's first
+# step is lr_1 sign(g), so the devices differ only where a gradient's sign
+# does); decode against forward within 0.15 with the argmax equal
+LM_REL_L2 = 0.05
+LM_LOSS_RTOL = 1e-3
+LM_F32_RTOL = 1e-4
+LM_DECODE_TOL = 0.15
+
+
+def _rel_l2(want: torch.Tensor, got: torch.Tensor) -> float:
+    w, g = want.double().cpu(), got.double().cpu()
+    return float((g - w).norm() / max(float(w.norm()), 1e-30))
+
+
+def _lm_batch(cfg, device, f32: bool = False, b: int = 2, t: int = 32,
+              seed: int = 0) -> dict:
+    """tests/test_models.py's batch (f32: input embeddings, not tokens)."""
+    rng = np.random.default_rng(seed)
+    act = torch.float32 if f32 else torch.bfloat16
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (b, t))),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (b, t)))}
+    if f32:
+        batch["embeds"] = torch.from_numpy(
+            rng.normal(0, 1, (b, t, cfg.d_model))).to(act)
+        del batch["tokens"]
+    if cfg.enc_dec:
+        batch["enc_inputs"] = torch.from_numpy(
+            rng.normal(0, 1, (b, t, cfg.d_model))).to(torch.bfloat16)
+    if cfg.frontend == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.normal(0, 1, (b, cfg.n_patches, cfg.d_model))).to(act)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _lm_step(cfg, params, batch):
+    from repro_torch.training.adamw import AdamWConfig
+    from repro_torch.training.train_step import init_state, make_train_step
+    opt = AdamWConfig()
+    return make_train_step(cfg, opt)(params, init_state(params, opt), batch)
+
+
+def _first_step_close(label, want: dict, got: dict, eps: float) -> None:
+    from repro_torch.models.tree import flatten_with_path
+    from repro_torch.training.adamw import AdamWConfig
+    lr1 = AdamWConfig().lr * 2 / AdamWConfig().warmup_steps
+    for (path, w), (_, g) in zip(flatten_with_path(want),
+                                 flatten_with_path(got)):
+        w, g = w.double().cpu(), g.double().cpu()
+        bound = 2 * lr1 * (1 + 1e-3) + eps * w.abs()
+        if not bool(((g - w).abs() <= bound).all()):
+            fail(f"{label}: updated {path} off by "
+                 f"{float((g - w).abs().max()):.3g}")
+
+
+def lm_gpu_equals_cpu(arch: str) -> dict:
+    """9a for one reduced config: one CPU-drawn tree on both devices
+    (params_to_numpy / params_from_numpy); forward, lm_loss, one train
+    step (bf16; and f32, but for seamless, whose encoder casts its input to
+    bf16), three serve_step positions. Returns the worst errors."""
+    from repro_torch.configs.base import all_archs
+    from repro_torch.models import lm
+    from repro_torch.models.tree import tree_map
+    from repro_torch.serving.decode import init_cache, serve_step
+    cfg = all_archs()[arch].reduced
+    tree = lm.params_to_numpy(lm.init_params(cfg, 0, device="cpu"))
+    out = {}
+    for f32 in (False, True):
+        if f32 and cfg.enc_dec:
+            continue
+        p = {}
+        for dev in ("cpu", "cuda"):
+            p[dev] = lm.params_from_numpy(tree, dev)
+            if f32:
+                p[dev] = tree_map(lambda t: t.float(), p[dev])
+                p[dev]["head"] = p[dev]["head"].to(torch.bfloat16)
+        b = {dev: _lm_batch(cfg, dev, f32=f32) for dev in ("cpu", "cuda")}
+        tag = "f32" if f32 else "bf16"
+        with torch.no_grad():
+            h = {dev: lm.forward(p[dev], cfg, tokens=b[dev].get("tokens"),
+                                 embeds=b[dev].get("embeds"),
+                                 enc_inputs=b[dev].get("enc_inputs"),
+                                 patch_embeds=b[dev].get("patch_embeds"))
+                 for dev in ("cpu", "cuda")}
+            loss = {dev: float(lm.lm_loss(p[dev], cfg, b[dev]))
+                    for dev in ("cpu", "cuda")}
+        step = {dev: _lm_step(cfg, p[dev], b[dev]) for dev in ("cpu", "cuda")}
+        rtol = LM_F32_RTOL if f32 else LM_LOSS_RTOL
+        err_h = _rel_l2(h["cpu"], h["cuda"])
+        if f32:
+            if not within(h["cuda"].cpu(), h["cpu"], rtol=2e-3, atol=2e-3):
+                fail(f"9a {arch} f32: forward differs by "
+                     f"{max_abs_err(h['cuda'].cpu(), h['cpu']):.3g}")
+        elif err_h > LM_REL_L2:
+            fail(f"9a {arch}: forward relative L2 error {err_h:.4f}")
+        for name, a, g in (
+                ("lm_loss", loss["cpu"], loss["cuda"]),
+                ("step loss", float(step["cpu"][2]["loss"]),
+                 float(step["cuda"][2]["loss"]))):
+            if abs(g - a) > rtol * abs(a):
+                fail(f"9a {arch} {tag}: {name} {g} on the card, {a} on "
+                     "the CPU")
+        gn = [float(step[d][2]["grad_norm"]) for d in ("cpu", "cuda")]
+        if not np.isfinite(gn).all() or (
+                f32 and abs(gn[1] - gn[0]) > rtol * gn[0]):
+            fail(f"9a {arch} {tag}: grad_norm {gn[1]} on the card, {gn[0]} "
+                 "on the CPU")
+        _first_step_close(f"9a {arch} {tag}", step["cpu"][0], step["cuda"][0],
+                          2.0 ** -23 if f32 else 2.0 ** -7)
+        out[tag] = {"hidden_rel_l2": err_h,
+                    "loss_rel": abs(loss["cuda"] - loss["cpu"]) / loss["cpu"],
+                    "grad_norm_rel": abs(gn[1] - gn[0]) / gn[0]}
+        del step
+    # three decode positions (bf16)
+    p = {dev: lm.params_from_numpy(tree, dev) for dev in ("cpu", "cuda")}
+    enc_len = 8 if cfg.enc_dec else 0
+    cache = {dev: init_cache(cfg, 2, 8, enc_len=enc_len, device=dev)
+             for dev in ("cpu", "cuda")}
+    toks = _lm_batch(cfg, "cpu", t=3, seed=3)["tokens"]
+    worst = 0.0
+    for pos in range(3):
+        logits = {}
+        for dev in ("cpu", "cuda"):
+            logits[dev], cache[dev] = serve_step(
+                p[dev], cfg, cache[dev], toks[:, pos:pos + 1].to(dev), pos)
+        worst = max(worst, _rel_l2(logits["cpu"], logits["cuda"]))
+    if worst > LM_REL_L2:
+        fail(f"9a {arch}: serve_step logits relative L2 error {worst:.4f}")
+    out["decode_rel_l2"] = worst
+    return out
+
+
+def lm_decode_matches_forward(cfg, params) -> float:
+    """9b: serve_step over LM_DECODE_T positions against the teacher-forced
+    forward at full width (capacity_factor 8: no drops), within 0.15 and
+    the argmax equal, as tests/test_models.py holds it at reduced width."""
+    from repro_torch.models.lm import forward
+    from repro_torch.serving.decode import init_cache, serve_step
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, LM_DECODE_T))).to("cuda")
+    with torch.no_grad():
+        hidden = forward(params, cfg, tokens=tokens, remat=False)
+        want = (hidden[:, -1].to(torch.bfloat16) @ params["head"]).float()
+    cache = init_cache(cfg, 1, LM_DECODE_T, device="cuda")
+    for pos in range(LM_DECODE_T):
+        got, cache = serve_step(params, cfg, cache, tokens[:, pos:pos + 1],
+                                pos)
+    err = max_abs_err(got, want)
+    if not within(got, want, rtol=LM_DECODE_TOL, atol=LM_DECODE_TOL) \
+            or int(got.argmax(-1)[0]) != int(want.argmax(-1)[0]):
+        fail(f"9b: serve_step vs forward at full width: max abs error "
+             f"{err:.4f}, argmax {int(got.argmax(-1)[0])} vs "
+             f"{int(want.argmax(-1)[0])}")
+    return err
+
+
+def device_share(fn) -> dict:
+    """fn() once under torch.profiler (after a warm call): wall ms, the
+    device's kernel ms and launches, the idle share of the wall, and the
+    five kernels that took most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall, "device_ms": busy, "launches": len(kernels),
+            "idle_share": max(0.0, 1 - busy / wall) if kernels else None,
+            "top_kernels_ms": [[n[:60], ms] for n, ms in top]}
+
+
+def lm_profiles(cfg, params) -> dict:
+    """9b: one serve_step (batch LM_SERVE["batch"], 32 cached positions)
+    and one train step (LM_TRAIN's batch and sequence) at full width,
+    each under device_share."""
+    from repro_torch.serving.decode import init_cache, serve_step
+    from repro_torch.training.adamw import AdamWConfig
+    from repro_torch.training.train_step import init_state, make_train_step
+    b = LM_SERVE["batch"]
+    cache = init_cache(cfg, b, LM_SERVE["prompt_len"] + LM_SERVE["gen"],
+                       device="cuda")
+    tok = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+    out = {"serve_step": device_share(
+        lambda: serve_step(params, cfg, cache, tok, LM_SERVE["prompt_len"]))}
+    del cache
+    opt = AdamWConfig(lr=LM_TRAIN["lr"])
+    step = make_train_step(cfg, opt)
+    state = init_state(params, opt)
+    batch = _lm_batch(cfg, "cuda", b=LM_TRAIN["batch"], t=LM_TRAIN["seq"])
+    out["train_step"] = device_share(lambda: step(params, state, batch))
+    return out
+
+
+def _load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_lm() -> dict:
+    """Phase 9 (9a-9c): the LM substrate on the card. Returns the LM line."""
+    import dataclasses
+    import shutil
+    from repro_torch.configs.base import all_archs
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import run
+    t0 = time.perf_counter()
+    # what earlier phases still hold: 9b's peak memory includes it
+    line = {"gpu_vs_cpu": {},
+            "resident_gb_at_start": torch.cuda.memory_allocated() / 1e9}
+    for arch in sorted(all_archs()):                                  # 9a
+        line["gpu_vs_cpu"][arch] = lm_gpu_equals_cpu(arch)
+    line["9a_s"] = time.perf_counter() - t0
+    print(f"9a: every reduced config GPU = CPU ({line['9a_s']:.1f} s)",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    full = all_archs()[LM_FULL_ARCH].config                           # 9b
+    t1 = time.perf_counter()
+    sv = serve(LM_FULL_ARCH, reduced=False, verbose=False, device="cuda",
+               **LM_SERVE)
+    if not sv["finite"] or sv["tokens"].shape != (LM_SERVE["batch"],
+                                                  LM_SERVE["gen"]):
+        fail(f"9b: serve at full width: finite {sv['finite']}, tokens "
+             f"{sv['tokens'].shape}")
+    line["serve"] = {k: sv[k] for k in ("prefill_s", "decode_s",
+                                        "decode_tok_per_s", "finite")}
+    torch.cuda.empty_cache()
+    from repro_torch.models.lm import init_params
+    params = init_params(full, 0, device="cuda")
+    line["decode_vs_forward_max_abs"] = lm_decode_matches_forward(
+        dataclasses.replace(full, capacity_factor=8.0), params)
+    line["profile"] = lm_profiles(full, params)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = run(LM_FULL_ARCH, reduced=False, verbose=False, device="cuda",
+             **LM_TRAIN)
+    losses = tr["losses"]
+    if not np.isfinite(losses).all() or np.mean(losses[-5:]) >= losses[0]:
+        fail(f"9b: training at full width: losses {losses}")
+    line["train"] = {"first_loss": losses[0],
+                     "last5_mean_loss": float(np.mean(losses[-5:])),
+                     "p50_ms": tr["p50_ms"], "p95_ms": tr["p95_ms"],
+                     "max_memory_gb": torch.cuda.max_memory_allocated()
+                     / 1e9}
+    line["9b_s"] = time.perf_counter() - t1
+    print(f"9b: {LM_FULL_ARCH} ({full.param_count():,} parameters) "
+          f"served, decoded = forward, trained ({line['9b_s']:.1f} s)",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    t2 = time.perf_counter()                                          # 9c
+    arch = _load_example("train_lm_torch").register()
+    shutil.rmtree(PHASE9_DIR, ignore_errors=True)
+    ckpt = str(PHASE9_DIR / "ckpt")
+    try:
+        cut = run(arch, ckpt_dir=ckpt, simulate_preemption_at=LM_PREEMPT_AT,
+                  verbose=False, device="cuda", **LM_RESUME)
+        resumed = run(arch, ckpt_dir=ckpt, verbose=False, device="cuda",
+                      **LM_RESUME)
+    finally:
+        shutil.rmtree(PHASE9_DIR, ignore_errors=True)
+    whole = run(arch, verbose=False, device="cuda",
+                **{k: v for k, v in LM_RESUME.items() if k != "keep"})
+    want_from = (LM_PREEMPT_AT // LM_RESUME["ckpt_every"]) \
+        * LM_RESUME["ckpt_every"]
+    if cut.get("preempted_at") != LM_PREEMPT_AT \
+            or resumed["resumed_from"] != want_from:
+        fail(f"9c: preempted at {cut.get('preempted_at')}, resumed from "
+             f"{resumed['resumed_from']}")
+    a, b = resumed["final_loss"], whole["final_loss"]
+    if abs(a - b) > 1e-4 * abs(b):
+        fail(f"9c: resumed final loss {a} against uninterrupted {b}")
+    comp = run(arch, steps=5, batch=LM_RESUME["batch"],
+               seq=LM_RESUME["seq"], compress=True, verbose=False,
+               device="cuda")
+    if not np.isfinite(comp["losses"]).all():
+        fail(f"9c: --compress losses {comp['losses']}")
+    line["resume"] = {"resumed_from": resumed["resumed_from"],
+                      "final_loss": a, "uninterrupted_final_loss": b,
+                      "bit_equal": a == b, "p50_ms": whole["p50_ms"],
+                      "compress_losses": comp["losses"]}
+    line["9c_s"] = time.perf_counter() - t2
+    line["phase_s"] = time.perf_counter() - t0
+    print(f"9c: resumed from step {resumed['resumed_from']} = uninterrupted"
+          f" ({a} vs {b}); compressed steps finite ({line['9c_s']:.1f} s)",
+          flush=True)
+    print("LM " + json.dumps(line), flush=True)
+    return line
+
+
 def kernel_times(src: pathlib.Path, smi_line: str) -> None:
     """`--kernel-times`: ring_matmul at the dense and sparse fits' own
     layouts, esd beside addmm + norms at the phase-5 shapes, and spmm_ell
@@ -3349,6 +3689,9 @@ def main() -> None:
     api_rows, api_worst = phase_api_kernels(data)
     worst["spmm_ell"] = max(worst["spmm_ell"], api_worst["spmm_ell_k10"])
     del data
+    _cold_caches()                   # the K-means programs' device buffers
+    torch.cuda.empty_cache()
+    phase_lm()
 
     # per-kernel line: times and bounds summed over one vertical iteration's
     # launches at the main-path shapes (MM_PER_ITER / KS_PER_ITER)

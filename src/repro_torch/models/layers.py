@@ -1,0 +1,345 @@
+"""Transformer layers: norms, RoPE, GQA/MLA attention (flash-chunked causal,
+banded local, softcap), dense GLU MLP, and sort-based sparse MoE.
+
+All compute is dtype-explicit, as in the JAX package: bf16 matmuls, f32
+softmax, norms and router. Attention never materializes the full (S, S)
+score matrix: an online softmax over KV chunks, with chunks that are all
+future or all outside the window skipped before any work.
+
+The MoE dispatch is the paper's sparsity idea applied to the LM substrate
+(DESIGN.md §5): assignment one-hots are never multiplied as dense matrices;
+tokens are sorted by expert id and gathered into (E, C, D), so compute and
+traffic follow the routed tokens. Both the dispatch and the combine are
+gathers whose backward is a gather too (`_GatherRows`): no scatter-add
+runs in either direction, so a step is deterministic on the card.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+BF16 = torch.bfloat16
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# norms / rope / activations
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(F32)
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * (1.0 + scale.to(F32))).to(x.dtype)
+
+
+def rope_freqs(positions: torch.Tensor, dim: int, theta: float) -> tuple:
+    """positions: (...,) int -> cos/sin (..., dim/2) f32."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=F32,
+                                        device=positions.device) / dim))
+    ang = positions.to(F32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., T, H, D); cos/sin: (..., T, D/2) broadcast over heads."""
+    xf = x.to(F32)
+    x1, x2 = xf[..., ::2], xf[..., 1::2]
+    c, s = cos[..., None, :], sin[..., None, :]
+    out = torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def _gelu(v: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(v, approximate="tanh")
+
+
+def _relu_sq(v: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(v))
+
+
+_ACTS = {"silu": F.silu, "gelu": _gelu, "relu_sq": _relu_sq}
+
+
+def act_fn(name: str):
+    return _ACTS[name]
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+# ---------------------------------------------------------------------------
+# flash-chunked attention (causal / banded-local), GQA
+# ---------------------------------------------------------------------------
+
+def _attn_chunk(q, k, v, mask, scale, cap):
+    """q (B,Tq,H,Dk) k (B,Tk,Hkv,Dk) v (B,Tk,Hkv,Dv) mask (Tq,Tk)."""
+    b, tq, h, dk = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qf = q.to(F32).reshape(b, tq, hkv, g, dk)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(F32)) * scale
+    s = softcap(s, cap)
+    s = torch.where(mask[None, None, None], s, -1e30)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(F32))
+    return m, l, o  # o: (b, tq, hkv, g, dv)
+
+
+def flash_attention(q, k, v, *, causal: bool, window: int | None,
+                    scale: float, cap: float | None,
+                    q_offset: int = 0, kv_chunk: int = 2048,
+                    q_chunk: int = 2048) -> torch.Tensor:
+    """Online-softmax attention over KV chunks. q (B,Tq,H,D), k/v (B,Tk,Hkv,D).
+    `q_offset` is the absolute position of q[0] relative to k[0]. Full
+    (Tq,Tk) scores never materialize.
+
+    Long queries are processed in q_chunk slices so the static causal/window
+    chunk-skip below turns causal attention into ~T^2/2 and windowed local
+    attention into O(T*window) actual compute."""
+    if q.shape[1] > q_chunk:
+        outs = [flash_attention(q[:, i:i + q_chunk], k, v, causal=causal,
+                                window=window, scale=scale, cap=cap,
+                                q_offset=q_offset + i, kv_chunk=kv_chunk,
+                                q_chunk=q_chunk)
+                for i in range(0, q.shape[1], q_chunk)]
+        return torch.cat(outs, dim=1)
+    b, tq, h, dk = q.shape
+    tk = k.shape[1]
+    hkv = k.shape[2]
+    dv = v.shape[3]
+    g = h // hkv
+    dev = q.device
+    kv_chunk = min(kv_chunk, tk)
+    n_chunks = -(-tk // kv_chunk)
+    pad = n_chunks * kv_chunk - tk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    q_pos = q_offset + torch.arange(tq, device=dev)
+
+    # unrolled over KV chunks: chunks whose mask is statically all-False
+    # (future-of-causal / outside-window) are skipped entirely
+    m_run = torch.full((b, hkv, g, tq), -torch.inf, dtype=F32, device=dev)
+    l_run = torch.zeros((b, hkv, g, tq), dtype=F32, device=dev)
+    o_run = torch.zeros((b, hkv, g, tq, dv), dtype=F32, device=dev)
+    q_lo, q_hi = q_offset, q_offset + tq - 1
+    for ci in range(n_chunks):
+        k_lo, k_hi = ci * kv_chunk, ci * kv_chunk + kv_chunk - 1
+        if causal and k_lo > q_hi:
+            continue                          # chunk entirely in the future
+        if window is not None and k_hi <= q_lo - window:
+            continue                          # chunk entirely out of window
+        k_pos = k_lo + torch.arange(kv_chunk, device=dev)
+        mask = (k_pos < tk)[None, :].expand(tq, kv_chunk)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        m_c, l_c, o_c = _attn_chunk(q, k[:, k_lo:k_lo + kv_chunk],
+                                    v[:, k_lo:k_lo + kv_chunk], mask, scale,
+                                    cap)
+        o_c = o_c.permute(0, 2, 3, 1, 4)        # (b, hkv, g, tq, dv)
+        m_new = torch.maximum(m_run, m_c)
+        a = torch.exp(m_run - m_new)
+        bb = torch.exp(m_c - m_new)
+        l_run = l_run * a + l_c * bb
+        o_run = o_run * a[..., None] + o_c * bb[..., None]
+        m_run = m_new
+    o = o_run / torch.clamp(l_run, min=1e-30)[..., None]
+    out = o.permute(0, 3, 1, 2, 4).reshape(b, tq, h, dv)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, causal: bool,
+              window: int | None, positions: torch.Tensor) -> torch.Tensor:
+    """x (B,T,D) -> (B,T,D). p: wq (D,H*Dh), wk/wv (D,Hkv*Dh), wo (H*Dh,D)."""
+    b, t, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, t, h, dh)
+    k = (x @ p["wk"]).reshape(b, t, hkv, dh)
+    v = (x @ p["wv"]).reshape(b, t, hkv, dh)
+    cos, sin = rope_freqs(positions, dh, cfg.rope_theta)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    o = flash_attention(q, k, v, causal=causal, window=window,
+                        scale=1.0 / np.sqrt(dh), cap=cfg.attn_softcap)
+    return o.reshape(b, t, h * dh) @ p["wo"]
+
+
+def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V2 Multi-head Latent Attention (training/prefill form).
+
+    KV compressed to kv_lora (+ shared rope key); decode uses the absorbed
+    form over the compressed cache (serving/decode.py)."""
+    b, t, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wq_b"]).reshape(b, t, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    ckv_full = x @ p["wkv_a"]                       # (B,T,kv_lora+dr)
+    ckv = rms_norm(ckv_full[..., :cfg.kv_lora], p["kv_norm"], cfg.norm_eps)
+    k_rope = ckv_full[..., cfg.kv_lora:].reshape(b, t, 1, dr)
+    kv = (ckv @ p["wkv_b"]).reshape(b, t, h, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    cos, sin = rope_freqs(positions, dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope, cos, sin).expand(b, t, h, dr)
+    q_full = torch.cat([q_nope, q_rope], -1)
+    k_full = torch.cat([k_nope, k_rope], -1)
+    o = flash_attention(q_full, k_full, v, causal=True, window=None,
+                        scale=1.0 / np.sqrt(dn + dr), cap=None)
+    return o.reshape(b, t, h * dv) @ p["wo"]
+
+
+def cross_attention(p: dict, x: torch.Tensor, enc: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    b, t, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, t, h, dh)
+    k = (enc @ p["wk"]).reshape(b, enc.shape[1], hkv, dh)
+    v = (enc @ p["wv"]).reshape(b, enc.shape[1], hkv, dh)
+    o = flash_attention(q, k, v, causal=False, window=None,
+                        scale=1.0 / np.sqrt(dh), cap=None)
+    return o.reshape(b, t, h * dh) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# dense GLU MLP
+# ---------------------------------------------------------------------------
+
+def glu_mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    g = act_fn(act)(x @ p["w_gate"])
+    return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE with sort-based (sparsity-exploiting) dispatch
+# ---------------------------------------------------------------------------
+
+class _GatherRows(torch.autograd.Function):
+    """y[g, i] = x[g, fwd[g, i]] with row N of x (N rows) read as zeros.
+
+    `bwd[g, j, :]` lists the rows of y that copied x[g, j] (row M of y, M
+    rows, stands for "none"), so the backward is a gather and a sum over
+    the last index: dx[g, j] = sum_k dy[g, bwd[g, j, k]]. Autograd's own
+    backward of a gather is a scatter-add, whose float sums run in atomic
+    order on the card."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        g, n, d = x.shape
+        m = fwd.shape[1]
+        ctx.save_for_backward(bwd)
+        ctx.m = m
+        xp = torch.cat([x, x.new_zeros(g, 1, d)], 1).reshape(g * (n + 1), d)
+        off = torch.arange(g, device=x.device)[:, None] * (n + 1)
+        return xp.index_select(0, (fwd + off).reshape(-1)).reshape(g, m, d)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (bwd,) = ctx.saved_tensors
+        g, n, k = bwd.shape
+        m, d = ctx.m, dy.shape[-1]
+        dyp = torch.cat([dy, dy.new_zeros(g, 1, d)], 1).reshape(
+            g * (m + 1), d)
+        off = torch.arange(g, device=dy.device)[:, None, None] * (m + 1)
+        rows = dyp.index_select(0, (bwd + off).reshape(-1))
+        return rows.reshape(g, n, k, d).sum(2), None, None
+
+
+def moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x (B,T,D) -> (B,T,D). Router f32; tokens sorted by expert id and
+    gathered to (E, C, D); capacity drops overflow (cap_factor).
+
+    moe_dispatch='global' sorts all B*T tokens at once; 'per_example' runs
+    the dispatch per sequence (one batched sort), with capacity budgeted
+    per sequence."""
+    b, t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    if cfg.moe_dispatch == "per_example":
+        cap = max(1, int(np.ceil(t * k / e * cfg.capacity_factor)))
+        out = _moe_tokens(p, x, cfg, cap)
+    else:
+        n = b * t
+        cap = max(1, int(np.ceil(n * k / e * cfg.capacity_factor)))
+        out = _moe_tokens(p, x.reshape(1, n, d), cfg, cap).reshape(b, t, d)
+    if cfg.n_shared_experts:
+        out = out + glu_mlp(p["shared"], x, cfg.act)
+    return out
+
+
+def _router(p: dict, xf: torch.Tensor, cfg: ModelConfig):
+    """-> (gate, ids), each (G, N, K): the top_k experts of each token,
+    ties to the lower expert id (as jax.lax.top_k), and their renormalized
+    probabilities times router_scale."""
+    logits = xf.to(F32) @ p["router"].to(F32)                  # (G, N, E)
+    probs = torch.softmax(logits, -1)
+    # a stable descending sort keeps equal probabilities in expert order
+    srt, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, ids = srt[..., :cfg.top_k], ids[..., :cfg.top_k]
+    gate = (gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+            ) * cfg.router_scale
+    return gate, ids
+
+
+def _moe_tokens(p: dict, xf: torch.Tensor, cfg: ModelConfig,
+                cap: int) -> torch.Tensor:
+    """Sort-based dispatch of G independent (N, D) token blocks, batched:
+    xf (G, N, D) -> (G, N, D)."""
+    g, n, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
+    ep = p["w_gate"].shape[-3]           # padded expert count (EP-divisible)
+    dev = xf.device
+    gate, ids = _router(p, xf, cfg)
+    ids_f = ids.reshape(g, n * k)                              # (G, N*K)
+    order = torch.argsort(ids_f, dim=-1, stable=True)
+    ids_s = torch.gather(ids_f, 1, order)
+    tok_s = torch.div(order, k, rounding_mode="floor")         # token of entry
+    # position of each routed token inside its expert's queue
+    same = torch.arange(n * k, device=dev).expand(g, n * k)
+    seg_start = torch.searchsorted(
+        ids_s, torch.arange(e, device=dev).expand(g, e).contiguous())
+    pos = same - torch.gather(seg_start, 1, ids_s)
+    keep = pos < cap
+    slots = ep * cap
+    dest = torch.where(keep, ids_s * cap + pos, slots)         # overflow slot
+    # slot -> token (n: an empty slot, read as zeros); dropped entries land
+    # in a discard area of their own, so no two writes share an index
+    slot_tok = torch.full((g, slots + n * k), n, dtype=torch.long,
+                          device=dev)
+    slot_tok.scatter_(1, torch.where(keep, dest, slots + same), tok_s)
+    slot_tok = slot_tok[:, :slots]
+    # entry (token, j) -> slot, in token order (slots: dropped)
+    entry_slot = torch.empty_like(dest).scatter_(1, order, dest)
+    # slot -> entry (n*k: an empty slot)
+    slot_entry = torch.full((g, slots + n * k), n * k, dtype=torch.long,
+                            device=dev)
+    slot_entry.scatter_(1, torch.where(keep, dest, slots + same), order)
+    slot_entry = slot_entry[:, :slots]
+
+    h = _GatherRows.apply(xf, slot_tok, entry_slot.reshape(g, n, k))
+    h = h.reshape(g, ep, cap, d)
+    # expert FFN: (E,C,D) x (E,D,F); pad experts (>= e) receive no tokens,
+    # only the zero rows
+    gh = act_fn(cfg.act)(torch.einsum("gecd,edf->gecf", h, p["w_gate"]))
+    uh = torch.einsum("gecd,edf->gecf", h, p["w_up"])
+    oh = torch.einsum("gecf,efd->gecd", gh * uh, p["w_down"])
+    contrib = _GatherRows.apply(oh.reshape(g, slots, d), entry_slot,
+                                slot_entry[..., None])        # (G, N*K, D)
+    contrib = contrib * gate.reshape(g, n * k)[..., None].to(xf.dtype)
+    return contrib.reshape(g, n, k, d).sum(2)

@@ -38,7 +38,20 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.launch.two_party", "repro_torch.obs",
               "repro_torch.obs.trace", "repro_torch.obs.metrics",
               "repro_torch.launch.supervisor",
-              "repro_torch.launch.serve_kmeans"):
+              "repro_torch.launch.serve_kmeans",
+              "repro_torch.configs", "repro_torch.configs.base",
+              *(f"repro_torch.configs.{a}" for a in (
+                  "command_r_35b", "deepseek_v2_236b", "gemma2_27b",
+                  "granite_34b", "granite_moe_3b_a800m", "llama3_405b",
+                  "llava_next_34b", "recurrentgemma_2b", "rwkv6_1b6",
+                  "seamless_m4t_medium")),
+              "repro_torch.models.layers", "repro_torch.models.recurrent",
+              "repro_torch.models.lm", "repro_torch.models.tree",
+              "repro_torch.serving.decode", "repro_torch.training.adamw",
+              "repro_torch.training.compression",
+              "repro_torch.training.train_step",
+              "repro_torch.data.pipeline", "repro_torch.launch.train",
+              "repro_torch.launch.serve"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -87,3 +100,41 @@ def test_default_fit_refuses_cpu_fallback(monkeypatch):
     # asking for the cuda backend on CPU data raises too
     with pytest.raises(ValueError, match="backend='cuda' runs on"):
         KMeansConfig(k=2, iters=1, device="cpu")
+
+
+def test_lm_entry_points_refuse_cpu_fallback(monkeypatch):
+    """The LM launchers, `init_params` and `init_cache` default to cuda and
+    raise without a GPU instead of running on the CPU."""
+    from repro_torch.configs.base import all_archs
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import run
+    from repro_torch.models.lm import init_params
+    from repro_torch.serving.decode import init_cache
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = all_archs()["granite-34b"].reduced
+    for call in (lambda: run("granite-34b", steps=1, verbose=False),
+                 lambda: serve("granite-34b", gen=1, verbose=False),
+                 lambda: init_params(cfg, 0),
+                 lambda: init_cache(cfg, 1, 4)):
+        with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+            call()
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.train",
+                                    "repro_torch.launch.serve"])
+def test_lm_launchers_default_to_cuda(module):
+    """`python -m` each launcher with no --device on a machine without a
+    GPU exits non-zero with the refusal; with --device cpu it runs."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    args = [sys.executable, "-m", module, "--arch", "granite-34b"]
+    small = (["--steps", "2", "--batch", "2", "--seq", "16"]
+             if module.endswith("train")
+             else ["--batch", "1", "--prompt-len", "2", "--gen", "2"])
+    out = subprocess.run(args + small, capture_output=True, text=True,
+                         timeout=300, env=env, cwd=str(ROOT))
+    assert out.returncode != 0 and "needs a CUDA GPU" in out.stderr
+    out = subprocess.run(args + small + ["--device", "cpu"],
+                         capture_output=True, text=True, timeout=300,
+                         env=env, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
