@@ -152,10 +152,38 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      step 25, resumed from its step-20 `CheckpointStore` step and held to
      an uninterrupted run within rtol 1e-4, and 5 compressed steps; it
      prints one `LM {...}` line; scratch in the ignored `build/phase9/`;
- 10. prints one JSON line of per-kernel launches (the fit path's, and for
+ 10. (run after 9) the kmeans-fraud cell (configs/kmeans_fraud.py: d =
+     1024 = 512 + 512, k = 16) as the single-launch online iteration
+     (launch/kmeans_step.py `online_iteration_fn`, backend="cuda"): 10a
+     dense at n = 524,288 (the full n's 52.65 GB offline list leaves no
+     room on the card), blobs from a seed, the offline list from a
+     TrustedDealer; the launch counters set to 0 just before the iteration
+     and read just after; its words equal the S1 -> S3 pair of
+     `fit_programs` fed the same list, `fit_iteration_fn` (centroids and
+     assignment) and FUSE_BEAVER off; the centroids within 1e-2 of one
+     plaintext Lloyd step, label agreement >= 0.98; ring_matmul and
+     ks_carry_share held to their plain versions and timed at each shape
+     and operand layout the iteration gave them, against their bounds;
+     the roofline's one-chip step (launch/roofline.py's data-sheet
+     constants over the counted FLOPs and bytes) beside the wall; 10b
+     sparse at the full n = 1,048,576 with Protocol 2's 8 result shares
+     drawn from a seed, fused = the split pair, ring_matmul and
+     ks_carry_share held to their plain versions and timed at each of its
+     shapes and layouts; 10c
+     `python -m repro_torch.launch.dryrun --kmeans`, `--arch
+     granite-moe-3b-a800m --shape train_4k --mesh single` and `python -m
+     repro_torch.launch.roofline --arch kmeans-fraud`, each a CPU process
+     started when the phase starts: exit 0, no error record, no CUDA
+     context, and their records formatted by benchmarks/report.py; 10d
+     `launch/mesh.py:make_dev_mesh()` on the card, a reduced config's tree
+     placed by `param_shardings` with every local shape and word its
+     global one. It prints one `KMEANS_CELL {...}` line and its seconds;
+     scratch in the ignored `build/phase10/`;
+ 11. prints one JSON line of per-kernel launches (the fit path's, and for
      the fit kernels the scoring path's as `scoring_launches`, phase 7's
-     as `durability_launches` and phase 8's in-process and party-A
-     launches as `observability_launches`), times and bounds, the
+     as `durability_launches`, phase 8's in-process and party-A
+     launches as `observability_launches` and phase 10a's as
+     `kmeans_cell_launches`), times and bounds, the
      nvidia-smi line, and finally {"ok": true, "device": {...}}.
 
 Phases 2 and 3 cover the sparse slice too: `spmm_ell` against its plain
@@ -179,6 +207,10 @@ version first, for the repro_torch package under DIR (default: this
 checkout's src/), and prints one JSON line.
 Run on two trees in one call, in turns (A, B, B, A), it compares their
 kernels on one card.
+
+    python3 chip_smoke.py --cell
+
+runs only the build and phase 10.
 
     python3 chip_smoke.py --scoring-server DIR PORT DIE_AFTER
 
@@ -3597,6 +3629,497 @@ def phase_lm() -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the kmeans-fraud cell and the multi-device plans
+# ---------------------------------------------------------------------------
+
+# configs/kmeans_fraud.py FULL (d = 1024, k = 16, d_a = 512, paper Fig 4
+# scale) as the single-launch online iteration (launch/kmeans_step.py
+# online_iteration_fn). Dense: the full n's offline list (52.65 GB) and data
+# (8.59 GB) leave no room for the iteration's temporaries on an 80 GB card,
+# so 10a runs half the samples with every width as published (30.6 GB
+# resident). Sparse (10b): Protocol 2's results enter as inputs, 25.8 GB at
+# the full n.
+KF_DENSE_N = 524_288
+KF_SEED = 21
+KF_ATOL = 1e-2        # tests/test_launch_kmeans_step.py's bound
+KF_AGREE = 0.98
+PHASE10_DIR = ROOT / "build" / "phase10"    # ignored; removed at the end
+# 10c: the dry run and roofline as users run them, each a CPU process
+KF_PLAN_CMDS = {
+    "dryrun_kmeans": ["-m", "repro_torch.launch.dryrun", "--kmeans"],
+    "dryrun_moe_train": ["-m", "repro_torch.launch.dryrun", "--arch",
+                         "granite-moe-3b-a800m", "--shape", "train_4k",
+                         "--mesh", "single"],
+    "roofline_kmeans": ["-m", "repro_torch.launch.roofline", "--arch",
+                        "kmeans-fraud"]}
+
+
+def kf_data(gen, n: int, d: int, k: int, sparsity: float = 0.0):
+    """Encoded blobs on the card from `gen`: (x_enc (n, d) ring words,
+    labels). Centers uniform in [-1, 1), noise 0.3: at d = 1024 the blobs
+    are ~26 apart against a radius of ~10, and D' = |mu|^2 - 2 x.mu stays
+    near 2^49 at scale 2^40, where the protocol's local truncation wraps
+    about one word in 2^15 (a center range of [-5, 5) would wrap 25 times
+    as often). With sparsity, each cluster keeps a fixed random
+    (1 - sparsity) share of the columns and zeros the rest (as phase 4b's
+    data)."""
+    from repro_torch.core import ring
+    dev = torch.device("cuda")
+    centers = (torch.rand((k, d), generator=gen, device=dev,
+                          dtype=torch.float64) * 2 - 1).to(torch.float32)
+    if sparsity:
+        keep = torch.rand((k, d), generator=gen, device=dev) >= sparsity
+        centers = centers * keep
+    lab = torch.randint(0, k, (n,), generator=gen, device=dev)
+    x = torch.randn((n, d), generator=gen, device=dev) * 0.3
+    x += centers[lab]
+    if sparsity:
+        x *= keep[lab]
+    enc = ring.encode(x)
+    del x
+    return enc, lab
+
+
+def kf_first_of_each(lab: torch.Tensor, k: int) -> torch.Tensor:
+    """The index of the first point of each of the k blobs."""
+    first = [(lab == c).nonzero()[:1, 0] for c in range(k)]
+    if any(f.numel() == 0 for f in first):
+        fail(f"a blob of the {k} is empty")
+    return torch.cat(first)
+
+
+def kf_shares(gen, words: torch.Tensor):
+    """Two additive shares of `words`: a random word mask and the rest."""
+    r = torch.randint(-2 ** 63, 2 ** 63 - 1, tuple(words.shape),
+                      generator=gen, dtype=torch.int64, device=words.device)
+    return r, words - r
+
+
+class _CellSpy:
+    """Records the operand shapes and layouts ring_matmul and
+    ks_carry_share are called with, for the per-shape timing; counts
+    nothing (the wrappers count their launches)."""
+
+    def __enter__(self):
+        from collections import Counter
+        from repro_torch.kernels import ksadder, modmatmul
+        self.mm, self.ks = Counter(), Counter()
+        self._orig = (modmatmul.ring_matmul, ksadder.ks_carry_share)
+        mm0, ks0 = self._orig
+
+        def mm(a, b):
+            self.mm[((a.shape[0], a.shape[1], b.shape[1]),
+                     modmatmul.layout(a), modmatmul.layout(b))] += 1
+            return mm0(a, b)
+
+        def ks(*args, party0):
+            self.ks[tuple(args[0].shape)] += 1
+            return ks0(*args, party0=party0)
+        modmatmul.ring_matmul, ksadder.ks_carry_share = mm, ks
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ksadder, modmatmul
+        modmatmul.ring_matmul, ksadder.ks_carry_share = self._orig
+
+
+def _layout_operand(gen, rows: int, cols: int, lay):
+    """A (rows, cols) operand of random words in the layout `lay` that
+    `modmatmul.layout` reported: (transposed, leading dim), or None for one
+    the wrapper copies (drawn contiguous)."""
+    def draw(shape):
+        return torch.randint(-2 ** 63, 2 ** 63 - 1, shape, generator=gen,
+                             dtype=torch.int64, device="cuda")
+    if lay is None:
+        return draw((rows, cols))
+    transposed, ld = lay
+    if transposed:
+        return draw((cols, ld))[:, :rows].T
+    return draw((rows, ld))[:, :cols]
+
+
+def kf_kernel_rows(spy, seed: int, label: str) -> dict:
+    """Each (shape, layout) ring_matmul and each shape ks_carry_share met
+    in the cell's iteration: held word for word to the plain version on
+    fresh inputs of that shape and layout, then timed (L2-cold) against its
+    bound. Returns {"ring_matmul": [...], "ks_carry_share": [...]} rows of
+    (what, count, ms, plain_ms, (bytes ms, operations ms))."""
+    from repro_torch.kernels import ksadder, modmatmul
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rows = {"ring_matmul": [], "ks_carry_share": []}
+    for ((m, kdim, n), la, lb), count in sorted(spy.mm.items(),
+                                                key=lambda kv: str(kv[0])):
+        def make():
+            return (_layout_operand(gen, m, kdim, la),
+                    _layout_operand(gen, kdim, n, lb))
+        a, b = make()
+        if not torch.equal(modmatmul.ring_matmul(a, b),
+                           modmatmul.ring_matmul_plain(a.contiguous(),
+                                                       b.contiguous())):
+            fail(f"{label}: ring_matmul ({m},{kdim})@({kdim},{n}) A {la} "
+                 f"B {lb} differs from its plain version")
+        nbytes = 8 * (m * kdim + kdim * n)
+        sets = [(a, b)] + [make() for _ in range(
+            min(15, -(-2 * L2_BYTES // nbytes) - 1))]
+        ms = device_ms(modmatmul.ring_matmul, sets)
+        plain = device_ms(modmatmul.ring_matmul_plain, sets, reps=2,
+                          bursts=2)
+        del sets, a, b
+        bound = mm_bound_ms(m, kdim, n)
+        rows["ring_matmul"].append(((m, kdim, n, la, lb), count, ms, plain,
+                                    bound))
+        print(f"  {label} ring_matmul ({m},{kdim})@({kdim},{n}) A {la} B "
+              f"{lb}, x{count}: equal; kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {_fmt_bound(bound)}", flush=True)
+    for shape, count in sorted(spy.ks.items()):
+        def words(s):
+            return torch.randint(-2 ** 63, 2 ** 63 - 1, s, generator=gen,
+                                 dtype=torch.int64, device="cuda")
+        flat = [words(shape) for _ in range(6)]
+        lvls = [words((len(ksadder.LEVELS), 2) + shape) for _ in range(5)]
+        for party0 in (True, False):
+            if not torch.equal(
+                    ksadder.ks_carry_share(*flat, *lvls, party0=party0),
+                    ksadder.ks_carry_share_plain(*flat, *lvls,
+                                                 party0=party0)):
+                fail(f"{label}: ks_carry_share {shape} party0={party0} "
+                     f"differs from its plain version")
+        sets = cold_copies((*flat, *lvls))
+        ms = device_ms(lambda *t: ksadder.ks_carry_share(*t, party0=True),
+                       sets)
+        plain = device_ms(
+            lambda *t: ksadder.ks_carry_share_plain(*t, party0=True), sets,
+            reps=3, bursts=2)
+        del sets, flat, lvls
+        bound = ks_bound_ms(int(np.prod(shape, dtype=np.int64)))
+        rows["ks_carry_share"].append((shape, count, ms, plain, bound))
+        print(f"  {label} ks_carry_share {shape}, x{count}: equal; kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{_fmt_bound(bound)}", flush=True)
+    for name, rs in rows.items():
+        if not rs:
+            continue
+        tot = [sum(r[1] * r[2] for r in rs), sum(r[1] * r[3] for r in rs),
+               sum(r[1] * max(r[4]) for r in rs)]
+        print(f"  {label} {name} per iteration ({sum(r[1] for r in rs)} "
+              f"launches): kernel {tot[0]:.4f} ms, plain {tot[1]:.4f} ms, "
+              f"bound {tot[2]:.4f} ms", flush=True)
+    return rows
+
+
+def _same_words(label: str, got, want) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            fail(f"{label}: output {i} differs "
+                 f"({int((g != w).sum())} of {g.numel()} words)")
+
+
+def kf_roofline_ms(n: int, d: int, k: int, d_a: int,
+                   sparse: bool) -> dict:
+    """launch/roofline.py's one-chip step for the iteration: its FLOPs and
+    bytes counted on meta tensors over the H100 data-sheet constants (the
+    FLOPs are int64 ring products: over the ring rate, RING_OPS)."""
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import kmeans_step as KS
+    fn, args = KS.online_iteration_fn(n, d, k, d_a, sparse=sparse,
+                                      device="meta")
+    cost = dryrun.count_cost(fn, *args)
+    compute = 1e3 * cost["flops"] / roofline.RING_OPS
+    memory = 1e3 * cost["bytes"] / roofline.HBM_BW
+    return {"flops": cost["flops"], "bytes": cost["bytes"],
+            "compute_ms": compute, "memory_ms": memory,
+            "step_ms": max(compute, memory)}
+
+
+def kf_dense_cell(n: int) -> dict:
+    """10a: the dense kmeans-fraud iteration at n, backend="cuda"."""
+    from repro_torch.configs.kmeans_fraud import FULL
+    from repro_torch.core import protocol, ring
+    from repro_torch.core.triples import TrustedDealer
+    from repro_torch.launch import kmeans_step as KS
+    d, k, d_a = FULL.d, FULL.k, FULL.d_a
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(KF_SEED)
+    enc, lab = kf_data(gen, n, d, k)
+    xa, xb = enc[:, :d_a].contiguous(), enc[:, d_a:].contiguous()
+    # the start: one point of each blob (no two starts share a blob, so no
+    # point is near-equidistant to two of them)
+    mu_enc = enc[kf_first_of_each(lab, k)]
+    del enc
+    mu0, mu1 = kf_shares(gen, mu_enc)
+    requests = KS.record_offline_shapes(n, d, k, d_a)
+    t1 = time.perf_counter()
+    dealer = TrustedDealer(seed=KF_SEED, device="cuda")
+    flat = KS.materialize_offline(requests, dealer)
+    torch.cuda.synchronize()
+    dealer_s = time.perf_counter() - t1
+    offline_gb = sum(t.numel() for t in flat) * 8 / 1e9
+    print(f"10a: n={n}, d={d} ({d_a} + {d - d_a}), k={k}: data "
+          f"{t1 - t0:.1f} s; {len(requests)} offline requests, "
+          f"{offline_gb:.2f} GB of words, dealer {dealer_s:.1f} s "
+          f"(host numpy, uploaded)", flush=True)
+
+    fn, args = KS.online_iteration_fn(n, d, k, d_a, backend="cuda",
+                                      device="cuda")
+    if len(args) != 4 + len(flat):
+        fail(f"10a: online_iteration_fn takes {len(args)} arguments, "
+             f"{4 + len(flat)} expected")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counters()                       # the cell's main path
+    t2 = time.perf_counter()
+    fused = fn(xa, xb, mu0, mu1, *flat)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t2
+    launches = _launch_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name in ("ring_matmul", "ks_carry_share"):
+        if not launches[name]:
+            fail(f"10a: the iteration launched no {name}")
+    print(f"10a: online_iteration_fn (S1 + S3, one dealer): "
+          f"{wall * 1e3:.1f} ms synchronized; launches {launches}; peak "
+          f"device memory {peak_gb:.2f} GB", flush=True)
+
+    progs = KS.fit_programs("vertical", False, (n, d_a), (n, d - d_a), k,
+                            backend="cuda", device="cuda")
+    if progs.s1_requests + progs.s3_requests != requests:
+        fail("10a: the fused schedule is not S1's followed by S3's")
+    cut = len(KS.offline_tensor_specs(progs.s1_requests, n))
+    c = progs.s1(xa, xb, mu0, mu1, *flat[:cut])
+    split = progs.s3(xa, xb, mu0, mu1, *c, *flat[cut:])
+    _same_words("10a: fused vs the S1 -> S3 pair", fused, split)
+    del split
+    KS.clear_program_cache()
+
+    fit_fn, _, fit_req = KS.fit_iteration_fn(n, d, k, d_a, backend="cuda",
+                                             device="cuda")
+    if fit_req != requests:
+        fail("10a: fit_iteration_fn's schedule differs")
+    with _CellSpy() as spy:
+        out = fit_fn(xa, xb, mu0, mu1, *flat)
+    _same_words("10a: fit_iteration_fn centroids", out[:2], fused)
+    _same_words("10a: fit_iteration_fn assignment", out[2:], c)
+    del out
+    protocol.FUSE_BEAVER = False
+    try:
+        off = fn(xa, xb, mu0, mu1, *flat)
+    finally:
+        protocol.FUSE_BEAVER = True
+    _same_words("10a: FUSE_BEAVER off vs on", off, fused)
+    del off, flat, dealer
+    print("10a: fused = S1 -> S3 = fit_iteration_fn (centroids and "
+          "assignment), FUSE_BEAVER off = on, word for word", flush=True)
+
+    # one plaintext Lloyd step from the same start on the same encoded data
+    x = ring.decode(torch.cat([xa, xb], 1))
+    start = ring.decode(mu_enc)
+    dist = (start * start).sum(1)[None, :] - 2 * x @ start.T
+    plain_lab = dist.argmin(1)
+    del dist
+    sums = torch.zeros((k, d), dtype=torch.float64, device="cuda")
+    sums.index_add_(0, plain_lab, x)
+    cnt = torch.bincount(plain_lab, minlength=k).to(torch.float64)
+    want = torch.where(cnt[:, None] > 0, sums / cnt.clamp(min=1)[:, None],
+                       start)
+    del x, sums
+    got = ring.decode(fused[0] + fused[1])
+    err = float((got - want).abs().max())
+    secure_lab = (c[0] + c[1]).argmax(1)
+    agree = float((secure_lab == plain_lab).double().mean())
+    if not err <= KF_ATOL or agree < KF_AGREE:
+        fail(f"10a: centroids within {err} of a plaintext Lloyd step "
+             f"(bound {KF_ATOL}), label agreement {agree:.5f} "
+             f"(bound {KF_AGREE})")
+    print(f"10a: centroids within {err:.3g} of one plaintext Lloyd step "
+          f"(bound {KF_ATOL}); label agreement {agree:.5f}; "
+          f"{int((cnt > 0).sum())} of {k} clusters non-empty", flush=True)
+    del c, fused, xa, xb, mu0, mu1
+    torch.cuda.empty_cache()
+
+    rows = kf_kernel_rows(spy, KF_SEED + 1, "10a")
+    roof = kf_roofline_ms(n, d, k, d_a, sparse=False)
+    print(f"10a: roofline one-chip step {roof['step_ms']:.3f} ms "
+          f"({roof['flops']:.4g} FLOPs -> {roof['compute_ms']:.3f} ms, "
+          f"{roof['bytes']:.4g} bytes -> {roof['memory_ms']:.3f} ms; "
+          f"data-sheet constants) against a measured "
+          f"{wall * 1e3:.1f} ms", flush=True)
+    return {"n": n, "wall_s": wall, "dealer_s": dealer_s,
+            "offline_gb": offline_gb, "peak_gb": peak_gb,
+            "launches": launches, "max_abs_err": err, "agreement": agree,
+            "rows": rows, "roofline": roof}
+
+
+def kf_sparse_cell() -> dict:
+    """10b: the sparse kmeans-fraud iteration at the full n: the 8
+    Protocol-2 result shares are words drawn from the seed (Protocol 2
+    itself does not run at this size)."""
+    from repro_torch.configs.kmeans_fraud import FULL
+    from repro_torch.core.triples import TrustedDealer
+    from repro_torch.launch import kmeans_step as KS
+    n, d, k, d_a = FULL.n, FULL.d, FULL.k, FULL.d_a
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(KF_SEED + 2)
+    enc, lab = kf_data(gen, n, d, k, sparsity=FULL.sparsity)
+    xa, xb = enc[:, :d_a].contiguous(), enc[:, d_a:].contiguous()
+    mu0, mu1 = kf_shares(gen, enc[kf_first_of_each(lab, k)])
+    del enc, lab
+    he = [torch.randint(-2 ** 63, 2 ** 63 - 1, s, generator=gen,
+                        dtype=torch.int64, device="cuda")
+          for s in [(n, k), (n, k), (k, d_a), (k, d - d_a)] for _ in (0, 1)]
+    requests = KS.record_offline_shapes(n, d, k, d_a, sparse=True)
+    t1 = time.perf_counter()
+    flat = KS.materialize_offline(requests, TrustedDealer(seed=KF_SEED + 2,
+                                                          device="cuda"))
+    torch.cuda.synchronize()
+    dealer_s = time.perf_counter() - t1
+    offline_gb = sum(t.numel() for t in flat) * 8 / 1e9
+    print(f"10b: n={n}, d={d}, k={k}, {FULL.sparsity:.0%} zeros: data "
+          f"{t1 - t0:.1f} s; {len(requests)} offline requests, "
+          f"{offline_gb:.2f} GB of words, dealer {dealer_s:.1f} s",
+          flush=True)
+    fn, _ = KS.online_iteration_fn(n, d, k, d_a, sparse=True,
+                                   backend="cuda", device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counters()
+    t2 = time.perf_counter()
+    with _CellSpy() as spy:
+        fused = fn(xa, xb, mu0, mu1, *he, *flat)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t2
+    launches = _launch_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not launches["ks_carry_share"]:
+        fail("10b: the iteration launched no ks_carry_share")
+    progs = KS.fit_programs("vertical", True, (n, d_a), (n, d - d_a), k,
+                            backend="cuda", device="cuda")
+    if progs.s1_requests + progs.s3_requests != requests:
+        fail("10b: the fused schedule is not S1's followed by S3's")
+    cut = len(KS.offline_tensor_specs(progs.s1_requests, n))
+    c = progs.s1(xa, xb, mu0, mu1, *he[:4], *flat[:cut])
+    split = progs.s3(xa, xb, mu0, mu1, *c, *he[4:], *flat[cut:])
+    _same_words("10b: fused vs the S1 -> S3 pair", fused, split)
+    KS.clear_program_cache()
+    print(f"10b: online_iteration_fn {wall * 1e3:.1f} ms synchronized; "
+          f"launches {launches}; peak device memory {peak_gb:.2f} GB; "
+          f"fused = S1 -> S3 word for word", flush=True)
+    del fused, split, c, flat, he, xa, xb, mu0, mu1
+    torch.cuda.empty_cache()
+    rows = kf_kernel_rows(spy, KF_SEED + 3, "10b")
+    return {"n": n, "wall_s": wall, "dealer_s": dealer_s,
+            "offline_gb": offline_gb, "peak_gb": peak_gb,
+            "launches": launches, "rows": rows}
+
+
+def kf_plans_start(src: pathlib.Path) -> dict:
+    """10c: start the dry run and the roofline, each its own CPU process,
+    writing into the ignored build/phase10/."""
+    import shutil
+    shutil.rmtree(PHASE10_DIR, ignore_errors=True)
+    PHASE10_DIR.mkdir(parents=True)
+    env = {**__import__("os").environ, "PYTHONPATH": str(src)}
+    procs = {}
+    for name, cmd in KF_PLAN_CMDS.items():
+        out = PHASE10_DIR / f"{name}.json"
+        procs[name] = (out, subprocess.Popen(
+            [sys.executable, *cmd, "--out", str(out)], cwd=str(ROOT),
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    return procs
+
+
+def kf_plans_check(procs: dict) -> dict:
+    """10c: each process exits 0 with no error record, never created a
+    CUDA context, and its records format through benchmarks/report.py."""
+    from benchmarks.report import dryrun_table, roofline_table
+    out = {}
+    for name, (path, proc) in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"10c: {name} did not finish in 600 s")
+        last = log.strip().splitlines()[-1] if log.strip() else ""
+        if proc.returncode != 0 or "cuda_initialized=False" not in last:
+            fail(f"10c: {name} exited {proc.returncode}: {log[-2000:]}")
+        recs = json.loads(path.read_text())
+        bad = [r for r in recs if r.get("status") == "error"]
+        if bad or not recs:
+            fail(f"10c: {name}: {len(recs)} records, errors {bad}")
+        table = (roofline_table if name.startswith("roofline")
+                 else dryrun_table)(str(path))
+        print(f"10c: {name}: {last}", flush=True)
+        print(table, flush=True)
+        out[name] = recs
+    return out
+
+
+def kf_dev_mesh() -> int:
+    """10d: the (1,1) device mesh on the card (a world-size-1 nccl group);
+    a reduced dense config's tree placed by `param_shardings` keeps every
+    local shape and word. Returns the leaves placed."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import all_archs
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import sharding as S
+    from repro_torch.models.lm import init_params
+    from repro_torch.models.tree import leaves
+    mesh = make_dev_mesh()
+    try:
+        params = init_params(all_archs()["granite-34b"].reduced, 0,
+                             device="cuda")
+        sh = S.param_shardings(mesh, params)
+        n = 0
+        for t, s in zip(leaves(params), leaves(sh)):
+            local = s.place(t).to_local()
+            if tuple(local.shape) != tuple(t.shape) \
+                    or local.device.type != "cuda" or not torch.equal(local,
+                                                                      t):
+                fail(f"10d: a leaf of shape {tuple(t.shape)} placed by "
+                     f"{s.spec} has local shape {tuple(local.shape)}")
+            n += 1
+    finally:
+        dist.destroy_process_group()
+    print(f"10d: dev mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on the "
+          f"card: {n} leaves placed, each local shape = its global shape",
+          flush=True)
+    return n
+
+
+def phase_kmeans_cell(src: pathlib.Path) -> dict:
+    """Phase 10 (10a-10d). Returns the cell's record."""
+    import shutil
+    t0 = time.perf_counter()
+    _cold_caches()
+    torch.cuda.empty_cache()
+    procs = kf_plans_start(src)
+    try:
+        dense = kf_dense_cell(KF_DENSE_N)
+        torch.cuda.empty_cache()
+        sparse = kf_sparse_cell()
+        torch.cuda.empty_cache()
+        kf_plans_check(procs)
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(PHASE10_DIR, ignore_errors=True)
+    leaves_placed = kf_dev_mesh()
+    seconds = time.perf_counter() - t0
+    print(f"phase 10: {seconds:.1f} s", flush=True)
+    cell = {"dense": {k: v for k, v in dense.items() if k != "rows"},
+            "sparse": {k: v for k, v in sparse.items() if k != "rows"},
+            "dev_mesh_leaves": leaves_placed, "seconds": seconds}
+    print("KMEANS_CELL " + json.dumps(cell, default=str), flush=True)
+    return {"dense": dense, "sparse": sparse, "seconds": seconds}
+
+
 def kernel_times(src: pathlib.Path, smi_line: str) -> None:
     """`--kernel-times`: ring_matmul at the dense and sparse fits' own
     layouts, esd beside addmm + norms at the phase-5 shapes, and spmm_ell
@@ -3664,6 +4187,10 @@ def main() -> None:
     if "--kernel-times" in args:
         kernel_times(src, smi_line)
         return
+    if "--cell" in args:
+        phase_kmeans_cell(src)
+        print(smi_line)
+        return
     rows, worst = phase_kernels(np.random.default_rng(SEED))
     fit_rows = time_fit_layouts(MM_FIT_PER_ITER, DA + DB, SEED, "dense")
     time_fit_layouts(SP_MM_FIT_PER_ITER, SP_DA + SP_DB, SEED + 1, "sparse")
@@ -3692,6 +4219,7 @@ def main() -> None:
     _cold_caches()                   # the K-means programs' device buffers
     torch.cuda.empty_cache()
     phase_lm()
+    cell = phase_kmeans_cell(src)
 
     # per-kernel line: times and bounds summed over one vertical iteration's
     # launches at the main-path shapes (MM_PER_ITER / KS_PER_ITER)
@@ -3725,6 +4253,7 @@ def main() -> None:
          "scoring_launches": score_launches["ring_matmul"],
          "durability_launches": durable["ring_matmul"],
          "observability_launches": observed["ring_matmul"],
+         "kmeans_cell_launches": cell["dense"]["launches"]["ring_matmul"],
          "max_abs_err": worst["ring_matmul"],
          "ms": mm[0], "plain_ms": mm[1], "bound_ms": mm[2],
          "bound_by": mm[3], "library_ms": None},
@@ -3735,6 +4264,7 @@ def main() -> None:
          "scoring_launches": score_launches["ks_carry_share"],
          "durability_launches": durable["ks_carry_share"],
          "observability_launches": observed["ks_carry_share"],
+         "kmeans_cell_launches": cell["dense"]["launches"]["ks_carry_share"],
          "max_abs_err": worst["ks_carry_share"],
          "ms": ks[0], "plain_ms": ks[1], "bound_ms": ks[2],
          "bound_by": ks[3], "library_ms": None},
@@ -3748,6 +4278,7 @@ def main() -> None:
          "scoring_launches": score_launches["spmm_ell"],
          "durability_launches": durable["spmm_ell"],
          "observability_launches": observed["spmm_ell"],
+         "kmeans_cell_launches": cell["dense"]["launches"]["spmm_ell"],
          "max_abs_err": worst["spmm_ell"],
          "ms": sp_iter[0], "plain_ms": sp_iter[1], "bound_ms": sp_iter[2],
          "bound_by": sp_iter[3], "library_ms": lib_ms},

@@ -83,8 +83,9 @@ class Plan(NamedTuple):
 
 def ring_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(n, d) @ (d, k) mod 2^l in plain PyTorch, on any device: l = 64 on
-    int64 words, 32 on int32 words."""
-    if a.device.type == "cpu":
+    int64 words, 32 on int32 words. The meta device (shapes only, the dry
+    run) takes the matmul too, so a cost count sees one product."""
+    if a.device.type in ("cpu", "meta"):
         return a @ b
     return _broadcast_matmul(a, b)
 

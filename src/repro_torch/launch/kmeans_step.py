@@ -317,6 +317,77 @@ def _s3_body(ctx, geo: FitGeometry, xa, xb, mu: AShare, c: AShare, he):
     return _s3_final_body(ctx, geo.k, geo.n, mu, num, den)
 
 
+def _iteration(xa_enc, xb_enc, mu: AShare, dealer, n: int, k: int,
+               d_a: int, he_results: tuple | None = None,
+               backend=None, return_assignment: bool = False):
+    """One vertical-partition online Lloyd iteration on shares (Alg. 3) —
+    S1 and S3 bodies composed back to back over ONE dealer. Kept as the
+    single-launch legacy form behind `online_iteration_fn`; the production
+    fast path uses the split `fit_programs` pair. `backend` None resolves
+    by the dealer's device."""
+    d_b = xb_enc.shape[1]
+    geo = FitGeometry("vertical", he_results is not None,
+                      (n, d_a), (n, d_b), k)
+    ctx = P.Ctx(dealer=dealer, log=CommLog(), backend=backend)
+    he1 = he3 = None
+    if he_results is not None:
+        he1, he3 = tuple(he_results[:2]), tuple(he_results[2:])
+    c = _s1_body(ctx, geo, xa_enc, xb_enc, mu, he1)
+    out = _s3_body(ctx, geo, xa_enc, xb_enc, mu, c, he3)
+    return (out, c) if return_assignment else out
+
+
+def _record_iteration(n: int, d: int, k: int, d_a: int, he_shapes,
+                      return_assignment: bool = False) -> list:
+    """The offline schedule of one `_iteration`, recorded by running it on
+    meta zeros (the torch backend; nothing is allocated at any n)."""
+    meta = torch.device("meta")
+    dealer = RecordingDealer(meta)
+    mu = AShare(_zeros((k, d), meta), _zeros((k, d), meta))
+    _iteration(_zeros((n, d_a), meta), _zeros((n, d - d_a), meta), mu,
+               dealer, n, k, d_a, he_results=_zero_he(he_shapes, meta),
+               backend="torch", return_assignment=return_assignment)
+    return list(dealer.requests)
+
+
+def record_offline_shapes(n: int, d: int, k: int, d_a: int,
+                          sparse: bool = False):
+    """Run the iteration once on meta tensors to enumerate the offline
+    tensor list. sparse=True enumerates the Protocol-2 variant (the four
+    joint-product Beaver matmul triples are replaced by HE-result share
+    inputs)."""
+    he_shapes = [(n, k), (n, k), (k, d_a), (k, d - d_a)] if sparse else []
+    return _record_iteration(n, d, k, d_a, he_shapes)
+
+
+def _sds(shape) -> torch.Tensor:
+    """The stand-in for a ShapeDtypeStruct: a ring-word tensor on the meta
+    device (shape and dtype, no storage)."""
+    return torch.empty(tuple(shape), dtype=ring.DTYPE, device="meta")
+
+
+def _he_specs(shapes) -> list:
+    out = []
+    for s in shapes:
+        out += [_sds(s), _sds(s)]
+    return out
+
+
+def offline_tensor_specs(requests, n: int) -> list:
+    """Flat list of meta stand-ins mirroring ListDealer consumption."""
+    flat = []
+    for kind, shape in requests:
+        if kind == "matmul":
+            (nn, d), (d2, k) = shape
+            flat += [_sds(s) for s in [(nn, d), (nn, d), (d, k), (d, k),
+                                       (nn, k), (nn, k)]]
+        elif kind in ("mul", "bin"):
+            flat += [_sds(shape) for _ in range(6)]
+        else:  # rand
+            flat.append(_sds(shape))
+    return flat
+
+
 def materialize_offline(requests, dealer) -> list:
     """Flat tensor list the ListDealer consumes, in recorded order.
     `dealer` is any triple provider (TrustedDealer on demand, PooledDealer
@@ -657,3 +728,80 @@ def clear_program_cache() -> None:
     _PREDICT_PROGRAM_CACHE.clear()
     _BATCH_PROGRAM_CACHE.clear()
     _FINALIZE_CACHE.clear()
+
+
+# ---------------------------------------------------------------------------
+# The single-launch legacy forms (the dry run, the perf hillclimb, the cell)
+# ---------------------------------------------------------------------------
+
+def _iteration_fn(n: int, d: int, k: int, d_a: int, sparse: bool,
+                  backend, device, return_assignment: bool):
+    """(fn, arg stand-ins, schedule) of the single-launch iteration:
+    fn(xa, xb, mu0, mu1, *he, *flat) -> (mu0', mu1'), and then (c0, c1)
+    with `return_assignment`."""
+    ring_backend = get_backend(backend, device)
+    he_shapes = [(n, k), (n, k), (k, d_a), (k, d - d_a)] if sparse else []
+    requests = _record_iteration(n, d, k, d_a, he_shapes,
+                                 return_assignment=return_assignment)
+
+    def fn(xa_enc, xb_enc, mu_s0, mu_s1, *flat):
+        he, rest = _split_he(flat, he_shapes)
+        out = _iteration(xa_enc, xb_enc, AShare(mu_s0, mu_s1),
+                         ListDealer(rest, mu_s0.device), n, k, d_a,
+                         he_results=he, backend=ring_backend,
+                         return_assignment=return_assignment)
+        if return_assignment:
+            mu, c = out
+            return mu.s0, mu.s1, c.s0, c.s1
+        return out.s0, out.s1
+
+    args = (_sds((n, d_a)), _sds((n, d - d_a)), _sds((k, d)), _sds((k, d))) \
+        + tuple(_he_specs(he_shapes)) \
+        + tuple(offline_tensor_specs(requests, n))
+    return fn, args, requests
+
+
+def online_iteration_fn(n: int, d: int, k: int, d_a: int,
+                        sparse: bool = False, backend="auto",
+                        device="cuda"):
+    """(fn, arg stand-ins) with fn(xa, xb, mu0, mu1, *he, *flat) -> the new
+    centroid shares (mu0', mu1'). sparse=True adds the 8 Protocol-2 result
+    shares as inputs and drops the joint Beaver matmuls (paper Sec 4.3).
+    `backend` picks the ring-compute implementation; 'auto' resolves by
+    `device`, where the arguments live. The stand-ins are meta tensors
+    (the schedule is recorded on meta, so nothing is allocated).
+
+    Legacy single-launch form (S1+S3 fused, no mid-iteration callback) kept
+    for the mesh/perf harnesses; `fit_programs` is the production split."""
+    fn, args, _ = _iteration_fn(n, d, k, d_a, sparse, backend, device,
+                                return_assignment=False)
+    return fn, args
+
+
+def fit_iteration_fn(n: int, d: int, k: int, d_a: int, backend="auto",
+                     device="cuda"):
+    """`online_iteration_fn` variant that also exposes the assignment
+    shares: fn(xa, xb, mu0, mu1, *flat) -> (mu0', mu1', c0, c1), plus the
+    offline schedule one call consumes. Superseded by `fit_programs` (the
+    S1/S3 split) on SecureKMeans' pooled fast path; kept for callers that
+    want the fused single-launch dense-vertical iteration."""
+    return _iteration_fn(n, d, k, d_a, False, backend, device,
+                         return_assignment=True)
+
+
+def arg_shardings(mesh, args, n: int) -> tuple:
+    """Shard the sample axis over ('pod','data') WHEREVER it appears —
+    including dim-1 of the transposed (k, n) Beaver triples — and replicate
+    the rest: one `models.sharding.Sharding` (its spec and its DTensor
+    placements) per argument."""
+    from repro_torch.models.sharding import Sharding, Spec
+    axes = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    out = []
+    for a in args:
+        spec = [None] * len(a.shape)
+        for dim, sz in enumerate(a.shape):
+            if sz == n:
+                spec[dim] = axes
+                break
+        out.append(Sharding(mesh, Spec(*spec)))
+    return tuple(out)

@@ -279,13 +279,19 @@ def _norm(p, name, x, cfg):
 
 
 def _pin_batch(x, cfg: ModelConfig):
-    """The reference pins the activation batch dim to `cfg.act_axes` of a
-    device mesh; the port has no mesh, so only the empty default runs."""
-    if cfg.act_axes:
-        raise NotImplementedError(
-            f"act_axes={cfg.act_axes!r} pins activations to a device mesh; "
-            "the PyTorch port has no mesh (configs must leave it empty)")
-    return x
+    """Pin the activation batch dim to the mesh axes `cfg.act_axes`: a
+    DTensor is redistributed to Shard(0) over those axes (replicated over
+    the others). A plain or meta tensor has no mesh, and passes as it is;
+    so does everything when act_axes is empty (the default)."""
+    if not cfg.act_axes:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    return x.redistribute(mesh, [Shard(0) if name in cfg.act_axes
+                                 else Replicate()
+                                 for name in mesh.mesh_dim_names])
 
 
 def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -51,7 +51,10 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.training.compression",
               "repro_torch.training.train_step",
               "repro_torch.data.pipeline", "repro_torch.launch.train",
-              "repro_torch.launch.serve"):
+              "repro_torch.launch.serve", "repro_torch.models.sharding",
+              "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+              "repro_torch.launch.roofline", "repro_torch.launch.perf",
+              "repro_torch.configs.kmeans_fraud"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -67,6 +70,26 @@ def test_every_module_imports_without_jax_or_repro():
                          cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"port pulled in: {out.stdout.strip()}"
+
+
+def test_plans_import_neither_jax_nor_repro_nor_a_group():
+    """The dry run, roofline and perf modules pull in no jax and no JAX
+    package, and importing them starts no process group and no CUDA."""
+    code = (
+        "import sys, torch\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.perf\n"
+        "import torch.distributed as dist\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'repro'))\n"
+        "print(','.join(bad), dist.is_initialized(),\n"
+        "      torch.cuda.is_initialized())\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"], out.stdout
 
 
 def _imported_names(path: pathlib.Path) -> set:

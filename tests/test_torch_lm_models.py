@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.configs.base import all_archs
 from repro_torch.models import layers as L
-from repro_torch.models.lm import ce_loss, forward, init_params, unstack
+from repro_torch.models.lm import (_pin_batch, ce_loss, forward, init_params,
+                                   unstack)
 from repro_torch.models.tree import leaves, unflatten_like
 from repro_torch.serving.decode import init_cache, serve_step
 from repro_torch.training.adamw import AdamWConfig
@@ -313,8 +314,16 @@ def test_remat_policies_give_the_same_gradients():
 
 
 def test_act_axes_refused_without_a_mesh():
-    cfg = dataclasses.replace(all_archs()["granite-34b"].reduced,
-                              act_axes=("data",))
+    """act_axes pins only DTensors to a mesh: a plain or meta tensor has no
+    mesh, so the pin is refused (the tensor passes as it is) and the
+    forward with act_axes=("data",) is the forward without."""
+    base = all_archs()["granite-34b"].reduced
+    cfg = dataclasses.replace(base, act_axes=("data",))
+    for x in (torch.zeros(2, 4), torch.empty(2, 4, device="meta")):
+        assert _pin_batch(x, cfg) is x
     params = init_params(cfg, 0, device=CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        forward(params, cfg, tokens=torch.zeros((1, 4), dtype=torch.long))
+    tokens = torch.arange(8, dtype=torch.long).reshape(2, 4) % base.vocab_size
+    with torch.no_grad():
+        pinned = forward(params, cfg, tokens=tokens)
+        plain = forward(params, base, tokens=tokens)
+    assert torch.equal(pinned, plain)
