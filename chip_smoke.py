@@ -10,7 +10,9 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      versions and the build time;
   2. holds each kernel against its plain PyTorch version on the card, with
      exact integer equality, at the main path's full-size shapes and at odd
-     and wrap-heavy ones, and times ks_carry_share and spmm_ell there;
+     and wrap-heavy ones (ring_matmul also at phase 10's widths and operand
+     layouts, at a ragged n, which loads its wide variants before any timed
+     wall), and times ks_carry_share and spmm_ell there;
      ring_matmul is timed at the operand layouts the dense and sparse fits
      really pass (transposed and sliced views, read in place, and the
      contiguous ones), the wrapper's work included;
@@ -161,15 +163,17 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      and read just after; its words equal the S1 -> S3 pair of
      `fit_programs` fed the same list, `fit_iteration_fn` (centroids and
      assignment) and FUSE_BEAVER off; the centroids within 1e-2 of one
-     plaintext Lloyd step, label agreement >= 0.98; ring_matmul and
+     plaintext Lloyd step, label agreement >= 0.98; no ring_matmul
+     operand copied (`modmatmul.COPIES`) and one zero kernel before each
+     product its plan splits along K (`ZERO_LAUNCHES`); ring_matmul and
      ks_carry_share held to their plain versions and timed at each shape
      and operand layout the iteration gave them, against their bounds;
      the roofline's one-chip step (launch/roofline.py's data-sheet
      constants over the counted FLOPs and bytes) beside the wall; 10b
      sparse at the full n = 1,048,576 with Protocol 2's 8 result shares
-     drawn from a seed, fused = the split pair, ring_matmul and
-     ks_carry_share held to their plain versions and timed at each of its
-     shapes and layouts; 10c
+     drawn from a seed, fused = the split pair, the same copy and zero
+     kernel counts, ring_matmul and ks_carry_share held to their plain
+     versions and timed at each of its shapes and layouts; 10c
      `python -m repro_torch.launch.dryrun --kmeans`, `--arch
      granite-moe-3b-a800m --shape train_4k --mesh single` and `python -m
      repro_torch.launch.roofline --arch kmeans-fraud`, each a CPU process
@@ -183,8 +187,9 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      the fit kernels the scoring path's as `scoring_launches`, phase 7's
      as `durability_launches`, phase 8's in-process and party-A
      launches as `observability_launches` and phase 10a's as
-     `kmeans_cell_launches`), times and bounds, the
-     nvidia-smi line, and finally {"ok": true, "device": {...}}.
+     `kmeans_cell_launches`), times and bounds (ring_matmul's also per
+     iteration of 10a and 10b as `kmeans_cell` and `kmeans_cell_sparse`),
+     the nvidia-smi line, and finally {"ok": true, "device": {...}}.
 
 Phases 2 and 3 cover the sparse slice too: `spmm_ell` against its plain
 version at both main-path shapes and at odd ones, and the sparse GPU fit
@@ -199,18 +204,28 @@ a checkout of the repository, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --kernel-times [--src DIR]
 
-times only ring_matmul at the fits' own operand layouts, esd beside
-addmm + norms, and spmm_ell at every shape of the sparse fit and the
-kernel API (phase 4b's four products, f32 / u32 / u64 k=10 S1 and S3, and
-the Lloyd drive's C^T x at its three widths), each held to its plain
-version first, for the repro_torch package under DIR (default: this
-checkout's src/), and prints one JSON line.
+times only ring_matmul at the fits' own operand layouts and at the
+kmeans-fraud cell's (10a's 20 products at n = 524,288 and 10b's 4 at n =
+1,048,576, on fresh words, no dealer; plus the long-K wide launch at 132,
+264 and 528 blocks, the cost of its atomicAdd meeting), esd beside addmm +
+norms, and spmm_ell at every shape of the sparse fit and the kernel API
+(phase 4b's four products, f32 / u32 / u64 k=10 S1 and S3, and the Lloyd
+drive's C^T x at its three widths), each held to its plain version first,
+for the repro_torch package under DIR (default: this checkout's src/), and
+prints one JSON line.
 Run on two trees in one call, in turns (A, B, B, A), it compares their
 kernels on one card.
 
     python3 chip_smoke.py --cell
 
 runs only the build and phase 10.
+
+    python3 chip_smoke.py --cell-walls [--src DIR]
+
+builds 10a's data and dealer list once and calls its iteration four times
+in a row, each synchronized (the first cold: kernels load at their first
+launch), for the repro_torch under DIR, and prints their walls as one JSON
+line. Run on two trees in one call, it compares their iterations.
 
     python3 chip_smoke.py --scoring-server DIR PORT DIE_AFTER
 
@@ -502,6 +517,29 @@ def phase_kernels(rng):
         worst["ring_matmul"] = max(worst["ring_matmul"], err)
         print(f"ring_matmul ({m},{kdim})@({kdim},{n}) [{draw.__name__}]: "
               f"equal", flush=True)
+    # the kmeans-fraud cell's wide variants (phase 10) at its widths and
+    # operand layouts, at a ragged n; this also loads them before any
+    # timed wall (a kernel's first launch in a process loads it)
+    for (m, kdim, n), a_t, b_t in (
+            ((KF_K, 4099, KF_D_A), False, False),
+            ((KF_K, 4099, KF_D_A), True, False),
+            ((4097, KF_D_A, KF_K), False, False),
+            ((4097, KF_D_A, KF_K), False, True)):
+        for draw in (words, wrap_heavy):
+            a = draw((kdim, m)).T if a_t else draw((m, kdim))
+            b = draw((n, kdim)).T if b_t else draw((kdim, n))
+            got = modmatmul.ring_matmul(a, b)
+            want = modmatmul.ring_matmul_plain(a.contiguous(),
+                                               b.contiguous())
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if not torch.equal(got, want):
+                fail(f"ring_matmul {m}x{kdim}x{n} (A^T {a_t}, B^T {b_t}, "
+                     f"{draw.__name__}) differs from its plain version "
+                     f"(max abs err {err})")
+            worst["ring_matmul"] = max(worst["ring_matmul"], err)
+        print(f"ring_matmul ({m},{kdim})@({kdim},{n}) A^T {a_t} B^T {b_t}, "
+              f"the cell's widths: equal", flush=True)
 
     for shape in [(N, 2), (N, 1), (K,), (1, 1), ()]:
         flat = [words(shape) for _ in range(6)]
@@ -3644,6 +3682,25 @@ KF_DENSE_N = 524_288
 KF_SEED = 21
 KF_ATOL = 1e-2        # tests/test_launch_kmeans_step.py's bound
 KF_AGREE = 0.98
+
+# The kmeans-fraud cell's ring products (phase 10; configs/kmeans_fraud.py
+# FULL: d = 1024, d_a = d_b = 512, k = 16) with the layouts its iteration
+# hands ring_matmul, as MM_FIT_PER_ITER: 10a (dense, n = 524,288) C^T X and
+# Beaver e @ (v + f) long-K, X @ mu^T slices and Beaver u @ f tall; 10b
+# (sparse, n = 1,048,576) only the local C^T X and X @ mu^T.
+KF_D, KF_D_A, KF_K, KF_FULL_N = 1024, 512, 16, 1_048_576
+KF_MM_PER_ITER = [
+    ((KF_K, KF_DENSE_N, KF_D_A), "row", "row", 4),
+    ((KF_K, KF_DENSE_N, KF_D_A), "t", "row", 6),
+    ((KF_DENSE_N, KF_D_A, KF_K), "row", "row", 4),
+    ((KF_DENSE_N, KF_D_A, KF_K), "row", "t", 4),
+    ((KF_DENSE_N, KF_D_A, KF_K), "row", ("mu", 0), 1),
+    ((KF_DENSE_N, KF_D_A, KF_K), "row", ("mu", KF_D_A), 1)]
+KF_SP_MM_PER_ITER = [
+    ((KF_K, KF_FULL_N, KF_D_A), "t", "row", 2),
+    ((KF_FULL_N, KF_D_A, KF_K), "row", ("mu", 0), 1),
+    ((KF_FULL_N, KF_D_A, KF_K), "row", ("mu", KF_D_A), 1)]
+LONGW_PROBE_BLOCKS = (264, 1056, 2112)  # --kernel-times: the meeting's cost
 PHASE10_DIR = ROOT / "build" / "phase10"    # ignored; removed at the end
 # 10c: the dry run and roofline as users run them, each a CPU process
 KF_PLAN_CMDS = {
@@ -3809,6 +3866,25 @@ def kf_kernel_rows(spy, seed: int, label: str) -> dict:
     return rows
 
 
+def kf_mm_in_place(label: str, spy, copies: int, zeros: int) -> None:
+    """The cell's ring products copied no operand (`modmatmul.COPIES`) and
+    launched one zero kernel for each product that its plan splits along K
+    (`modmatmul.ZERO_LAUNCHES`), counted over the main path's run."""
+    from repro_torch.kernels import modmatmul
+    planned = {}
+    for ((m, kdim, n), la, lb), count in spy.mm.items():
+        p = modmatmul.plan(m, kdim, n, la is not None and la[0],
+                           lb is not None and lb[0])
+        planned[p.variant] = planned.get(p.variant, 0) + count
+        zeros -= count * p.zeroed
+    if copies or zeros:
+        fail(f"{label}: ring_matmul copied {copies} operands and launched "
+             f"{zeros} zero kernels more than planned")
+    print(f"{label}: ring_matmul read every operand in place, launches by "
+          f"variant {planned}, a zero kernel before each split one",
+          flush=True)
+
+
 def _same_words(label: str, got, want) -> None:
     for i, (g, w) in enumerate(zip(got, want)):
         if not torch.equal(g, w):
@@ -3838,6 +3914,7 @@ def kf_dense_cell(n: int) -> dict:
     from repro_torch.configs.kmeans_fraud import FULL
     from repro_torch.core import protocol, ring
     from repro_torch.core.triples import TrustedDealer
+    from repro_torch.kernels import modmatmul
     from repro_torch.launch import kmeans_step as KS
     d, k, d_a = FULL.d, FULL.k, FULL.d_a
     t0 = time.perf_counter()
@@ -3875,6 +3952,7 @@ def kf_dense_cell(n: int) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t2
     launches = _launch_counters()
+    mm_meeting = (modmatmul.COPIES, modmatmul.ZERO_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name in ("ring_matmul", "ks_carry_share"):
         if not launches[name]:
@@ -3900,6 +3978,7 @@ def kf_dense_cell(n: int) -> dict:
         fail("10a: fit_iteration_fn's schedule differs")
     with _CellSpy() as spy:
         out = fit_fn(xa, xb, mu0, mu1, *flat)
+    kf_mm_in_place("10a", spy, *mm_meeting)
     _same_words("10a: fit_iteration_fn centroids", out[:2], fused)
     _same_words("10a: fit_iteration_fn assignment", out[2:], c)
     del out
@@ -3958,6 +4037,7 @@ def kf_sparse_cell() -> dict:
     itself does not run at this size)."""
     from repro_torch.configs.kmeans_fraud import FULL
     from repro_torch.core.triples import TrustedDealer
+    from repro_torch.kernels import modmatmul
     from repro_torch.launch import kmeans_step as KS
     n, d, k, d_a = FULL.n, FULL.d, FULL.k, FULL.d_a
     t0 = time.perf_counter()
@@ -3992,6 +4072,7 @@ def kf_sparse_cell() -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t2
     launches = _launch_counters()
+    kf_mm_in_place("10b", spy, modmatmul.COPIES, modmatmul.ZERO_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not launches["ks_carry_share"]:
         fail("10b: the iteration launched no ks_carry_share")
@@ -4013,6 +4094,39 @@ def kf_sparse_cell() -> dict:
     return {"n": n, "wall_s": wall, "dealer_s": dealer_s,
             "offline_gb": offline_gb, "peak_gb": peak_gb,
             "launches": launches, "rows": rows}
+
+
+def kf_walls(calls: int = 4) -> list:
+    """`--cell-walls`: 10a's iteration (dense, n = 524,288, one dealer's
+    list) called `calls` times in a row for the repro_torch under --src,
+    each synchronized; the first is cold (a kernel's first launch in a
+    process loads it, and the allocator grows), the rest warm. Run on two
+    trees in one call to compare their iterations on one card. Returns the
+    walls in ms."""
+    from repro_torch.configs.kmeans_fraud import FULL
+    from repro_torch.core.triples import TrustedDealer
+    from repro_torch.launch import kmeans_step as KS
+    n, d, k, d_a = KF_DENSE_N, FULL.d, FULL.k, FULL.d_a
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(KF_SEED)
+    enc, lab = kf_data(gen, n, d, k)
+    xa, xb = enc[:, :d_a].contiguous(), enc[:, d_a:].contiguous()
+    mu0, mu1 = kf_shares(gen, enc[kf_first_of_each(lab, k)])
+    del enc, lab
+    flat = KS.materialize_offline(KS.record_offline_shapes(n, d, k, d_a),
+                                  TrustedDealer(seed=KF_SEED, device="cuda"))
+    fn, _ = KS.online_iteration_fn(n, d, k, d_a, backend="cuda",
+                                   device="cuda")
+    walls = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(xa, xb, mu0, mu1, *flat)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        del out
+    print(json.dumps({"cell_walls_ms": walls}), flush=True)
+    return walls
 
 
 def kf_plans_start(src: pathlib.Path) -> dict:
@@ -4120,19 +4234,62 @@ def phase_kmeans_cell(src: pathlib.Path) -> dict:
     return {"dense": dense, "sparse": sparse, "seconds": seconds}
 
 
+def longw_blocks_probe() -> dict:
+    """The long-K wide launch at 10a's (16, n) @ (n, 512), A transposed,
+    with its K split over each of LONGW_PROBE_BLOCKS blocks (two fit an SM
+    at once; the plan takes 8 an SM, in four waves): every block adds its
+    8192 sums to C by atomicAdd, so the time that more blocks add is the
+    meeting's cost. Each held to the plain
+    version. Returns {blocks: ms}; {} when the tree under test plans the
+    shape to another variant (a parent commit)."""
+    from repro_torch.kernels import modmatmul
+    (m, kdim, n), a_kind, b_kind, _ = KF_MM_PER_ITER[1]
+    if modmatmul.plan(m, kdim, n, True, False).variant != "longw":
+        return {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(KF_SEED + 5)
+    a = fit_operand(gen, m, kdim, a_kind, KF_D)
+    b = fit_operand(gen, kdim, n, b_kind, KF_D)
+    want = modmatmul.ring_matmul_plain(a.contiguous(), b)
+    plan = modmatmul.plan
+    out = {}
+    try:
+        for blocks in LONGW_PROBE_BLOCKS:
+            modmatmul.plan = lambda *args, **kw: plan(*args, **kw)._replace(
+                blocks=blocks)
+            if not torch.equal(modmatmul.ring_matmul(a, b), want):
+                fail(f"ring_matmul long-K wide at {blocks} blocks differs "
+                     f"from its plain version")
+            out[blocks] = device_ms(modmatmul.ring_matmul, [(a, b)])
+    finally:
+        modmatmul.plan = plan
+    print(f"ring_matmul ({m},{kdim})@({kdim},{n}) A {a_kind}, long-K wide "
+          f"at {', '.join(f'{k} blocks {v:.4f} ms' for k, v in out.items())}",
+          flush=True)
+    return out
+
+
 def kernel_times(src: pathlib.Path, smi_line: str) -> None:
     """`--kernel-times`: ring_matmul at the dense and sparse fits' own
-    layouts, esd beside addmm + norms at the phase-5 shapes, and spmm_ell
-    at every shape of the sparse fit (phase 4b) and of the kernel API
-    (phase 5, the drive's C^T x included), each held to its plain version
-    first, for the repro_torch package under `src`. Run it on two trees in
+    layouts and at the kmeans-fraud cell's (10a and 10b, fresh words, no
+    dealer), with the long-K wide launch at three block counts, esd beside
+    addmm + norms at the phase-5 shapes, and spmm_ell at every shape of the
+    sparse fit (phase 4b) and of the kernel API (phase 5, the drive's C^T x
+    included), each held to its plain version first, for the repro_torch
+    package under `src`. Run it on two trees in
     one call, in turns, to compare their kernels on one card. Prints one
     JSON line of the times."""
+    from repro_torch.configs.kmeans_fraud import FULL
+    if (FULL.d, FULL.d_a, FULL.k, FULL.n) != (KF_D, KF_D_A, KF_K, KF_FULL_N):
+        fail(f"KF_MM_PER_ITER's widths are not configs/kmeans_fraud.py "
+             f"FULL's ({FULL.d}, {FULL.d_a}, {FULL.k}, {FULL.n})")
     out = {"src": str(src), "card": smi_line, "ring_matmul": {}, "esd": {},
            "spmm_ell": {}}
     for label, table, width, seed in (
             ("dense", MM_FIT_PER_ITER, DA + DB, SEED),
-            ("sparse", SP_MM_FIT_PER_ITER, SP_DA + SP_DB, SEED + 1)):
+            ("sparse", SP_MM_FIT_PER_ITER, SP_DA + SP_DB, SEED + 1),
+            ("cell_10a", KF_MM_PER_ITER, KF_D, KF_SEED + 1),
+            ("cell_10b", KF_SP_MM_PER_ITER, KF_D, KF_SEED + 3)):
         rows = time_fit_layouts(table, width, seed, label)
         per_case = {f"{m}x{kd}x{n} A {a} B {b}": rows[((m, kd, n), a, b)][0]
                     for (m, kd, n), a, b, _ in table}
@@ -4142,6 +4299,8 @@ def kernel_times(src: pathlib.Path, smi_line: str) -> None:
             "bound_ms": sum(c * max(rows[(sh, a, b)][2])
                             for sh, a, b, c in table),
             "cases_ms": per_case}
+        torch.cuda.empty_cache()
+    out["ring_matmul"]["longw_blocks_ms"] = longw_blocks_probe()
     for (d, k), (_, x, init) in lloyd_data(
             np.random.default_rng(API_SEED)).items():
         mu = x[torch.as_tensor(init, device=x.device)].clone()
@@ -4189,6 +4348,10 @@ def main() -> None:
         return
     if "--cell" in args:
         phase_kmeans_cell(src)
+        print(smi_line)
+        return
+    if "--cell-walls" in args:
+        kf_walls()
         print(smi_line)
         return
     rows, worst = phase_kernels(np.random.default_rng(SEED))
@@ -4242,6 +4405,15 @@ def main() -> None:
         for i, v in enumerate((k_ms, p_ms, max(b_ms, o_ms), b_ms, o_ms)):
             mm[i] += count * v
     mm[3] = "bytes" if mm[3] >= mm[4] else "operations"
+
+    # the kmeans-fraud cell's products (PERF.md row 1c): per iteration of
+    # 10a and 10b, at the layouts its iteration passed (kf_kernel_rows)
+    def cell_mm(label):
+        rs = cell[label]["rows"]["ring_matmul"]
+        return {"ms": sum(r[1] * r[2] for r in rs),
+                "plain_ms": sum(r[1] * r[3] for r in rs),
+                "bound_ms": sum(r[1] * max(r[4]) for r in rs),
+                "launches": sum(r[1] for r in rs)}
     ks = per_iter("ks_carry_share", KS_PER_ITER)
     libs = [sp_rows[s][3] for s in ("S1", "S3")]
     lib_ms = None if None in libs else 2 * sum(libs)
@@ -4254,6 +4426,8 @@ def main() -> None:
          "durability_launches": durable["ring_matmul"],
          "observability_launches": observed["ring_matmul"],
          "kmeans_cell_launches": cell["dense"]["launches"]["ring_matmul"],
+         "kmeans_cell": cell_mm("dense"),
+         "kmeans_cell_sparse": cell_mm("sparse"),
          "max_abs_err": worst["ring_matmul"],
          "ms": mm[0], "plain_ms": mm[1], "bound_ms": mm[2],
          "bound_by": mm[3], "library_ms": None},

@@ -1,12 +1,12 @@
 """Ring matmul (n, d) @ (d, k) mod 2^64 on int64 words, or mod 2^32 on
 int32 words.
 
-Port of the Pallas TPU kernel `repro/kernels/modmatmul.py:modmatmul`, both
-bodies (`_kernel_u64`, `_kernel_u32`). The CUDA kernels are in
-`csrc/modmatmul.cu`, templates on the word type; its header says what
-bounds them and how each variant answers that. u32 words are int32
-tensors, as u64 words are int64 ones: int32 `+ - * @` wrap mod 2^32 on the
-CPU, and PyTorch has no `add` for uint32. Beside it:
+Port of the Pallas TPU kernel `src/repro/kernels/modmatmul.py:71
+modmatmul`, both bodies (`_kernel_u64` at `:56`, `_kernel_u32` at `:29`).
+The CUDA kernels are in `csrc/modmatmul.cu`, templates on the word type;
+its header says what bounds them and how each variant answers that. u32
+words are int32 tensors, as u64 words are int64 ones: int32 `+ - * @` wrap
+mod 2^32 on the CPU, and PyTorch has no `add` for uint32. Beside it:
 
 * `ring_matmul_plain` — the plain PyTorch version. On the CPU integer `@`
   wraps mod 2^l; on CUDA `torch.matmul` refuses integer words, so there it
@@ -15,11 +15,12 @@ CPU, and PyTorch has no `add` for uint32. Beside it:
   transposed view of a row-major matrix, with its leading dimension.
 * `plan` — which variant a launch takes, and its K chunk and grid: the
   long-K kernel (few output rows, K cut over a few hundred blocks), the
-  tall-skinny kernel (few output columns, B staged whole) or the general
-  tile.
+  tall-skinny kernel (few output columns, B staged whole), their wide
+  forms for the kmeans-fraud cell's (16, n) @ (n, 512) and (n, 512) @
+  (512, 16), or the general tile.
 * `prepare` — the plan of a product and the operands to hand it. The
-  long-K kernel also reads A, and the tall-skinny kernel B, as a
-  transposed view; everything else is read row-major. The fit's views
+  long-K kernels also read A, and the tall kernels B, as a transposed
+  view; everything else is read row-major. The fit's and the cell's views
   (`mu.s0.T`, `mut.s1[da:]`, `c.s0.T`) all land where they are read in
   place; an operand that its variant cannot read is copied contiguous and
   counted in `COPIES`.
@@ -28,6 +29,17 @@ CPU, and PyTorch has no `add` for uint32. Beside it:
   int64 words, `LAUNCHES_U32` on int32 words. The output is allocated
   empty; a launch whose blocks meet by atomicAdd zeroes it in a small
   kernel of its own that the product overlaps, counted in `ZERO_LAUNCHES`.
+
+The wide forms (`csrc/modmatmul.cu` longw_kernel, tallw_kernel): at the
+cell's n = 524,288 each product moves 2.21 GB, 0.66 ms at 3.35 TB/s, and
+does 4.29e9 64-bit multiply-adds, 0.77 ms at three 32-bit IMADs each, so
+both are bound by operations with the bytes close behind. Each reads its
+big operand once, in 16-byte cp.async copies, while the multiplies run,
+three IMADs a product on split sums (the header says why that is ~1.03 ms
+at best). Long-K wide gives a block all 16 rows of C and a 512-column
+slab, 32 sums a thread (B read once; about eight blocks an SM meeting by
+atomicAdd); tall wide stages B whole in one block an SM whose two halves
+walk their own 256-row slabs of A, 128 bytes of each row a chunk.
 """
 from __future__ import annotations
 
@@ -59,26 +71,46 @@ LONG_MAX_N = 256
 LONG_STAGE_BYTES = 16 * 1024
 LONG_MIN_KB = 8
 LONG_MAX_BLOCKS = 3 * SMS
+# long-K wide (longw_kernel): up to 16 output rows and, above LONG_MAX_N,
+# up to LONGW_MAX_N columns; each block a LONGW_SLAB-column slab and every
+# row; K in chunks of LONGW_KB rows over about LONGW_BLOCKS blocks in all
+LONGW_MAX_M = 16
+LONGW_MAX_N = 2048
+LONGW_SLAB = 512
+LONGW_KB = 8
+LONGW_BLOCKS = 8 * SMS
+# tall wide (tallw_kernel): up to 16 output columns with B of up to
+# TALLW_MAX_K rows staged whole (with the ring, the shared memory a block
+# can take); TALLW_ROWS rows of A a block at a time (two halves of 256), in
+# chunks of TALLW_KC words, walked by at most one block an SM
+TALLW_MAX_N = 16
+TALLW_MAX_K = 640
+TALLW_ROWS = 512
+TALLW_KC = 16
 # general tile (general_kernel)
 BK = 16                 # K chunk staged in shared memory
 TILES = ((128, 8), (8, 32))   # (BM, BN) of general tiles 0 and 1
 TARGET_BLOCKS = 4 * SMS  # enough blocks to fill the card
 MIN_K_PER_SPLIT = 4 * BK
-VARIANT_CODES = {"tall": 2, "longk": 3}   # general tiles are 0 and 1
+# general tiles are 0 and 1
+VARIANT_CODES = {"tall": 2, "longk": 3, "tallw": 4, "longw": 5}
+TRANSPOSED_A = ("longk", "longw")   # variants that read A^T in place
+TRANSPOSED_B = ("tall", "tallw")    # ... and B^T
 
 
 class Plan(NamedTuple):
     """A launch of csrc/modmatmul.cu."""
-    variant: str        # "tall", "longk" or "general"
+    variant: str        # "tall", "longk", "tallw", "longw" or "general"
     tile: int           # general tile id (0 or 1); 0 otherwise
-    chunk: int          # K words a stage (tall, longk) or a split (general)
-    blocks: int         # longk: grid size; general: K splits; tall: row slabs
+    chunk: int          # K words a stage, or a split (general)
+    blocks: int         # longk, tallw: grid size; general, longw: K splits
+                        # (of each tile or slab); tall: row slabs
 
     @property
     def zeroed(self) -> bool:
-        """A longk or general launch of more than one block meets by
+        """A longk, longw or general launch split along K meets by
         atomicAdd, so the launcher zeroes C first, in a launch of its own."""
-        return self.variant != "tall" and self.blocks > 1
+        return self.variant not in TRANSPOSED_B and self.blocks > 1
 
 
 def ring_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -152,19 +184,35 @@ def _longk_plan(m: int, kdim: int, n: int, word_bytes: int) -> Plan:
     return Plan("longk", 0, kb, -(-chunks // per_block))
 
 
+def _longw_plan(kdim: int, n: int) -> Plan:
+    """K cut into chunks of LONGW_KB rows, dealt to about LONGW_BLOCKS
+    blocks over all the column slabs."""
+    slabs = -(-n // LONGW_SLAB)
+    chunks = -(-kdim // LONGW_KB)
+    return Plan("longw", 0, LONGW_KB,
+                min(chunks, max(1, LONGW_BLOCKS // slabs)))
+
+
 def plan(m: int, kdim: int, n: int, a_t: bool = False, b_t: bool = False,
          word_bytes: int = 8) -> Plan:
     """The launch of an (m, kdim) @ (kdim, n) product whose A and B come
     row-major or as transposed views (a_t, b_t): long-K while C has at most
     LONG_MAX_M rows and LONG_MAX_N columns and B is row-major; tall-skinny
     while B (at most TALL_MAX_B_WORDS words, TALL_MAX_N columns) fits a
-    block and A is row-major; else the general tile, which reads both
-    row-major."""
+    block and A is row-major; long-K wide while C has at most LONGW_MAX_M
+    rows and more than LONG_MAX_N but at most LONGW_MAX_N columns and B is
+    row-major; tall wide while C has at most TALLW_MAX_N columns, B at most
+    TALLW_MAX_K rows and A is row-major; else the general tile, which reads
+    both row-major."""
     if m <= LONG_MAX_M and n <= LONG_MAX_N and not b_t:
         return _longk_plan(m, kdim, n, word_bytes)
     if n <= TALL_MAX_N and kdim * n <= TALL_MAX_B_WORDS and not a_t:
         kc = kdim if kdim <= TALL_ONE_STAGE_K else TALL_KC
         return Plan("tall", 0, kc, -(-m // TALL_ROWS))
+    if m <= LONGW_MAX_M and LONG_MAX_N < n <= LONGW_MAX_N and not b_t:
+        return _longw_plan(kdim, n)
+    if n <= TALLW_MAX_N and kdim <= TALLW_MAX_K and not a_t:
+        return Plan("tallw", 0, TALLW_KC, min(SMS, -(-m // TALLW_ROWS)))
     return _general_plan(m, kdim, n)
 
 
@@ -184,12 +232,13 @@ def _operand(t: torch.Tensor, lay: tuple[bool, int] | None,
 def prepare(a: torch.Tensor, b: torch.Tensor):
     """(plan, (A, a_t, lda), (B, b_t, ldb)) of the product a @ b: the plan
     chosen for the operands' layouts, and each operand as its variant reads
-    it (only long-K reads A, and only tall-skinny reads B, transposed)."""
+    it (only the long-K variants read A, and only the tall ones B,
+    transposed)."""
     la, lb = layout(a), layout(b)
     p = plan(a.shape[0], a.shape[1], b.shape[1], la is not None and la[0],
              lb is not None and lb[0], a.element_size())
-    return (p, _operand(a, la, p.variant == "longk"),
-            _operand(b, lb, p.variant == "tall"))
+    return (p, _operand(a, la, p.variant in TRANSPOSED_A),
+            _operand(b, lb, p.variant in TRANSPOSED_B))
 
 
 def ring_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -81,14 +81,17 @@ def _wrap_heavy(shape, dev, bits):
 def _operand(rows, cols, kind, draw):
     """A (rows, cols) operand in one of the layouts the fit passes:
     row-major, row-major inside a wider matrix (ld > cols), the transposed
-    view of a row-major (cols, rows) matrix (`c.s0.T`, `mu.s0.T`), or a row
-    slice of such a view past its first 3 rows (`mut.s1[da:]`)."""
+    view of a row-major (cols, rows) matrix (`c.s0.T`, `mu.s0.T`), the same
+    with one more column (ld = rows + 1), or a row slice of such a view past
+    its first 3 rows (`mut.s1[da:]`)."""
     if kind == "row":
         return draw((rows, cols))
     if kind == "wide":
         return draw((rows, cols + 5))[:, 2:2 + cols]
     if kind == "t":
         return draw((cols, rows)).T
+    if kind == "tpad":
+        return draw((cols, rows + 1))[:, :rows].T
     assert kind == "slice"
     return draw((cols, rows + 3)).T[3:]
 
@@ -96,19 +99,40 @@ def _operand(rows, cols, kind, draw):
 # (m, K, n, A layout, B layout, operands copied): each variant's main-path
 # shapes and the fit's own layouts, K in {1, 17, 18, 24, 100003}, and M*N, N
 # or K*N on both sides of each variant's limit (tall: N <= 8 and K*N <= 2048;
-# long-K: M <= 8, N <= 256). Long-K reads a transposed A, tall-skinny a
-# transposed B; any other transposed operand is copied.
+# long-K: M <= 8, N <= 256; long-K wide: M <= 16, 256 < N <= 2048; tall
+# wide: N <= 16, K <= 640). The long-K variants read a transposed A, the
+# tall ones a transposed B; any other transposed operand is copied. The
+# kmeans-fraud cell's shapes run at K or M of ~100,000 (its n is 524,288):
+# the long-K wide kernel over all 264 blocks with a ragged last chunk, the
+# tall wide one over 196 slabs (some blocks walk two). Two-word copies
+# where an operand allows them (row-major, "t" and "tpad" at even ld), word
+# copies where it does not ("wide" at odd ld, "slice"), odd M and K.
 LAYOUT_CASES = [
     (2048, 18, 5, "row", "t", 0), (2048, 24, 5, "row", "slice", 0),
     (2048, 18, 5, "row", "row", 0), (3000, 1, 8, "wide", "row", 0),
     (1000, 17, 8, "row", "t", 0), (500, 256, 8, "row", "row", 0),
-    (500, 257, 8, "row", "row", 0), (300, 18, 9, "row", "t", 1),
+    (500, 257, 8, "row", "row", 0), (300, 18, 9, "row", "t", 0),
     (2048, 18, 5, "t", "row", 1), (100_000, 128, 3, "row", "t", 0),
     (5, 100_003, 18, "t", "row", 0), (5, 100_003, 24, "row", "row", 0),
     (5, 100_003, 24, "slice", "wide", 0), (3, 100_003, 128, "t", "row", 0),
     (8, 4096, 256, "t", "row", 0), (9, 4096, 24, "t", "row", 1),
     (8, 4096, 257, "row", "row", 0), (5, 3000, 18, "t", "t", 2),
     (1, 200, 7, "t", "slice", 0), (129, 129, 129, "t", "t", 2),
+    # the kmeans-fraud cell's products at its layouts
+    (16, 100_003, 512, "t", "row", 0), (16, 100_003, 512, "row", "row", 0),
+    (100_000, 512, 16, "row", "t", 0), (100_000, 512, 16, "row", "slice", 0),
+    (100_000, 512, 16, "row", "row", 0),
+    # long-K wide: its limits, one block (no split), two slabs, odd M
+    (16, 4096, 300, "slice", "wide", 0), (16, 4096, 301, "t", "wide", 0),
+    (17, 4096, 300, "t", "row", 1),
+    (16, 4096, 257, "row", "row", 0), (16, 4096, 256, "row", "row", 0),
+    (9, 2000, 2048, "t", "row", 0), (9, 2000, 2049, "row", "row", 0),
+    (15, 4097, 513, "tpad", "row", 0), (16, 8, 600, "t", "row", 0),
+    # tall wide: its limits, one partial slab, narrow N past 2048 B words
+    (3000, 64, 16, "row", "t", 0), (3000, 64, 17, "row", "t", 1),
+    (3000, 640, 16, "row", "row", 0), (3000, 641, 16, "row", "row", 0),
+    (1001, 18, 12, "wide", "slice", 0), (1001, 17, 12, "wide", "row", 0),
+    (2000, 512, 5, "row", "t", 0),
 ]
 
 

@@ -109,16 +109,28 @@ def test_ring_matmul_rejects_bad_operands():
 @pytest.mark.parametrize("shape", [(100_000, 18, 5), (100_000, 24, 5),
                                    (5, 100_000, 18), (5, 100_000, 24),
                                    (1, 200, 7), (129, 129, 129),
-                                   (2048, 42, 5), (5, 1, 3)])
+                                   (2048, 42, 5), (5, 1, 3),
+                                   (16, 524_288, 512), (524_288, 512, 16),
+                                   (16, 1_048_576, 512), (1_048_576, 512, 16),
+                                   (9, 4096, 513), (16, 8, 600),
+                                   (1001, 17, 12)])
 def test_ring_matmul_plan_covers_k(shape):
-    """Every K word falls in one chunk of the launch: the tall kernel's
-    stages, the long-K kernel's chunks over its blocks, or the general
+    """Every K word falls in one chunk of the launch: the tall kernels'
+    stages, the long-K kernels' chunks over their blocks, or the general
     tile's splits."""
     m, kdim, n = shape
     p = modmatmul.plan(m, kdim, n)
     if p.variant == "tall":
         assert p.chunk == kdim or p.chunk == modmatmul.TALL_KC
         assert p.blocks == -(-m // modmatmul.TALL_ROWS)
+    elif p.variant == "tallw":       # one block an SM walks the row slabs
+        assert p.chunk == modmatmul.TALLW_KC
+        assert p.blocks == min(modmatmul.SMS, -(-m // modmatmul.TALLW_ROWS))
+    elif p.variant == "longw":       # chunk ch goes to split ch % blocks
+        chunks = -(-kdim // p.chunk)
+        slabs = -(-n // modmatmul.LONGW_SLAB)
+        assert p.chunk == modmatmul.LONGW_KB and 1 <= p.blocks <= chunks
+        assert p.blocks * slabs <= modmatmul.LONGW_BLOCKS or p.blocks == 1
     elif p.variant == "longk":
         chunks = -(-kdim // p.chunk)
         assert p.blocks <= modmatmul.LONG_MAX_BLOCKS
@@ -134,10 +146,15 @@ def test_ring_matmul_plan_covers_k(shape):
         assert p.variant == "tall"                       # tall-skinny
     if m <= 8 and kdim >= 1000:
         assert p.variant == "longk" and p.blocks > 100   # long-K: split K
+    if m <= 16 and kdim >= 1000 and 256 < n <= 2048:
+        assert p.variant == "longw" and p.blocks > 100   # ... and wide
+    if m >= 1000 and 8 < n <= 16 and kdim <= modmatmul.TALLW_MAX_K:
+        assert p.variant == "tallw"                      # tall and wide
 
 
 # (m, kdim, n, A transposed, B transposed, word bytes) -> (variant, operands
-# copied), for every shape the fits and phase 5 of chip_smoke.py run, and
+# copied), for every shape the fits, phase 5 and the kmeans-fraud cell
+# (phase 10) of chip_smoke.py run, each variant's limits on both sides, and
 # the general tile's
 PLAN_CASES = [
     ((100_000, 18, 5, False, True, 8), "tall", 0),      # X_A @ mu^T slices
@@ -153,13 +170,40 @@ PLAN_CASES = [
     ((100_000, 18, 5, True, False, 8), "general", 1),   # tall: A row-major
     ((5, 3000, 18, False, True, 8), "general", 1),      # long-K: B row-major
     ((500, 256, 8, False, False, 8), "tall", 0),        # B of 2048 words
-    ((500, 257, 8, False, False, 8), "general", 0),     # ... and of 2056
-    ((300, 18, 9, False, False, 8), "general", 0),      # 9 columns
+    ((500, 257, 8, False, False, 8), "tallw", 0),       # ... and of 2056
+    ((300, 18, 9, False, False, 8), "tallw", 0),        # 9 columns
     ((1, 200, 7, False, False, 8), "longk", 0),         # one row: long-K
     ((1, 200, 7, False, True, 8), "tall", 0),           # ... B a view: tall
     ((8, 4096, 256, True, False, 8), "longk", 0),       # 8 x 256 outputs
     ((9, 4096, 24, False, False, 8), "general", 0),     # 9 rows
-    ((8, 4096, 257, False, False, 8), "general", 0),    # 257 columns
+    ((8, 4096, 257, False, False, 8), "longw", 0),      # 257 columns
+    # the kmeans-fraud cell, 10a (n = 524,288): C^T X_A and Beaver e @ f,
+    # X @ mu^T slices and Beaver u @ f; 10b (the full n)
+    ((16, 524_288, 512, False, False, 8), "longw", 0),  # A row-major
+    ((16, 524_288, 512, True, False, 8), "longw", 0),   # c.s0.T
+    ((524_288, 512, 16, False, False, 8), "tallw", 0),  # B row-major
+    ((524_288, 512, 16, False, True, 8), "tallw", 0),   # mu.s0.T, mu slices
+    ((16, 1_048_576, 512, True, False, 8), "longw", 0),
+    ((1_048_576, 512, 16, False, True, 8), "tallw", 0),
+    # long-K wide: rows 16 / 17, columns 256 / 257 and LONGW_MAX_N / + 1,
+    # one slab / two; B transposed is copied by the general tile
+    ((16, 4096, 300, True, False, 8), "longw", 0),
+    ((17, 4096, 300, True, False, 8), "general", 1),
+    ((16, 4096, 256, False, False, 8), "general", 0),
+    ((16, 4096, 257, False, False, 8), "longw", 0),
+    ((9, 4096, 2048, False, False, 8), "longw", 0),
+    ((9, 4096, 2049, False, False, 8), "general", 0),
+    ((9, 4096, 512, False, False, 4), "longw", 0),
+    ((9, 4096, 513, False, False, 4), "longw", 0),
+    ((16, 4096, 512, False, True, 8), "general", 1),
+    # tall wide: columns 16 / 17, B rows TALLW_MAX_K / + 1; A transposed is
+    # copied by the general tile
+    ((3000, 64, 16, False, True, 8), "tallw", 0),
+    ((3000, 64, 17, False, True, 8), "general", 1),
+    ((3000, 640, 16, False, False, 8), "tallw", 0),
+    ((3000, 641, 16, False, False, 8), "general", 0),
+    ((3000, 640, 16, True, False, 4), "general", 1),
+    ((3000, 512, 5, False, True, 8), "tallw", 0),      # narrow N, K*N > 2048
 ]
 
 
@@ -190,8 +234,8 @@ def test_ring_matmul_plan_picks_the_variant(case):
     p2, (a2, a2_t, lda), (b2, b2_t, ldb) = modmatmul.prepare(a, b)
     assert p2 == p and modmatmul.COPIES == copies + copied
     assert (a2 is a) + (b2 is b) == 2 - copied
-    assert a2_t == (a_t and variant == "longk")
-    assert b2_t == (b_t and variant == "tall")
+    assert a2_t == (a_t and variant in ("longk", "longw"))
+    assert b2_t == (b_t and variant in ("tall", "tallw"))
     assert lda == (m if a2_t else kdim) and ldb == (kdim if b2_t else n)
     if variant == "longk":           # a stage of A and B rows in budget
         assert p.chunk * (m + n) * word <= max(
@@ -199,6 +243,51 @@ def test_ring_matmul_plan_picks_the_variant(case):
             modmatmul.LONG_MIN_KB * (m + n) * word)
     if variant == "tall":
         assert p.chunk <= max(modmatmul.TALL_ONE_STAGE_K, modmatmul.TALL_KC)
+    if variant == "longw":           # every row of C in one block
+        assert m <= modmatmul.LONGW_MAX_M and p.chunk == modmatmul.LONGW_KB
+    if variant == "tallw":           # B staged whole
+        assert kdim <= modmatmul.TALLW_MAX_K and n <= modmatmul.TALLW_MAX_N
+        assert p.chunk == modmatmul.TALLW_KC and not p.zeroed
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["10a", "10b"])
+def test_kmeans_cell_products_take_the_wide_variants(monkeypatch, sparse):
+    """The kmeans-fraud iteration at the production widths (d = 1024, d_a =
+    512, k = 16; n cut to 64, which no plan of these shapes reads): every
+    ring product it hands ring_mm, with its own operand layouts, plans to
+    a wide variant that reads both operands in place (COPIES unchanged):
+    10a's 20 products, 10b's 4."""
+    from repro_torch.configs.kmeans_fraud import FULL
+    from repro_torch.core.triples import TrustedDealer
+    from repro_torch.launch import kmeans_step as KS
+    seen = []
+    plain = modmatmul.ring_matmul_plain
+
+    def spy(a, b):
+        copies = modmatmul.COPIES
+        p, (a2, _, _), (b2, _, _) = modmatmul.prepare(a, b)
+        seen.append((tuple(a.shape), tuple(b.shape), p.variant,
+                     a2 is a and b2 is b and modmatmul.COPIES == copies))
+        return plain(a, b)
+
+    monkeypatch.setattr(modmatmul, "ring_matmul_plain", spy)
+    n, d, k, d_a = 64, FULL.d, FULL.k, FULL.d_a
+    flat = KS.materialize_offline(
+        KS.record_offline_shapes(n, d, k, d_a, sparse=sparse),
+        TrustedDealer(seed=1, device="cpu"))
+    fn, _ = KS.online_iteration_fn(n, d, k, d_a, sparse=sparse,
+                                   backend="torch", device="cpu")
+    he = [_t(_words(s)) for s in [(n, k), (n, k), (k, d_a), (k, d - d_a)]
+          for _ in (0, 1)] if sparse else []
+    seen.clear()                     # the dealer's own products
+    fn(_t(_words((n, d_a))), _t(_words((n, d - d_a))), _t(_words((k, d))),
+       _t(_words((k, d))), *he, *flat)
+    longw = [s for s in seen if s[:2] == ((k, n), (n, d_a))]
+    tallw = [s for s in seen if s[:2] == ((n, d_a), (d_a, k))]
+    assert len(longw) + len(tallw) == len(seen) == (4 if sparse else 20)
+    assert len(longw) == (2 if sparse else 10)
+    assert all(v == "longw" and same for *_, v, same in longw)
+    assert all(v == "tallw" and same for *_, v, same in tallw)
 
 
 def _fit_views():
