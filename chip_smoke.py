@@ -27,7 +27,10 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      eager protocol), both partitions, dense and sparse, a bank-fed
      full-batch and minibatch fit (`plan_fit`, `TripleBank`,
      `fit(dealer=)`) and a `ScoringService` drain with pipeline on and
-     off, each on the card held to the CPU word for word;
+     off, each on the card held to the CPU word for word; and the host
+     ring backend (backend="numpy", device="cpu") on the dense and sparse
+     vertical fits, held word for word to the card's fits, with the
+     seconds of both;
   4. runs the main path — SecureKMeans.fit, vertical, d_a=18, d_b=24, k=5,
      10 iterations at n=100,000 (the paper's fraud-detection deployment
      shape) — with the launch counters set to 0 just before and read just
@@ -1991,6 +1994,39 @@ def phase_scoring_gpu_equals_cpu():
 
 
 TRUNC_F = 20               # ring.F: the fixed-point scale of the scores
+
+
+def phase_numpy_backend(smi_line: str) -> None:
+    """Phase 3's dense and sparse vertical fits (n=2048, 2 iterations) on
+    the host ring backend (backend="numpy", device="cpu") held word for
+    word to the card's fits (backend="cuda", on demand): share words,
+    dealer counters, CommLog per tag and phase, he_seconds. Prints each
+    fit's wall and loop seconds: at n=2048 both fits are bound by launches
+    and Python, so the seconds are a record, not a comparison."""
+    from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
+    dense = _blobs(np.random.default_rng(1), 2048, DA + DB, K)
+    sp = _one_hot_like(np.random.default_rng(4), 2048, SP_DA + SP_DB, SP_K,
+                       SP_SPARSITY)
+    for name, x, da, k, sparse in (("dense", dense, DA, K, False),
+                                   ("sparse", sp, SP_DA, SP_K, True)):
+        kw = dict(k=k, iters=2, partition="vertical", seed=3, sparse=sparse)
+        fits, walls = {}, {}
+        for backend, device in (("cuda", "cuda"), ("numpy", "cpu")):
+            t0 = time.perf_counter()
+            fits[backend] = SecureKMeans(KMeansConfig(
+                backend=backend, device=device, **kw)).fit(x[:, :da],
+                                                           x[:, da:])
+            torch.cuda.synchronize()
+            walls[backend] = time.perf_counter() - t0
+        label = f"numpy backend, {name} vertical, n=2048, k={k}, 2 iters"
+        same_fit(label, fits["numpy"], fits["cuda"])
+        n, g = fits["numpy"], fits["cuda"]
+        print(f"{label}: host fit = card fit in share words, dealer "
+              f"counters (matmul {n.dealer.n_matmul}, mul {n.dealer.n_mul}, "
+              f"bin {n.dealer.n_bin}), traffic per tag and he_seconds "
+              f"({n.he_seconds!r}); numpy fit {walls['numpy']:.3f} s (loop "
+              f"{n.loop_seconds:.3f} s), cuda fit {walls['cuda']:.3f} s "
+              f"(loop {g.loop_seconds:.3f} s) | {smi_line}", flush=True)
 
 
 def truncation_check(x, mu, labels, scores) -> dict:
@@ -4363,6 +4399,7 @@ def main() -> None:
     phase_sparse_gpu_equals_cpu(SP_WIDE_K)
     phase_minibatch_gpu_equals_cpu()
     phase_scoring_gpu_equals_cpu()
+    phase_numpy_backend(smi_line)
     launches, full_per_iter, full_pooled, dense = phase_main_path()
     sp_launches, sp_iter, sp_pooled = phase_sparse_main_path()
     sp_seq, sp_seq_launches, mb_pooled = phase_minibatch_main_path(

@@ -145,6 +145,10 @@ class KMeansConfig:
             raise ValueError(
                 f"backend='cuda' runs on device='cuda', got "
                 f"device={self.device!r}; use backend='torch' for the CPU")
+        if self.backend == "numpy" and torch.device(self.device).type != "cpu":
+            raise ValueError(
+                f"backend='numpy' is host-only and runs on device='cpu', got "
+                f"device={self.device!r}; use backend='cuda' for the GPU")
 
 
 @dataclasses.dataclass
@@ -257,9 +261,16 @@ class SecureKMeans:
     # ------------------------------------------------------------------ #
     def _runs_programs(self) -> bool:
         """Whether the config runs the S1/S3 and scoring programs: they
-        hardcode f = ring.F, and the unvectorized accounting is the eager
-        loop's."""
-        return self.cfg.vectorized and self.cfg.f == ring.F
+        hardcode f = ring.F, the unvectorized accounting is the eager
+        loop's, and the host-only numpy backend runs no program."""
+        return self.cfg.vectorized and self.cfg.f == ring.F \
+            and self._traceable_backend()
+
+    def _traceable_backend(self) -> bool:
+        """The numpy ring backend runs on the host and cannot run in the
+        programs; eager loops serve it (the same words either way)."""
+        b = self.cfg.backend
+        return getattr(b, "name", b) != "numpy"
 
     def _device(self) -> torch.device:
         """The config's device; a CUDA device with no GPU present raises
@@ -559,7 +570,8 @@ class SecureKMeans:
         if not self._runs_programs():
             raise ValueError(
                 "minibatch Lloyd runs on the S1/S3 program fast path only: "
-                f"it needs vectorized=True and f={ring.F}")
+                f"it needs vectorized=True, f={ring.F} and a device "
+                "backend (numpy is host-only)")
         ckpt = checkpoint
         if ckpt is not None and ckpt.batch_every is not None and cfg.pipeline:
             raise ValueError(
@@ -936,12 +948,17 @@ class SecureKMeans:
                  with_scores: bool, wire=None) -> PredictResult:
         cfg = self.cfg
         x_a, x_b, result = self._check_predict_args(x_a, x_b, result)
-        if compiled and cfg.f != ring.F:
+        if compiled:
             # an explicit request for the program path must not truncate
-            # at the wrong scale
-            raise ValueError(
-                f"compiled predict hardcodes f = {ring.F}; cfg.f = "
-                f"{cfg.f} must use the eager path (compiled=False)")
+            # at the wrong scale, nor run a host backend where it cannot
+            if cfg.f != ring.F:
+                raise ValueError(
+                    f"compiled predict hardcodes f = {ring.F}; cfg.f = "
+                    f"{cfg.f} must use the eager path (compiled=False)")
+            if not self._traceable_backend():
+                raise ValueError(
+                    "the host-only numpy backend cannot lower into the "
+                    "compiled predict program; use compiled=False")
         use_fast = compiled if compiled is not None \
             else self._runs_programs()
         if use_fast:
@@ -1020,8 +1037,8 @@ class SecureKMeans:
         if not self._runs_programs():
             raise ValueError(
                 "predict_prepare stages the scoring program only; non-"
-                "default f or unvectorized configs must score through "
-                "predict/score (eager path)")
+                "default f / unvectorized / numpy-backend configs must score "
+                "through predict/score (eager path)")
         with _trace.span("predict.prepare", rows=int(x_a.shape[0]),
                          scores=with_scores):
             t0 = time.perf_counter()

@@ -1142,3 +1142,16 @@ def test_metrics_scrape_during_topup_answers_within_a_second(cuda):
     during = [s for s, alive in scrapes if alive]
     assert during, "the top-up ended before a scrape completed"
     assert max(s for s, _ in scrapes) < 1.0
+
+
+def test_numpy_backend_refuses_cuda_tensors(cuda):
+    """The host backend never copies shares off the card on its own: CUDA
+    words raise, naming the cuda backend."""
+    from repro_torch.core.backend import NumpyBackend
+    nb = NumpyBackend()
+    a = _words((4, 3), cuda)
+    with pytest.raises(RuntimeError, match="backend='cuda'"):
+        nb.ring_mm(a, a.T.contiguous())
+    with pytest.raises(RuntimeError, match="backend='cuda'"):
+        nb.ring_mm(a.cpu(), a.T.contiguous())
+
