@@ -178,10 +178,14 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      kernel counts, ring_matmul and ks_carry_share held to their plain
      versions and timed at each of its shapes and layouts; 10c
      `python -m repro_torch.launch.dryrun --kmeans`, `--arch
-     granite-moe-3b-a800m --shape train_4k --mesh single` and `python -m
-     repro_torch.launch.roofline --arch kmeans-fraud`, each a CPU process
-     started when the phase starts: exit 0, no error record, no CUDA
-     context, and their records formatted by benchmarks/report.py; 10d
+     granite-moe-3b-a800m --shape train_4k --mesh single`, the same arch's
+     decode_32k, and `python -m repro_torch.launch.roofline --arch
+     kmeans-fraud`, each a CPU process
+     started when the phase starts: exit 0, no error record, no
+     `collective_error`, no CUDA context, the kmeans-fraud cell's
+     collectives on both meshes and the roofline's three terms printed
+     (a float collective term), and their records formatted by
+     benchmarks/report.py; 10d
      `launch/mesh.py:make_dev_mesh()` on the card, a reduced config's tree
      placed by `param_shardings` with every local shape and word its
      global one. It prints one `KMEANS_CELL {...}` line and its seconds;
@@ -3744,6 +3748,9 @@ KF_PLAN_CMDS = {
     "dryrun_moe_train": ["-m", "repro_torch.launch.dryrun", "--arch",
                          "granite-moe-3b-a800m", "--shape", "train_4k",
                          "--mesh", "single"],
+    "dryrun_moe_decode": ["-m", "repro_torch.launch.dryrun", "--arch",
+                          "granite-moe-3b-a800m", "--shape", "decode_32k",
+                          "--mesh", "single"],
     "roofline_kmeans": ["-m", "repro_torch.launch.roofline", "--arch",
                         "kmeans-fraud"]}
 
@@ -4183,10 +4190,13 @@ def kf_plans_start(src: pathlib.Path) -> dict:
 
 
 def kf_plans_check(procs: dict) -> dict:
-    """10c: each process exits 0 with no error record, never created a
-    CUDA context, and its records format through benchmarks/report.py."""
+    """10c: each process exits 0 with no error record and no
+    `collective_error`, never created a CUDA context, and its records
+    format through benchmarks/report.py. Prints the kmeans-fraud cell's
+    collectives on each mesh and the roofline's three terms; fails where
+    the collective term is missing. Returns those."""
     from benchmarks.report import dryrun_table, roofline_table
-    out = {}
+    summary = {}
     for name, (path, proc) in procs.items():
         try:
             log, _ = proc.communicate(timeout=600)
@@ -4198,15 +4208,40 @@ def kf_plans_check(procs: dict) -> dict:
         if proc.returncode != 0 or "cuda_initialized=False" not in last:
             fail(f"10c: {name} exited {proc.returncode}: {log[-2000:]}")
         recs = json.loads(path.read_text())
-        bad = [r for r in recs if r.get("status") == "error"]
+        bad = [r for r in recs if r.get("status") == "error"
+               or "collective_error" in r]
         if bad or not recs:
             fail(f"10c: {name}: {len(recs)} records, errors {bad}")
         table = (roofline_table if name.startswith("roofline")
                  else dryrun_table)(str(path))
         print(f"10c: {name}: {last}", flush=True)
         print(table, flush=True)
-        out[name] = recs
-    return out
+        for r in recs:
+            if r.get("arch") != "kmeans-fraud":
+                continue
+            if name.startswith("roofline"):
+                if not isinstance(r.get("collective_s"), float):
+                    fail(f"10c: the kmeans-fraud roofline row has no "
+                         f"collective term: {r}")
+                terms = {k: r[f"{k}_s"] for k in ("compute", "memory",
+                                                  "collective")}
+                summary["roofline"] = {**terms, "dominant": r["dominant"]}
+                print(f"10c: kmeans-fraud roofline terms (s, H100 "
+                      f"data-sheet constants): {json.dumps(terms)}, "
+                      f"dominant {r['dominant']}", flush=True)
+            else:
+                coll = r["collectives"]
+                if coll["all-reduce"] <= 0:
+                    fail(f"10c: kmeans-fraud on {r['mesh_name']}: no "
+                         f"all-reduce counted: {coll}")
+                summary[f"collectives_{r['mesh_name']}"] = coll
+                print(f"10c: kmeans-fraud collectives on {r['mesh_name']} "
+                      f"({r['mesh']}), bytes a device: {json.dumps(coll)}",
+                      flush=True)
+    if set(summary) != {"roofline", "collectives_single",
+                        "collectives_multi"}:
+        fail(f"10c: kmeans-fraud records missing: {sorted(summary)}")
+    return summary
 
 
 def kf_dev_mesh() -> int:
@@ -4253,7 +4288,7 @@ def phase_kmeans_cell(src: pathlib.Path) -> dict:
         torch.cuda.empty_cache()
         sparse = kf_sparse_cell()
         torch.cuda.empty_cache()
-        kf_plans_check(procs)
+        plans = kf_plans_check(procs)
     finally:
         for _, proc in procs.values():
             if proc.poll() is None:
@@ -4265,7 +4300,8 @@ def phase_kmeans_cell(src: pathlib.Path) -> dict:
     print(f"phase 10: {seconds:.1f} s", flush=True)
     cell = {"dense": {k: v for k, v in dense.items() if k != "rows"},
             "sparse": {k: v for k, v in sparse.items() if k != "rows"},
-            "dev_mesh_leaves": leaves_placed, "seconds": seconds}
+            "dev_mesh_leaves": leaves_placed, "plans": plans,
+            "seconds": seconds}
     print("KMEANS_CELL " + json.dumps(cell, default=str), flush=True)
     return {"dense": dense, "sparse": sparse, "seconds": seconds}
 

@@ -111,7 +111,7 @@ def mul_pub(a: AShare, c) -> AShare:
 
 
 def lshift(a: AShare, n: int) -> AShare:
-    return AShare(a.s0 << n, a.s1 << n)
+    return AShare(ring.lshift(a.s0, n), ring.lshift(a.s1, n))
 
 
 def neg(a: AShare) -> AShare:
@@ -256,9 +256,10 @@ def msb_carry(ctx: Ctx, a: AShare) -> BShare:
     for li, s in enumerate(KS_LEVELS):
         t = lvl[li]
         els.append(torch.stack([p, p]) ^ (t.u.b0 ^ t.u.b1))
-        fls.append(torch.stack([g << s, p << s]) ^ (t.v.b0 ^ t.v.b1))
-        g = g ^ (p & (g << s))                 # g | (p & g<<s); disjoint => xor
-        p = p & (p << s)
+        gs, ps = ring.lshift(g, s), ring.lshift(p, s)
+        fls.append(torch.stack([gs, ps]) ^ (t.v.b0 ^ t.v.b1))
+        g = g ^ (p & gs)                       # g | (p & g<<s); disjoint => xor
+        p = p & ps
     el, fl = torch.stack(els), torch.stack(fls)    # (6, 2, *shape)
     ul = [torch.stack([t.u.b0 for t in lvl]), torch.stack([t.u.b1 for t in lvl])]
     vl = [torch.stack([t.v.b0 for t in lvl]), torch.stack([t.v.b1 for t in lvl])]

@@ -12,6 +12,12 @@ Two things differ from uint64 lanes and are handled here:
   protocol is logical, so it goes through `logical_rshift`.
 * Python constants >= 2^63 do not fit int64; `to_i64` gives their
   two's-complement value.
+
+Tensor shifts are spelled `lshift` / `torch.bitwise_right_shift`, never
+`<<` / `>>`: those dispatch to `aten::__lshift__` / `__rshift__`, which
+DTensor takes for in-place ops (the schema name ends in `_`) and answers
+with the input's shard unchanged, so a sharded iteration would skip them.
+The words are the same.
 """
 from __future__ import annotations
 
@@ -81,12 +87,17 @@ def logical_rshift(x: torch.Tensor, s: int) -> torch.Tensor:
         return x
     if s >= L:
         return torch.zeros_like(x)
-    return (x >> s) & ((1 << (L - s)) - 1)
+    return torch.bitwise_right_shift(x, s) & ((1 << (L - s)) - 1)
 
 
 def arith_rshift(u: torch.Tensor, f: int) -> torch.Tensor:
     """Arithmetic (sign-extending) right shift on the two's-complement view."""
-    return u >> f
+    return torch.bitwise_right_shift(u, f)
+
+
+def lshift(x: torch.Tensor, s: int) -> torch.Tensor:
+    """`x << s` mod 2^64."""
+    return torch.bitwise_left_shift(x, s)
 
 
 def from_int(x, device=None) -> torch.Tensor:

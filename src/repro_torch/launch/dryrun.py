@@ -12,34 +12,53 @@
 # is rank 0 and no collective moves data, so it needs no device.
 #
 # Per cell the parameter, optimizer, batch and cache trees are meta
-# tensors, laid out by models/sharding.py's specs on the mesh
-# (`distribute_tensor`: the argument bytes are the sum of the first
-# device's shards). The step then runs once on the global meta tensors
-# under a dispatch mode that counts every aten op: FLOPs by FlopCounterMode's
-# formulas (matmuls, attention and convolutions; elementwise work counts
-# none) and the bytes each op reads and writes (views excluded). Per-device
-# counts are the totals divided by the mesh's chips: work a layout
-# replicates (replicated activations, replicated small parameters) is
-# counted once, not on every chip that repeats it, and the sharding mode
-# moves none of them (only the argument bytes). Every loop (layers,
-# microbatches, attention and CE chunks) runs, so nothing is extrapolated.
+# tensors, laid out by models/sharding.py's specs on the mesh as DTensors
+# (`Sharding.place`): the argument bytes are the sum of the first device's
+# shards. The step then runs once on those DTensors under a dispatch mode
+# (`CostMode`) that sees the first device's local aten ops, as the JAX
+# package's cost analysis reads the partitioned per-device program:
 #
-# What has no counterpart here: the per-device collective bytes, which the
-# JAX package parses from the partitioned HLO, and XLA's temp, peak and
-# generated-code sizes. Each record says so in `collective_note`.
+#   * FLOPs by FlopCounterMode's formulas (matmuls, attention and
+#     convolutions; elementwise work counts none) and the bytes each op
+#     reads and writes (views excluded);
+#   * the collectives DTensor issues, by the JAX package's kinds, as the
+#     bytes of each one's result buffer on the device; `link_bytes` counts
+#     an all-reduce twice (a ring's reduce-scatter and all-gather). The
+#     mesh's device type is "cuda" (launch/mesh.py), so a Shard->Shard
+#     redistribution is DTensor's all-to-all, as on the card;
+#   * the high-water mark of live local storages (the arguments included):
+#     `memory.peak_memory_in_bytes`, and `temp_size_in_bytes` = peak less
+#     arguments;
+#   * the eight ops with the most FLOPs, by local input shapes (`top_ops`).
+#
+# The kmeans-fraud iteration runs whole. An LM cell is counted by probes,
+# as the JAX package's roofline corrects its cost analysis: each layer
+# loop at 1 and 2 repeats, one microbatch, the totals extrapolated
+# (`lower_cell`, the record's `probes`). On the two-pod mesh, whose 'pod'
+# axis is pure data parallelism, an LM step is counted on the first pod's
+# (data, model) mesh at the pod's share of the batch, plus one all-reduce
+# over 'pod' of the gradient shards (the record's `pod`). Where the
+# DTensor step raises (an op DTensor has no sharding strategy for), the
+# record keeps status ok
+# with the step counted once on global meta tensors and divided over the
+# chips, and says so: `count_basis` "global/chips" and `collective_error`
+# with the op.
 
 import argparse
+import collections
 import dataclasses
 import json
 import time
+import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.configs.base import SHAPES, all_archs
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models.tree import leaves, tree_map
+from repro_torch.models.tree import leaves, tree_map, unflatten_like
 
 BF16 = torch.bfloat16
 META = torch.device("meta")
@@ -52,13 +71,24 @@ MICROBATCHES = {("llama3-405b", "train_4k"): 8,
 # >=100B params: bf16 Adam moments (DESIGN.md §6)
 BF16_MOMENT_ARCHS = {"llama3-405b", "deepseek-v2-236b"}
 
-COLLECTIVE_NOTE = (
-    "no collective bytes: the step runs once on global meta tensors and "
-    "its counts are divided over the chips, so replicated work is counted "
-    "once and the sharding mode moves only the argument bytes; the "
-    "collectives a partitioner would insert (the JAX package parses them "
-    "from the partitioned HLO) and XLA's temp, peak and generated-code "
-    "sizes have no counterpart here")
+# the JAX package's collective kinds (its dryrun.parse_collectives)
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+# DTensor's collectives by op name (namespaces _c10d_functional and
+# _dtensor); the first two only wait for or wrap a result
+_COLLECTIVE_OPS = {
+    "wait_tensor": None, "_wrap_tensor_autograd": None,
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all"}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_dtensor", "c10d")
 
 # shape and metadata queries, which move no data (FlopCounterMode's list)
 _METADATA_OPS = {
@@ -76,28 +106,96 @@ _METADATA_OPS = {
 
 
 def _nbytes(x) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(x))
+
+
+def _tensors(x) -> list:
     if isinstance(x, torch.Tensor):
-        return x.numel() * x.element_size()
+        return [x]
     if isinstance(x, (list, tuple)):
-        return sum(_nbytes(v) for v in x)
-    return 0
+        return [t for v in x for t in _tensors(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    return []
+
+
+def link_bytes(collectives: dict) -> int:
+    """Per-device link traffic of `collectives` ({kind: result bytes}): an
+    all-reduce counts twice (ring reduce-scatter + all-gather), as in the
+    JAX package's parse_collectives."""
+    return sum(collectives[k] * (2 if k == "all-reduce" else 1)
+               for k in COLLECTIVE_KINDS)
+
+
+class StepError(RuntimeError):
+    """A counted step raised; the message names the last op the mode saw."""
 
 
 class CostMode(TorchDispatchMode):
-    """Counts FLOPs the way `FlopCounterMode` does (its formulas, and its
-    decomposition of ops it has no formula for) and the bytes every
-    non-view aten op reads and writes, in one dispatch."""
+    """Counts, in one dispatch, FLOPs the way `FlopCounterMode` does (its
+    formulas, and its decomposition of ops it has no formula for), the
+    bytes every non-view aten op reads and writes, the result bytes of
+    every collective by kind, the live storages' high-water mark, and the
+    FLOPs of each op by its local input shapes (`top_ops`: the eight
+    largest, which say where a count's FLOPs went).
 
-    def __init__(self):
+    On DTensors the mode declines the DTensor-level op (NotImplemented):
+    DTensor then runs its local ops and collectives, which come back
+    through the mode on this device's shards. Only ops on `device` (the
+    step's tensors' device, meta in the dry run) count: the ones DTensor's
+    sharding propagation runs on fake tensors and its own index
+    bookkeeping on host tensors do not."""
+
+    def __init__(self, device=META):
         super().__init__()
+        self.device = torch.device(device)
         self.registry = FlopCounterMode(display=False).flop_registry
         self.flops = 0
         self.bytes = 0
+        self.collectives = dict.fromkeys(COLLECTIVE_KINDS, 0)
+        self.live = self.peak = self.allocated = 0
+        self._storages = WeakIdKeyDictionary()
+        self.op = None
+        self.by_op = collections.Counter()
+
+    def hold(self, *trees) -> None:
+        """Count the storages of every tensor in `trees` (a DTensor's local
+        shard) as live: the step's arguments."""
+        for t in leaves(list(trees)):
+            if isinstance(t, torch.Tensor):
+                self._track(_local(t), new=False)
+
+    def _track(self, t: torch.Tensor, new: bool = True) -> None:
+        st = t.untyped_storage()
+        if st in self._storages:
+            return
+        n = st.nbytes()
+        self._storages[st] = n
+        weakref.finalize(st, self._release, n)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        if new:
+            self.allocated += n
+
+    def _release(self, n: int) -> None:
+        self.live -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
         kwargs = kwargs or {}
-        if func in _METADATA_OPS:
+        self.op = func
+        if func in _METADATA_OPS or any(issubclass(t, DTensor)
+                                        for t in types):
             return NotImplemented
+        ins = _tensors(args) + _tensors(kwargs)
+        elsewhere = not ins and "device" in kwargs \
+            and torch.device(kwargs["device"]) != self.device
+        if elsewhere or any(isinstance(t, FakeTensor)
+                            or t.device != self.device for t in ins):
+            return func(*args, **kwargs)
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            return self._collective(func, args, kwargs)
         if func not in self.registry \
                 and func is not torch.ops.prim.device.default:
             with self:
@@ -105,32 +203,111 @@ class CostMode(TorchDispatchMode):
                 if r is not NotImplemented:
                     return r
         out = func(*args, **kwargs)
+        outs = _tensors(out)
+        if any(isinstance(t, FakeTensor) or t.device != self.device
+               for t in outs):
+            return out
         packet = func._overloadpacket
         if packet in self.registry:
-            self.flops += int(self.registry[packet](*args, **kwargs,
-                                                    out_val=out))
+            f = int(self.registry[packet](*args, **kwargs, out_val=out))
+            self.flops += f
+            self.by_op[(str(packet), tuple(tuple(t.shape) for t in ins))] \
+                += f
         if not func.is_view:
             self.bytes += _nbytes(args) + _nbytes(list(kwargs.values())) \
                 + _nbytes(out)
+        for t in outs:
+            self._track(t)
         return out
+
+    def _collective(self, func, args, kwargs):
+        name = func._schema.name.split("::")[-1]
+        if name not in _COLLECTIVE_OPS:
+            raise RuntimeError(f"{func}: no collective kind for it")
+        out = func(*args, **kwargs)
+        kind = _COLLECTIVE_OPS[name]
+        if kind is not None:
+            outs = _tensors(out)
+            self.collectives[kind] += _nbytes(outs)
+            self.bytes += _nbytes(args) + _nbytes(outs)
+            for t in outs:
+                self._track(t)
+        return out
+
+    def result(self) -> dict:
+        coll = dict(self.collectives)
+        coll["link_bytes"] = link_bytes(coll)
+        return {"flops": self.flops, "bytes": self.bytes,
+                "collectives": coll, "peak": self.peak,
+                "allocated": self.allocated,
+                "top_ops": [[op, [list(x) for x in shapes], f] for
+                            (op, shapes), f in self.by_op.most_common(8)]}
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def count_cost(fn, *args, **kwargs) -> dict:
-    """fn(*args) once under `CostMode`: {flops, bytes}."""
-    mode = CostMode()
-    with mode:
-        fn(*args, **kwargs)
-    return {"flops": mode.flops, "bytes": mode.bytes}
+    """fn(*args) once under `CostMode`, DTensors and plain tensors mixing
+    as replicated (`implicit_replication`): {flops, bytes, collectives
+    (with link_bytes), peak (arguments included), allocated}."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    first = next((t for t in leaves([args, kwargs])
+                  if isinstance(t, torch.Tensor)), None)
+    mode = CostMode(META if first is None else _local(first).device)
+    mode.hold(args, kwargs)
+    try:
+        with implicit_replication(), mode:
+            fn(*args, **kwargs)
+    except Exception as e:
+        raise StepError(f"{mode.op}: {type(e).__name__}: {e}") from e
+    return mode.result()
 
 
-def placed_bytes(tree, shardings) -> int:
-    """Bytes of the first device's shards of every leaf of `tree`, laid out
-    by the matching leaf of `shardings` (`Sharding.place`)."""
-    total = 0
-    for t, sh in zip(leaves(tree), leaves(shardings)):
-        local = sh.place(t).to_local()
-        total += local.numel() * local.element_size()
-    return total
+def place(tree, shardings):
+    """`tree` with every leaf laid out by the matching leaf of `shardings`
+    (`Sharding.place`): DTensors whose local tensors are the first
+    device's shards."""
+    return unflatten_like(tree, [sh.place(t) for t, sh in
+                                 zip(leaves(tree), leaves(shardings))])
+
+
+def local_bytes(tree) -> int:
+    """Bytes of the local tensors of every leaf of `tree`."""
+    return sum(_nbytes(_local(t)) for t in leaves(tree))
+
+
+def count_on_mesh(fn, args: tuple, shardings: tuple, chips: int, *,
+                  basis: str | None = None) -> dict:
+    """The counts of fn(*args) on the first device: every argument tree laid
+    out by its shardings and the step run on the DTensors. If that raises
+    (or basis="global/chips" asks for it), the step is counted once on the
+    global tensors and divided over `chips`, and the result carries
+    `collective_error` (when it raised). Returns the cost dict of
+    `count_cost` with `argument_bytes` and `count_basis`."""
+    placed = tuple(place(a, s) for a, s in zip(args, shardings))
+    arg_bytes = local_bytes(placed)
+    error = None
+    if basis is None:
+        try:
+            cost = count_cost(fn, *placed)
+            cost.update(count_basis="per-device",
+                        argument_bytes=arg_bytes)
+            return cost
+        except StepError as e:
+            error = str(e)[:500]
+    del placed
+    cost = count_cost(fn, *args)
+    cost = {"flops": cost["flops"] / chips,
+            "bytes": cost["bytes"] / chips,
+            "peak": cost["peak"] / chips,
+            "allocated": cost["allocated"] / chips,
+            "count_basis": "global/chips", "argument_bytes": arg_bytes}
+    if error is not None:
+        cost["collective_error"] = error
+    return cost
 
 
 def _mesh_label(mesh) -> str:
@@ -197,31 +374,18 @@ def params_shape_to_zeros(params_shape):
                                           device=s.device), params_shape)
 
 
-# the step's counts per (arch, shape, config less act_axes, micro, batch):
-# the step runs on global tensors, so the counts are the same on every mesh
-# and in every sharding mode, and each is taken once per process
+# the counts per (arch, shape, config, micro, batch, mesh, sharding mode):
+# each cell is counted once per process on each mesh and in each mode
 _STEP_COSTS: dict[tuple, dict] = {}
 
 
-def lower_cell(arch_id: str, shape_name: str, mesh, *, cfg=None,
-               micro: int | None = None,
-               global_batch: int | None = None,
-               sharding_mode: str = "2d") -> dict:
-    """Lay out one cell on `mesh` and count its step; return the analysis
-    record. cfg/micro/batch/sharding_mode overrides support the §Perf
-    hillclimb variants (launch/perf.py)."""
-    from repro_torch.models import sharding as S
-    from repro_torch.models.lm import init_params_shape_only
-    from repro_torch.serving.decode import init_cache, serve_step
-    from repro_torch.training.adamw import AdamWConfig
-    from repro_torch.training.train_step import init_state, make_train_step
-
-    spec = all_archs()[arch_id]
-    cfg = cfg or spec.config
+def cell_config(arch_id: str, shape_name: str, mesh, *, cfg=None,
+                global_batch: int | None = None,
+                sharding_mode: str = "2d"):
+    """The cell's config with its activation batch axes pinned for `mesh`
+    and `sharding_mode` (DESIGN.md §6)."""
+    cfg = cfg or all_archs()[arch_id].config
     sh = SHAPES[shape_name]
-    t0 = time.perf_counter()
-
-    # pin activation batch axes inside layer loops (DESIGN.md §6)
     names = tuple(mesh.mesh_dim_names)
     act_axes = tuple(a for a in ("pod", "data") if a in names)
     if sharding_mode == "fsdp":
@@ -236,90 +400,319 @@ def lower_cell(arch_id: str, shape_name: str, mesh, *, cfg=None,
         n_batch_shards *= int(mesh.size(names.index(a)))
     if act_axes and gb_eff % n_batch_shards != 0:
         act_axes = ()                       # e.g. long_500k's global_batch=1
-    cfg = dataclasses.replace(cfg, act_axes=act_axes)
+    return dataclasses.replace(cfg, act_axes=act_axes)
 
-    params_shape = init_params_shape_only(cfg)
-    param_sh = S.param_shardings(mesh, params_shape, sharding_mode)
+
+def cell_program(arch_id: str, shape_name: str, mesh, cfg, *,
+                 micro: int | None, global_batch: int | None,
+                 sharding_mode: str):
+    """(step, argument trees, their shardings) of one cell: the step takes
+    the trees positionally."""
+    from repro_torch.models import sharding as S
+    from repro_torch.models.lm import init_params_shape_only
+    from repro_torch.serving.decode import init_cache, serve_step
+    from repro_torch.training.adamw import AdamWConfig
+    from repro_torch.training.train_step import init_state, make_train_step
+
+    sh = SHAPES[shape_name]
+    params = init_params_shape_only(cfg)
+    param_sh = S.param_shardings(mesh, params, sharding_mode)
     batch = input_specs(arch_id, shape_name, cfg=cfg,
                         global_batch=global_batch)
-    micro = (micro if micro is not None
-             else MICROBATCHES.get((arch_id, shape_name), 1)) \
-        if sh.kind == "train" else None
-    key = (arch_id, shape_name, dataclasses.replace(cfg, act_axes=()),
-           micro, gb_eff)
-
     if sh.kind == "train":
         opt_cfg = AdamWConfig(
             moment_dtype=BF16 if arch_id in BF16_MOMENT_ARCHS
             else torch.float32)
-        state = init_state(params_shape_to_zeros(params_shape), opt_cfg)
-        arg_bytes = placed_bytes(params_shape, param_sh) \
-            + placed_bytes(state, _opt_state_shardings(param_sh, mesh)) \
-            + placed_bytes(batch, S.batch_shardings(mesh, batch,
-                                                    sharding_mode))
-        if key not in _STEP_COSTS:
-            step = make_train_step(cfg, opt_cfg, microbatches=micro)
-            _STEP_COSTS[key] = count_cost(step, params_shape, state, batch)
-    elif sh.kind == "prefill":
-        arg_bytes = placed_bytes(params_shape, param_sh) \
-            + placed_bytes(batch, S.batch_shardings(mesh, batch,
-                                                    sharding_mode))
-        if key not in _STEP_COSTS:
-            _STEP_COSTS[key] = count_cost(_prefill_step(cfg), params_shape,
-                                          batch)
-    else:  # decode
-        b = gb_eff
-        cache = init_cache(cfg, b, sh.seq_len,
-                           enc_len=sh.seq_len if cfg.enc_dec else 0,
-                           device=META)
-        arg_bytes = placed_bytes(params_shape, param_sh) \
-            + placed_bytes(cache, S.cache_shardings(mesh, cache)) \
-            + placed_bytes(batch["token"],
-                           S.batch_shardings(mesh, batch["token"])) \
-            + placed_bytes(batch["pos"], S.replicated(mesh))
-        if key not in _STEP_COSTS:
-            # the position's value changes no count: attention masks the
-            # whole cache
-            _STEP_COSTS[key] = count_cost(serve_step, params_shape, cfg,
-                                          cache, batch["token"],
-                                          sh.seq_len - 1)
+        state = init_state(params_shape_to_zeros(params), opt_cfg)
+        step = make_train_step(cfg, opt_cfg, microbatches=micro)
+        return step, (params, state, batch), (
+            param_sh, _opt_state_shardings(param_sh, mesh),
+            S.batch_shardings(mesh, batch, sharding_mode))
+    if sh.kind == "prefill":
+        return _prefill_step(cfg), (params, batch), (
+            param_sh, S.batch_shardings(mesh, batch, sharding_mode))
+    cache = init_cache(cfg, global_batch or sh.global_batch, sh.seq_len,
+                       enc_len=sh.seq_len if cfg.enc_dec else 0, device=META)
 
-    rec = analyze(_STEP_COSTS[key], arg_bytes, _chips(mesh))
+    def decode(params, cache, token, pos):
+        # the position's value changes no count: attention masks the
+        # whole cache
+        return serve_step(params, cfg, cache, token, sh.seq_len - 1)
+    return decode, (params, cache, batch["token"], batch["pos"]), (
+        param_sh, S.cache_shardings(mesh, cache),
+        S.batch_shardings(mesh, batch["token"]), S.replicated(mesh))
+
+
+def _with_repeats(cfg, group_repeats: list, enc_layers: int | None):
+    """`cfg` with each layer group at the given repeats (and the encoder at
+    `enc_layers`), as the JAX package's roofline probes."""
+    from repro_torch.configs.base import ScanGroup
+    kw = {"groups": tuple(ScanGroup(g.unit, r)
+                          for g, r in zip(cfg.groups, group_repeats))}
+    if cfg.enc_dec and enc_layers is not None:
+        kw["n_enc_layers"] = enc_layers
+    return dataclasses.replace(cfg, **kw)
+
+
+def _probe_plan(cfg) -> list:
+    """[(group repeats, encoder layers)] of the probes: every layer loop at
+    1, then each loop at 2 with the others at 1."""
+    ones = [1] * len(cfg.groups)
+    enc = 1 if cfg.enc_dec else None
+    plan = [(ones, enc)]
+    for i in range(len(cfg.groups)):
+        plan.append((ones[:i] + [2] + ones[i + 1:], enc))
+    if cfg.enc_dec:
+        plan.append((ones, 2))
+    return plan
+
+
+def _linear_parts(cost: dict) -> dict:
+    parts = {k: cost[k] for k in ("flops", "bytes")}
+    parts["temp"] = max(0, cost["peak"] - cost["argument_bytes"])
+    for k in COLLECTIVE_KINDS:
+        parts[k] = cost.get("collectives", {}).get(k, 0)
+    return parts
+
+
+def _extrapolate(costs: list, cfg, micro: int) -> dict:
+    """The step's per-device counts from the probes (`_probe_plan` order):
+    unit_x = probe(x at 2) - probe(all at 1), base = probe(all at 1) -
+    sum_x unit_x, total = micro * (base + sum_x R_x unit_x), as the JAX
+    package's roofline corrects its cost analysis. The temporaries are
+    one microbatch's (microbatches run one after another): base +
+    sum_x R_x unit_x, not times micro, and never below a probe's own: a
+    high-water mark need not grow with the layers (on torch 2.11 the
+    straight line through granite-moe-3b-a800m train_4k's probes fell to
+    zero, a peak of the arguments alone)."""
+    parts = [_linear_parts(c) for c in costs]
+    repeats = [g.repeats for g in cfg.groups]
+    if cfg.enc_dec:
+        repeats.append(cfg.n_enc_layers)
+    base, units = parts[0], parts[1:]
+    out = {}
+    for k in base:
+        unit = [u[k] - base[k] for u in units]
+        total = base[k] - sum(unit) + sum(r * u for r, u in zip(repeats,
+                                                               unit))
+        if k == "temp":
+            out[k] = max([total] + [p[k] for p in parts])
+        else:
+            out[k] = max(0, total) * micro
+    return out
+
+
+def _cell_cost(arch_id, shape_name, mesh, cfg, micro, global_batch,
+               sharding_mode, basis=None) -> dict:
+    key = (arch_id, shape_name, cfg, micro, global_batch, _mesh_label(mesh),
+           sharding_mode, basis)
+    if key not in _STEP_COSTS:
+        step, args, shardings = cell_program(
+            arch_id, shape_name, mesh, cfg, micro=micro,
+            global_batch=global_batch, sharding_mode=sharding_mode)
+        _STEP_COSTS[key] = count_on_mesh(step, args, shardings,
+                                         _chips(mesh), basis=basis)
+    return _STEP_COSTS[key]
+
+
+def _pod_split(mesh) -> tuple:
+    """(pod count, the first pod's own mesh) of a mesh with a 'pod' axis;
+    (1, mesh) otherwise."""
+    names = tuple(mesh.mesh_dim_names)
+    if "pod" not in names:
+        return 1, mesh
+    return (int(mesh.size(names.index("pod"))),
+            mesh[tuple(n for n in names if n != "pod")])
+
+
+def _batch_ways(mesh, sharding_mode: str) -> int:
+    """The devices a batch is split over (`sharding.batch_shardings`)."""
+    names = tuple(mesh.mesh_dim_names)
+    axes = [a for a in ("pod", "data") if a in names]
+    if sharding_mode == "fsdp":
+        axes.append("model")
+    ways = 1
+    for a in axes:
+        ways *= int(mesh.size(names.index(a)))
+    return ways
+
+
+def _pod_grad_bytes(mesh, cfg, sharding_mode: str,
+                    accumulated: bool) -> int:
+    """The bytes of the first device's gradient shards on `mesh`, which a
+    train step all-reduces over 'pod': each parameter's shard in its own
+    dtype, or float32 where microbatches accumulate the gradient
+    (`train_step.make_train_step`'s accum_dtype)."""
+    from repro_torch.models import sharding as S
+    from repro_torch.models.lm import init_params_shape_only
+    params = init_params_shape_only(cfg)
+    placed = place(params, S.param_shardings(mesh, params, sharding_mode))
+    return sum(_local(t).numel() * (4 if accumulated else t.element_size())
+               for t in leaves(placed))
+
+
+def lower_cell(arch_id: str, shape_name: str, mesh, *, cfg=None,
+               micro: int | None = None,
+               global_batch: int | None = None,
+               sharding_mode: str = "2d") -> dict:
+    """Lay out one cell on `mesh` and count its step on the first device
+    by probes (`_probe_plan`): each layer loop at 1 and 2 repeats, one
+    microbatch of global_batch / micro, the totals extrapolated
+    (`_extrapolate`), as the JAX package's roofline does; the record says
+    so in `probes`. Returns the analysis record. cfg/micro/batch/
+    sharding_mode overrides support the §Perf hillclimb variants
+    (launch/perf.py).
+
+    On a mesh with a 'pod' axis, which is pure data parallelism (the
+    parameters are replicated over it), a device does what a device of
+    one pod does with the pod's share of the batch: the step is counted
+    on the first pod's (data, model) mesh at global_batch / pods, and a
+    train step adds one all-reduce over 'pod' of its gradient shards
+    (`pod` in the record). Running the step on the three-axis mesh gives
+    the same FLOPs, but a batch sharded over two axes turns into
+    `_StridedShard` placements, whose redistributions DTensor plans by a
+    graph search, and a cell took up to half an hour. A batch that does
+    not split over the pods (one sequence) runs on the whole mesh."""
+    sh = SHAPES[shape_name]
+    t0 = time.perf_counter()
+    gb = global_batch or sh.global_batch
+    micro = (micro if micro is not None
+             else MICROBATCHES.get((arch_id, shape_name), 1)) \
+        if sh.kind == "train" else None
+    base = cfg or all_archs()[arch_id].config
+    m = micro or 1
+    pgb = gb // m
+    pods, count_mesh = _pod_split(mesh)
+    if pods > 1 and pgb % _batch_ways(mesh, sharding_mode) == 0:
+        pgb //= pods
+    else:
+        pods, count_mesh = 1, mesh
+    pcfg = cell_config(arch_id, shape_name, count_mesh, cfg=base,
+                       global_batch=pgb, sharding_mode=sharding_mode)
+    plan = _probe_plan(pcfg)
+    cfgs = [_with_repeats(pcfg, r, e) for r, e in plan]
+    pmicro = 1 if micro else None
+    costs = [_cell_cost(arch_id, shape_name, count_mesh, c, pmicro, pgb,
+                        sharding_mode) for c in cfgs]
+    failed = next((c for c in costs if "collective_error" in c), None)
+    if failed is not None:
+        # one basis for every probe
+        costs = [_cell_cost(arch_id, shape_name, count_mesh, c, pmicro, pgb,
+                            sharding_mode, basis="global/chips")
+                 for c in cfgs]
+    full = cell_config(arch_id, shape_name, mesh, cfg=base,
+                       global_batch=gb, sharding_mode=sharding_mode)
+    args = placed_arguments(arch_id, shape_name, mesh, full, micro, gb,
+                            sharding_mode)
+    tot = _extrapolate(costs, full, m)
+    cost = {"flops": tot["flops"], "bytes": tot["bytes"],
+            "peak": args + tot["temp"], "argument_bytes": args,
+            "count_basis": costs[0]["count_basis"]}
+    if failed is not None:
+        cost["collective_error"] = failed["collective_error"]
+    else:
+        coll = {k: tot[k] for k in COLLECTIVE_KINDS}
+        cost["collectives"] = coll
+    pod = None
+    if pods > 1:
+        grad = 0
+        if sh.kind == "train":
+            grad = _pod_grad_bytes(count_mesh, base, sharding_mode,
+                                   accumulated=m > 1)
+        pod = {"pods": pods, "counted_on": _mesh_label(count_mesh),
+               "probe_global_batch_per_pod": pgb,
+               "grad_all_reduce_bytes": grad}
+        cost["bytes"] += 2 * grad
+        if "collectives" in cost:
+            cost["collectives"]["all-reduce"] += grad
+    if "collectives" in cost:
+        cost["collectives"]["link_bytes"] = link_bytes(cost["collectives"])
+    rec = analyze(cost)
+    rec["probes"] = {"group_repeats": [r for r, _ in plan],
+                     "enc_layers": [e for _, e in plan]
+                     if pcfg.enc_dec else None,
+                     "microbatches": m, "probe_global_batch": pgb}
+    if pod is not None:
+        rec["pod"] = pod
+    if "top_ops" in costs[0]:
+        rec["top_ops"] = costs[0]["top_ops"]
     rec.update(arch=arch_id, shape=shape_name, mesh=_mesh_label(mesh),
                status="ok", compile_s=round(time.perf_counter() - t0, 1))
     return rec
 
 
-def analyze(cost: dict, argument_bytes: int, chips: int) -> dict:
-    """The record of one counted step on `chips` devices."""
-    return {"flops_per_device": cost["flops"] / chips,
-            "bytes_per_device": cost["bytes"] / chips,
-            "memory": {"argument_size_in_bytes": int(argument_bytes)},
-            "collective_note": COLLECTIVE_NOTE}
+def placed_arguments(arch_id, shape_name, mesh, cfg, micro, global_batch,
+                     sharding_mode) -> int:
+    """The first device's argument bytes of the cell (every layer)."""
+    _, args, shardings = cell_program(
+        arch_id, shape_name, mesh, cfg, micro=micro,
+        global_batch=global_batch, sharding_mode=sharding_mode)
+    return local_bytes([place(a, s) for a, s in zip(args, shardings)])
+
+
+def analyze(cost: dict) -> dict:
+    """The record of one counted step (`count_on_mesh`), per device, with
+    the JAX package's keys."""
+    args = int(cost["argument_bytes"])
+    peak = max(int(cost["peak"]), args)
+    rec = {"flops_per_device": cost["flops"],
+           "bytes_per_device": cost["bytes"],
+           "memory": {"argument_size_in_bytes": args,
+                      "peak_memory_in_bytes": peak,
+                      "temp_size_in_bytes": peak - args},
+           "count_basis": cost["count_basis"]}
+    if "collective_error" in cost:
+        rec["collective_error"] = cost["collective_error"]
+    else:
+        rec["collectives"] = dict(cost["collectives"])
+    return rec
 
 
 _KMEANS_COSTS: dict[tuple, dict] = {}
 
 
-def lower_kmeans_cell(mesh) -> dict:
-    """The paper's own config: one online Lloyd iteration on shares."""
-    from repro_torch.configs.kmeans_fraud import FULL as KCFG
+def kmeans_cost(mesh, *, sparse: bool = False) -> dict:
+    """`count_on_mesh` of one online iteration of the kmeans-fraud cell
+    (FULL) on `mesh`, memoized per mesh and FUSE_BEAVER setting."""
+    from repro_torch.configs.kmeans_fraud import FULL
     from repro_torch.core import protocol
     from repro_torch.launch.kmeans_step import (arg_shardings,
                                                 online_iteration_fn)
-    t0 = time.perf_counter()
-    fn, args = online_iteration_fn(KCFG.n, KCFG.d, KCFG.k, KCFG.d_a,
-                                   device=META)
-    shardings = arg_shardings(mesh, args, KCFG.n)
-    arg_bytes = placed_bytes(list(args), list(shardings))
-    key = (KCFG, protocol.FUSE_BEAVER)
+    key = (sparse, protocol.FUSE_BEAVER, _mesh_label(mesh),
+           tuple(mesh.mesh_dim_names))
     if key not in _KMEANS_COSTS:
-        _KMEANS_COSTS[key] = count_cost(fn, *args)
-    rec = analyze(_KMEANS_COSTS[key], arg_bytes, _chips(mesh))
+        fn, args = online_iteration_fn(FULL.n, FULL.d, FULL.k, FULL.d_a,
+                                       sparse=sparse, device=META)
+        _KMEANS_COSTS[key] = count_on_mesh(
+            fn, args, arg_shardings(mesh, args, FULL.n), _chips(mesh))
+    return _KMEANS_COSTS[key]
+
+
+def lower_kmeans_cell(mesh) -> dict:
+    """The paper's own config: one online Lloyd iteration on shares."""
+    from repro_torch.configs.kmeans_fraud import FULL as KCFG
+    t0 = time.perf_counter()
+    cost = kmeans_cost(mesh)
+    rec = analyze(cost)
+    rec["top_ops"] = cost["top_ops"]
     rec.update(arch="kmeans-fraud", shape=f"n{KCFG.n}_d{KCFG.d}_k{KCFG.k}",
                mesh=_mesh_label(mesh), status="ok",
                compile_s=round(time.perf_counter() - t0, 1))
     return rec
+
+
+def ok_line(rec: dict) -> str:
+    """One record's printed summary; a record counted on the global basis
+    names it and the op that stopped the DTensor step."""
+    mem = rec["memory"]
+    line = (f"counted in {rec['compile_s']}s ({rec['count_basis']}), "
+            f"flops/dev {rec['flops_per_device']:.3g}, "
+            f"bytes/dev {rec['bytes_per_device']:.3g}, "
+            f"argbytes/dev {mem['argument_size_in_bytes']:.3g}, "
+            f"peak/dev {mem['peak_memory_in_bytes']:.3g}")
+    if "collective_error" in rec:
+        return line + f", no collectives: {rec['collective_error'][:160]}"
+    return line + f", link/dev {rec['collectives']['link_bytes']:.3g}"
 
 
 def main():
@@ -370,13 +763,7 @@ def main():
                        else lower_cell(arch_id, shape_name, mesh))
                 rec["mesh_name"] = mesh_name
                 results.append(rec)
-                mem = rec.get("memory", {})
-                print(f"[ok] {label}: counted in {rec['compile_s']}s, "
-                      f"flops/dev {rec.get('flops_per_device', -1):.3g}, "
-                      f"bytes/dev {rec.get('bytes_per_device', -1):.3g}, "
-                      f"argbytes/dev "
-                      f"{mem.get('argument_size_in_bytes', -1):.3g}",
-                      flush=True)
+                print(f"[ok] {label}: {ok_line(rec)}", flush=True)
             except Exception as e:
                 results.append({"arch": arch_id, "shape": shape_name,
                                 "mesh": mesh_name, "status": "error",

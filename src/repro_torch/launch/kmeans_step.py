@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.core import protocol as P
 from repro_torch.core import ring
-from repro_torch.core.backend import get_backend
+from repro_torch.core.backend import RingBackend, get_backend
 from repro_torch.core.channel import CommLog
 from repro_torch.core.sharing import AShare, BShare
 from repro_torch.core.triples import BinTriple, MatmulTriple, MulTriple
@@ -188,6 +188,55 @@ def _split_he(flat, shapes):
     return he, flat[n_he:]
 
 
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """`t` all-reduced to Replicate where it is a DTensor holding partial
+    sums (a product or a sum over the sharded sample axis); any other
+    tensor as it is, as `models.lm._pin_batch` leaves a plain one.
+
+    The reduction has to come before a partial sum meets a non-linear ring
+    op (xor, and, a right shift), and before it meets a replicated word:
+    DTensor would turn the replicated operand into a partial one by
+    dividing it over the ranks, which leaves the ring for float32."""
+    if type(t) is torch.Tensor:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor) \
+            or not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in t.placements])
+
+
+def _replicated_share(a: AShare) -> AShare:
+    return AShare(_replicated(a.s0), _replicated(a.s1))
+
+
+class _ReducedProducts(RingBackend):
+    """`inner` with each dense ring product passed through `_replicated`: a
+    product over the sharded sample axis comes back replicated. Every other
+    op is the inner backend's own (the sparse products contract the
+    features, never the samples)."""
+
+    def __init__(self, inner: RingBackend):
+        self.inner = inner
+        self.name = inner.name
+
+    def __getattr__(self, attr):
+        return getattr(self.inner, attr)
+
+    def ring_mm(self, a, b):
+        return _replicated(self.inner.ring_mm(a, b))
+
+    def ring_spmm(self, *args, **kwargs):
+        return self.inner.ring_spmm(*args, **kwargs)
+
+    def ring_spmm_csr(self, *args, **kwargs):
+        return self.inner.ring_spmm_csr(*args, **kwargs)
+
+    def ks_fused(self, *args, **kwargs):
+        return self.inner.ks_fused(*args, **kwargs)
+
+
 # ---------------------------------------------------------------------------
 # Program bodies — ONE implementation per online stage, all combos
 # ---------------------------------------------------------------------------
@@ -294,7 +343,12 @@ def _s3_final_body(ctx, k: int, n: int, mu: AShare, num: AShare,
     ~2^(2f+m) bits, where SecureML local truncation fails often. So the
     2^m rescale is split: num is shifted down by s = m//2 and 2^s/den is
     kept in the reciprocal; the product (num/2^s)*(2^s/den) stays at
-    ~2^(2f+4) bits."""
+    ~2^(2f+4) bits.
+
+    On DTensors sharded over the samples, num and den arrive as partial
+    sums; they are all-reduced here, before the first op that is not
+    linear over a sum (CMP, truncation)."""
+    num, den = _replicated_share(num), _replicated_share(den)
     dev = num.s0.device
     one = AShare(torch.ones((k,), dtype=ring.DTYPE, device=dev),
                  _zeros((k,), dev))
@@ -324,11 +378,20 @@ def _iteration(xa_enc, xb_enc, mu: AShare, dealer, n: int, k: int,
     S1 and S3 bodies composed back to back over ONE dealer. Kept as the
     single-launch legacy form behind `online_iteration_fn`; the production
     fast path uses the split `fit_programs` pair. `backend` None resolves
-    by the dealer's device."""
+    by the dealer's device.
+
+    The arguments may be DTensors laid out by `arg_shardings` (the dry
+    run): every ring product that contracts the sharded sample axis (S3's
+    C^T X blocks) is all-reduced as it comes out (`_ReducedProducts`), as
+    the JAX package's partitioner places one all-reduce after each such
+    dot, and S3's sums are all-reduced before its tail. Plain tensors pass
+    as they are."""
     d_b = xb_enc.shape[1]
     geo = FitGeometry("vertical", he_results is not None,
                       (n, d_a), (n, d_b), k)
-    ctx = P.Ctx(dealer=dealer, log=CommLog(), backend=backend)
+    ctx = P.Ctx(dealer=dealer, log=CommLog(),
+                backend=_ReducedProducts(get_backend(backend,
+                                                     dealer.device)))
     he1 = he3 = None
     if he_results is not None:
         he1, he3 = tuple(he_results[:2]), tuple(he_results[2:])

@@ -7,6 +7,12 @@ returns without moving data. That is what a dry run needs — the sharded
 local shapes and the counts of the step — and it needs no device at all.
 The fake group is this process's default group, so it and a real group
 never share a process: the dry run and roofline are their own processes.
+
+A fake mesh's device type is "cuda", the card's: DTensor then issues a
+Shard->Shard redistribution as its all-to-all, as on the card (on a "cpu"
+mesh it would all-gather and keep a chunk, since gloo has no all-to-all).
+DeviceMesh sets up no device on the fake backend, so no CUDA context is
+made and none is needed: the tensors live on the meta device.
 """
 from __future__ import annotations
 
@@ -34,17 +40,25 @@ def ensure_fake_group(world_size: int = FAKE_WORLD) -> None:
                             world_size=world_size)
 
 
+def make_fake_mesh(shape: tuple, names: tuple, world_size: int | None = None):
+    """A mesh of `shape` with axes `names` over the fake group (started
+    with `world_size` ranks, default the mesh's size, unless one runs)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    size = 1
+    for s in shape:
+        size *= s
+    ensure_fake_group(world_size or size)
+    return init_device_mesh("cuda", tuple(shape), mesh_dim_names=tuple(names))
+
+
 def make_production_mesh(*, multi_pod: bool = False):
     """Single pod: 256 chips as (data=16, model=16). Multi-pod: 2 pods =
     512 chips as (pod=2, data=16, model=16); 'pod' is the DCN-crossing pure-DP
     axis (gradient all-reduce only, optionally int8-compressed). On the fake
-    group (`ensure_fake_group`); the mesh's device type is the CPU's, and
-    its tensors live on the meta device."""
-    from torch.distributed.device_mesh import init_device_mesh
-    ensure_fake_group()
+    group (`make_fake_mesh`); its tensors live on the meta device."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    return make_fake_mesh(shape, axes, FAKE_WORLD)
 
 
 def make_dev_mesh(device: str = "cuda"):

@@ -2,12 +2,13 @@
 # Three cells (chosen from the roofline table): the paper's own
 # kmeans-fraud iteration, the most collective-bound train cell, and the
 # flagship decode cell. Each variant is an explicit hypothesis; the output
-# JSON is the iteration log. The terms are the dry run's counts over the
-# H100 data-sheet constants of launch/roofline.py; collectives are not
-# counted (dryrun.COLLECTIVE_NOTE). The step's counts are global counts
-# divided over the chips, so a sharding mode moves none of them: a variant
-# that changes only the mode reports its argument bytes, and its step
-# terms are null with the reason in `not_modelled`.
+# JSON is the iteration log. The terms are the dry run's per-device counts
+# (the step run on the first device's DTensor shards, collectives
+# included) over the H100 data-sheet constants of launch/roofline.py, so a
+# variant that changes only the sharding mode moves every term. Where the
+# DTensor step raises, the counts fall back to global/chips, which the
+# mode cannot move: such a variant's step terms are null, with the reason
+# in `not_modelled`.
 #
 #   PYTHONPATH=src python -m repro_torch.launch.perf --cell kmeans --out perf.json
 
@@ -17,47 +18,37 @@ import json
 
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.roofline import (CHIPS, HBM_BW, PEAK_FLOPS,
-                                         RING_OPS, kmeans_model_flops,
-                                         model_flops)
+from repro_torch.launch.roofline import (CHIPS, PEAK_FLOPS, RING_OPS,
+                                         dominant, kmeans_model_flops,
+                                         link_bytes_dev, model_flops, step_s,
+                                         terms)
 
 MESH = None
 
-MODE_NOT_MODELLED = (
-    "the sharding mode changes where the step's work runs and what it "
-    "communicates; the counts are global/chips and collectives are not "
-    "counted, so the step terms would equal the 2d baseline's")
 
-
-def _terms(f, b, peak=PEAK_FLOPS):
-    t = {"compute_s": f / peak, "memory_s": b / HBM_BW,
-         "collective_s": None}
-    t["dominant"] = max(("compute_s", "memory_s"), key=lambda k: t[k])
-    t["step_s"] = max(t["compute_s"], t["memory_s"])
-    return t
+def _terms(f, b, link, peak=PEAK_FLOPS):
+    t = terms(f, b, link, peak)
+    out = {f"{k}_s": v for k, v in t.items()}
+    out["dominant"] = f"{dominant(t)}_s"
+    out["step_s"] = step_s(t)
+    return out
 
 
 def measure_kmeans(sparse: bool, fuse: bool) -> dict:
     from repro_torch.configs.kmeans_fraud import FULL as K
     from repro_torch.core import protocol
-    from repro_torch.launch.kmeans_step import (arg_shardings,
-                                                online_iteration_fn)
     old = protocol.FUSE_BEAVER
     protocol.FUSE_BEAVER = fuse
     try:
-        fn, args = online_iteration_fn(K.n, K.d, K.k, K.d_a, sparse=sparse,
-                                       device="meta")
-        arg_bytes = dryrun.placed_bytes(list(args),
-                                        list(arg_shardings(MESH, args, K.n)))
-        rec = dryrun.analyze(dryrun.count_cost(fn, *args), arg_bytes,
-                             int(MESH.size()))
+        rec = dryrun.analyze(dryrun.kmeans_cost(MESH, sparse=sparse))
     finally:
         protocol.FUSE_BEAVER = old
     f = rec["flops_per_device"]
     b = rec["bytes_per_device"]
-    out = _terms(f, b, RING_OPS)          # int64 ring products
+    link = link_bytes_dev(rec)
+    out = _terms(f, b, link, RING_OPS)          # int64 ring products
     mf = kmeans_model_flops(K) / CHIPS
-    out.update(flops_dev=f, bytes_dev=b, link_dev=None,
+    out.update(flops_dev=f, bytes_dev=b, link_dev=link,
                argument_bytes_dev=rec["memory"]["argument_size_in_bytes"],
                useful_ratio=mf / max(f, 1.0),
                roofline_fraction=(mf / RING_OPS) / max(out["step_s"], 1e-12),
@@ -74,22 +65,27 @@ def measure_lm(arch: str, shape: str, *, sharding_mode="2d",
     rec = dryrun.lower_cell(arch, shape, MESH, cfg=cfg_base, micro=micro,
                             sharding_mode=sharding_mode)
     f, b = rec["flops_per_device"], rec["bytes_per_device"]
-    out = _terms(f, b)
+    link = link_bytes_dev(rec)
+    out = _terms(f, b, link)
     mf = model_flops(arch, shape, cfg_base=cfg_base) / CHIPS
-    out.update(flops_dev=f, bytes_dev=b, link_dev=None,
+    out.update(flops_dev=f, bytes_dev=b, link_dev=link,
                argument_bytes_dev=rec["memory"]["argument_size_in_bytes"],
+               peak_bytes_dev=rec["memory"]["peak_memory_in_bytes"],
                useful_ratio=mf / max(f, 1.0),
                roofline_fraction=(mf / PEAK_FLOPS) / max(out["step_s"], 1e-12),
                variant=f"mode={sharding_mode},micro={micro},"
                        f"patch={cfg_patch}")
-    if sharding_mode != "2d":
-        # a patched config or microbatch count still moves the terms; the
-        # mode's own share of the variant does not
-        out["not_modelled"] = MODE_NOT_MODELLED
-        if micro is None and not cfg_patch:
+    if "collective_error" in rec:
+        out["collective_error"] = rec["collective_error"]
+        if sharding_mode != "2d" and micro is None and not cfg_patch:
+            # a patched config or microbatch count still moves the
+            # global/chips terms; the mode's own share of the variant does not
+            out["not_modelled"] = (
+                "the DTensor step raised, so the counts are global/chips, "
+                "which the sharding mode does not move")
             for key in ("flops_dev", "bytes_dev", "useful_ratio",
-                        "compute_s", "memory_s", "step_s", "dominant",
-                        "roofline_fraction"):
+                        "compute_s", "memory_s", "collective_s", "step_s",
+                        "dominant", "roofline_fraction"):
                 out[key] = None
     return out
 
@@ -120,9 +116,10 @@ def main():
             rec = measure_kmeans(**kw)
             rec["name"] = name
             results.append(rec)
-            print(f"[{name}] dom={rec['dominant']} step={rec['step_s']:.4f}s "
+            print(f"[{name}] dom={rec['dominant']} step={rec['step_s']:.4g}s "
                   f"flops/dev={rec['flops_dev']:.3e} "
-                  f"bytes/dev={rec['bytes_dev']:.3e}")
+                  f"bytes/dev={rec['bytes_dev']:.3e} "
+                  f"link/dev={rec['link_dev']}")
     else:
         defaults = {"train": ("granite-34b", "train_4k"),
                     "moe": ("granite-moe-3b-a800m", "train_4k"),
@@ -166,7 +163,7 @@ def main():
                 if rec["step_s"] is None:
                     print(f"[{name}] args/dev="
                           f"{rec['argument_bytes_dev']:.3e} B; step terms "
-                          f"not modelled")
+                          f"not modelled: {rec['collective_error'][:120]}")
                 else:
                     print(f"[{name}] dom={rec['dominant']} "
                           f"step={rec['step_s']:.4f}s "

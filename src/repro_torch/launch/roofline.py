@@ -1,16 +1,20 @@
 # Roofline analysis (single-pod mesh) from the dry run's counts.
 #
-# The dry run (launch/dryrun.py) runs every step once on meta tensors under
-# a dispatch mode that sees every executed aten op: the layer loops, the
-# microbatches and the attention and CE chunks all run, so the counts are
-# totals as they stand. The JAX package corrects XLA's cost analysis, which
-# counts a while-loop body once, with probe compiles; nothing here needs a
-# probe.
+# The dry run (launch/dryrun.py) runs every step on the first device's
+# DTensor shards under a dispatch mode that sees every executed aten op and
+# collective. The LM cells are counted by probes (each layer loop at 1 and
+# 2 repeats, one microbatch, totals extrapolated), as the JAX package's
+# roofline corrects XLA's cost analysis; the kmeans-fraud iteration is
+# counted whole.
 #
 # Per device: compute_s = FLOPs / PEAK_FLOPS (the kmeans-fraud cell's
 # products are int64 ring matmuls with no tensor-core path: / RING_OPS),
-# memory_s = bytes / HBM_BW; the dominant term is the larger of the two. Collective bytes are not counted
-# (dryrun.COLLECTIVE_NOTE), so collective_s is null.
+# memory_s = bytes / HBM_BW, collective_s = link bytes / LINK_BW (an
+# all-reduce's result counted twice); the dominant term is the largest.
+# One link rate stands for every mesh axis, as the JAX package keeps one
+# ICI constant: the multi-pod mesh's 'pod' axis would cross a slower
+# network between pods, which neither package models. collective_s is null
+# only where the DTensor step raised (the record's `collective_error`).
 #
 #   PYTHONPATH=src python -m repro_torch.launch.roofline --out roofline.json
 
@@ -41,18 +45,26 @@ CHIPS = 256                  # single pod
 RING_OPS = 2 * 132 * 64 * 1.98e9 / 3     # ops/s / GPU
 
 
+def link_bytes_dev(rec: dict) -> float | None:
+    """A dry-run record's per-device link bytes; None where its DTensor step
+    raised (`collective_error`)."""
+    if "collective_error" in rec:
+        return None
+    return float(rec["collectives"]["link_bytes"])
+
+
 def corrected_totals(arch_id: str, shape_name: str, mesh,
                      cfg_base=None) -> dict:
-    """Per-device (flops, bytes, link_bytes) of one step, counted directly
-    (every loop runs, so no correction is needed). link_bytes_dev is None:
-    collectives are not counted."""
+    """Per-device (flops, bytes, link_bytes) of one step, from the dry
+    run's probes (`dryrun.lower_cell`)."""
     sh = SHAPES[shape_name]
     micro = dryrun.MICROBATCHES.get((arch_id, shape_name), 1) \
         if sh.kind == "train" else 1
     rec = dryrun.lower_cell(arch_id, shape_name, mesh, cfg=cfg_base)
     return {"flops_dev": rec["flops_per_device"],
             "bytes_dev": rec["bytes_per_device"],
-            "link_bytes_dev": None, "microbatches": micro}
+            "link_bytes_dev": link_bytes_dev(rec), "microbatches": micro,
+            "collective_error": rec.get("collective_error")}
 
 
 def model_flops(arch_id: str, shape_name: str, cfg_base=None) -> float:
@@ -83,31 +95,44 @@ def model_flops(arch_id: str, shape_name: str, cfg_base=None) -> float:
     return 2.0 * n * sh.global_batch          # decode: one token/seq
 
 
-def _terms(flops_dev: float, bytes_dev: float,
-           peak: float = PEAK_FLOPS) -> dict:
-    return {"compute": flops_dev / peak, "memory": bytes_dev / HBM_BW}
+def terms(flops_dev: float, bytes_dev: float, link_dev: float | None,
+          peak: float = PEAK_FLOPS) -> dict:
+    """{compute, memory, collective} seconds of one step on one device;
+    collective None without a link count."""
+    return {"compute": flops_dev / peak, "memory": bytes_dev / HBM_BW,
+            "collective": None if link_dev is None else link_dev / LINK_BW}
+
+
+def dominant(t: dict) -> str:
+    return max((k for k in t if t[k] is not None), key=t.get)
+
+
+def step_s(t: dict) -> float:
+    return max(v for v in t.values() if v is not None)
 
 
 def analyze_cell(arch_id: str, shape_name: str, mesh) -> dict:
     t0 = time.perf_counter()
     tot = corrected_totals(arch_id, shape_name, mesh)
-    terms = _terms(tot["flops_dev"], tot["bytes_dev"])
-    dominant = max(terms, key=terms.get)
-    step_s = max(terms.values())
+    t = terms(tot["flops_dev"], tot["bytes_dev"], tot["link_bytes_dev"])
+    step = step_s(t)
     mf = model_flops(arch_id, shape_name)
     mf_dev = mf / CHIPS
-    return {
+    rec = {
         "arch": arch_id, "shape": shape_name,
-        "compute_s": terms["compute"], "memory_s": terms["memory"],
-        "collective_s": None, "dominant": dominant,
-        "roofline_step_s": step_s,
+        "compute_s": t["compute"], "memory_s": t["memory"],
+        "collective_s": t["collective"], "dominant": dominant(t),
+        "roofline_step_s": step,
         "model_flops_global": mf,
         "hlo_flops_global": tot["flops_dev"] * CHIPS,
         "useful_ratio": mf_dev / max(tot["flops_dev"], 1.0),
-        "roofline_fraction": (mf_dev / PEAK_FLOPS) / max(step_s, 1e-12),
+        "roofline_fraction": (mf_dev / PEAK_FLOPS) / max(step, 1e-12),
         "microbatches": tot["microbatches"],
         "analysis_s": round(time.perf_counter() - t0, 1),
     }
+    if tot["collective_error"]:
+        rec["collective_error"] = tot["collective_error"]
+    return rec
 
 
 def kmeans_model_flops(k_arch) -> float:
@@ -124,17 +149,20 @@ def analyze_kmeans(mesh) -> dict:
     rec = dryrun.lower_kmeans_cell(mesh)
     f = rec["flops_per_device"]
     b = rec["bytes_per_device"]
-    terms = _terms(f, b, RING_OPS)
+    t = terms(f, b, link_bytes_dev(rec), RING_OPS)
     mf = kmeans_model_flops(K)
-    return {"arch": "kmeans-fraud", "shape": f"n{K.n}_d{K.d}_k{K.k}",
-            "compute_s": terms["compute"], "memory_s": terms["memory"],
-            "collective_s": None, "dominant": max(terms, key=terms.get),
-            "roofline_step_s": max(terms.values()),
-            "model_flops_global": mf, "hlo_flops_global": f * CHIPS,
-            "useful_ratio": (mf / CHIPS) / max(f, 1.0),
-            "roofline_fraction": (mf / CHIPS / RING_OPS)
-            / max(max(terms.values()), 1e-12),
-            "microbatches": 1, "status": "ok"}
+    out = {"arch": "kmeans-fraud", "shape": f"n{K.n}_d{K.d}_k{K.k}",
+           "compute_s": t["compute"], "memory_s": t["memory"],
+           "collective_s": t["collective"], "dominant": dominant(t),
+           "roofline_step_s": step_s(t),
+           "model_flops_global": mf, "hlo_flops_global": f * CHIPS,
+           "useful_ratio": (mf / CHIPS) / max(f, 1.0),
+           "roofline_fraction": (mf / CHIPS / RING_OPS)
+           / max(step_s(t), 1e-12),
+           "microbatches": 1, "status": "ok"}
+    if "collective_error" in rec:
+        out["collective_error"] = rec["collective_error"]
+    return out
 
 
 def main():
@@ -156,7 +184,10 @@ def main():
             rec = analyze_kmeans(mesh)
             rows.append(rec)
             print(f"[ok] kmeans-fraud: dominant={rec['dominant']} "
-                  f"step={rec['roofline_step_s']:.4f}s "
+                  f"step={rec['roofline_step_s']:.4g}s "
+                  f"compute={rec['compute_s']:.4g}s "
+                  f"memory={rec['memory_s']:.4g}s "
+                  f"collective={rec['collective_s']}s "
                   f"useful={rec['useful_ratio']:.3f}", flush=True)
         except Exception as e:
             rows.append({"arch": "kmeans-fraud", "shape": "-",
@@ -179,6 +210,7 @@ def main():
                 rows.append(rec)
                 print(f"[ok] {arch_id}/{shape_name}: dominant="
                       f"{rec['dominant']} step={rec['roofline_step_s']:.4f}s "
+                      f"collective={rec['collective_s']} "
                       f"useful={rec['useful_ratio']:.2f} "
                       f"roofline={rec['roofline_fraction']:.2%}", flush=True)
             except Exception as e:

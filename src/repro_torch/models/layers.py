@@ -79,12 +79,75 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
 # flash-chunked attention (causal / banded-local), GQA
 # ---------------------------------------------------------------------------
 
+def split_dims(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """x.reshape(shape) for a reshape that splits a dim of x (heads out of
+    a projection's width, KV groups out of the heads). A DTensor sharded on
+    the dim the reshape splits, over more devices than its first new dim
+    divides into (8 KV heads over 16), is gathered on that dim first:
+    DTensor cannot split it, where the JAX package's partitioner tiles the
+    split. A plain tensor is reshaped as it is."""
+    if type(x) is torch.Tensor:
+        return x.reshape(shape)
+    j = next((i for i, (a, b) in enumerate(zip(x.shape, shape))
+              if a != b), None)
+    if j is not None:
+        x = _gather_undivided(x, j, shape[j])
+    return x.reshape(shape)
+
+
+def merge_dims(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """x.reshape(shape) for a reshape that merges dims of x (heads into a
+    width, KV groups into the heads). Its backward splits the gradient's
+    merged dim: a DTensor gradient sharded there over more devices than
+    the first merged dim divides into (24 heads over 16) is gathered on
+    that dim first, as `split_dims` does going forward. A plain tensor is
+    reshaped as it is."""
+    y = x.reshape(shape)
+    if type(x) is torch.Tensor:
+        return y
+    j = next((i for i, (a, b) in enumerate(zip(x.shape, shape))
+              if a != b), None)
+    return y if j is None else _SplitGrad.apply(y, j, x.shape[j])
+
+
+class _SplitGrad(torch.autograd.Function):
+    """The identity, whose backward gathers the gradient's dim `j` where
+    its shards do not divide `lead` (`merge_dims`)."""
+
+    @staticmethod
+    def forward(ctx, y, j, lead):
+        ctx.j, ctx.lead = j, lead
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _gather_undivided(dy, ctx.j, ctx.lead), None, None
+
+
+def _gather_undivided(x: torch.Tensor, j: int, lead: int) -> torch.Tensor:
+    """A DTensor x replicated on dim j where the devices its shards span
+    do not divide `lead`; anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    mesh, pl = x.device_mesh, list(x.placements)
+    on_j = [i for i, q in enumerate(pl) if isinstance(q, Shard) and q.dim == j]
+    ways = 1
+    for i in on_j:
+        ways *= mesh.size(i)
+    if lead % ways == 0:
+        return x
+    for i in on_j:
+        pl[i] = Replicate()
+    return x.redistribute(mesh, pl)
+
+
 def _attn_chunk(q, k, v, mask, scale, cap):
     """q (B,Tq,H,Dk) k (B,Tk,Hkv,Dk) v (B,Tk,Hkv,Dv) mask (Tq,Tk)."""
     b, tq, h, dk = q.shape
     hkv = k.shape[2]
     g = h // hkv
-    qf = q.to(F32).reshape(b, tq, hkv, g, dk)
+    qf = split_dims(q.to(F32), b, tq, hkv, g, dk)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(F32)) * scale
     s = softcap(s, cap)
     s = torch.where(mask[None, None, None], s, -1e30)
@@ -156,7 +219,7 @@ def flash_attention(q, k, v, *, causal: bool, window: int | None,
         o_run = o_run * a[..., None] + o_c * bb[..., None]
         m_run = m_new
     o = o_run / torch.clamp(l_run, min=1e-30)[..., None]
-    out = o.permute(0, 3, 1, 2, 4).reshape(b, tq, h, dv)
+    out = merge_dims(o.permute(0, 3, 1, 2, 4), b, tq, h, dv)
     return out.to(q.dtype)
 
 
@@ -169,14 +232,14 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, causal: bool,
     """x (B,T,D) -> (B,T,D). p: wq (D,H*Dh), wk/wv (D,Hkv*Dh), wo (H*Dh,D)."""
     b, t, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, t, h, dh)
-    k = (x @ p["wk"]).reshape(b, t, hkv, dh)
-    v = (x @ p["wv"]).reshape(b, t, hkv, dh)
+    q = split_dims(x @ p["wq"], b, t, h, dh)
+    k = split_dims(x @ p["wk"], b, t, hkv, dh)
+    v = split_dims(x @ p["wv"], b, t, hkv, dh)
     cos, sin = rope_freqs(positions, dh, cfg.rope_theta)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     o = flash_attention(q, k, v, causal=causal, window=window,
                         scale=1.0 / np.sqrt(dh), cap=cfg.attn_softcap)
-    return o.reshape(b, t, h * dh) @ p["wo"]
+    return merge_dims(o, b, t, h * dh) @ p["wo"]
 
 
 def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -189,12 +252,12 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     h = cfg.n_heads
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["wq_b"]).reshape(b, t, h, dn + dr)
+    q = split_dims(cq @ p["wq_b"], b, t, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     ckv_full = x @ p["wkv_a"]                       # (B,T,kv_lora+dr)
     ckv = rms_norm(ckv_full[..., :cfg.kv_lora], p["kv_norm"], cfg.norm_eps)
-    k_rope = ckv_full[..., cfg.kv_lora:].reshape(b, t, 1, dr)
-    kv = (ckv @ p["wkv_b"]).reshape(b, t, h, dn + dv)
+    k_rope = split_dims(ckv_full[..., cfg.kv_lora:], b, t, 1, dr)
+    kv = split_dims(ckv @ p["wkv_b"], b, t, h, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     cos, sin = rope_freqs(positions, dr, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
@@ -203,19 +266,19 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     k_full = torch.cat([k_nope, k_rope], -1)
     o = flash_attention(q_full, k_full, v, causal=True, window=None,
                         scale=1.0 / np.sqrt(dn + dr), cap=None)
-    return o.reshape(b, t, h * dv) @ p["wo"]
+    return merge_dims(o, b, t, h * dv) @ p["wo"]
 
 
 def cross_attention(p: dict, x: torch.Tensor, enc: torch.Tensor,
                     cfg: ModelConfig) -> torch.Tensor:
     b, t, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, t, h, dh)
-    k = (enc @ p["wk"]).reshape(b, enc.shape[1], hkv, dh)
-    v = (enc @ p["wv"]).reshape(b, enc.shape[1], hkv, dh)
+    q = split_dims(x @ p["wq"], b, t, h, dh)
+    k = split_dims(enc @ p["wk"], b, enc.shape[1], hkv, dh)
+    v = split_dims(enc @ p["wv"], b, enc.shape[1], hkv, dh)
     o = flash_attention(q, k, v, causal=False, window=None,
                         scale=1.0 / np.sqrt(dh), cap=None)
-    return o.reshape(b, t, h * dh) @ p["wo"]
+    return merge_dims(o, b, t, h * dh) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -297,6 +360,65 @@ def _router(p: dict, xf: torch.Tensor, cfg: ModelConfig):
     return gate, ids
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered into the whole tensor (a plain one on every
+    device); a plain tensor as it is. The dispatch's index bookkeeping
+    (sort, searchsorted, scatter) has no DTensor sharding strategy, and a
+    sort over all tokens needs all of them, as the JAX package's
+    partitioner gathers them too."""
+    if type(t) is torch.Tensor:
+        return t
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _expert_ffn(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The experts' GLU on dispatched tokens h (G, E, C, D) -> (G, E, C, D).
+
+    A DTensor step runs it expert-parallel on the local shards: h is laid
+    out with G over the activation batch axes (`cfg.act_axes`) and E over
+    'model' (unless G took it) where they divide, each weight is gathered
+    to whole experts sharded as E is, and the einsums run on the local
+    tensors. The weights' gradients are partial sums over the batch axes,
+    reduced to their own layout by DTensor. Left to DTensor's own einsum
+    strategies the step kept every block and expert on each device, then
+    viewed a local shard by permuted global strides, which failed."""
+    w = (p["w_gate"], p["w_up"], p["w_down"])
+    if type(h) is torch.Tensor:
+        return _glu_experts(h, *w, cfg.act)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(h, DTensor):
+        return _glu_experts(h, *w, cfg.act)
+    mesh = h.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    n_g = 1
+    for a in cfg.act_axes:
+        n_g *= mesh.size(names.index(a))
+    g_on = set(cfg.act_axes) if cfg.act_axes and h.shape[0] % n_g == 0 \
+        else set()
+    # experts over 'model' unless the batch took it (pure FSDP)
+    e_on = {"model"} if "model" in names and "model" not in g_on \
+        and h.shape[1] % mesh.size(names.index("model")) == 0 else set()
+    h_pl = [Shard(0) if a in g_on else Shard(1) if a in e_on
+            else Replicate() for a in names]
+    w_pl = [Shard(0) if a in e_on else Replicate() for a in names]
+    w_grad = [Partial() if a in g_on else q for a, q in zip(names, w_pl)]
+    hl = h.redistribute(mesh, h_pl).to_local()
+    wl = [x.redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
+          for x in w]
+    # the einsums leave their result experts-major; the DTensor is
+    # described row-major, and DTensor views the local tensor by that
+    out = _glu_experts(hl, *wl, cfg.act).contiguous()
+    return DTensor.from_local(out, mesh, h_pl, shape=h.shape,
+                              stride=h.stride())
+
+
+def _glu_experts(h, w_gate, w_up, w_down, act: str) -> torch.Tensor:
+    gh = act_fn(act)(torch.einsum("gecd,edf->gecf", h, w_gate))
+    uh = torch.einsum("gecd,edf->gecf", h, w_up)
+    return torch.einsum("gecf,efd->gecd", gh * uh, w_down)
+
+
 def _moe_tokens(p: dict, xf: torch.Tensor, cfg: ModelConfig,
                 cap: int) -> torch.Tensor:
     """Sort-based dispatch of G independent (N, D) token blocks, batched:
@@ -306,7 +428,7 @@ def _moe_tokens(p: dict, xf: torch.Tensor, cfg: ModelConfig,
     ep = p["w_gate"].shape[-3]           # padded expert count (EP-divisible)
     dev = xf.device
     gate, ids = _router(p, xf, cfg)
-    ids_f = ids.reshape(g, n * k)                              # (G, N*K)
+    ids_f = _whole(ids.reshape(g, n * k))                      # (G, N*K)
     order = torch.argsort(ids_f, dim=-1, stable=True)
     ids_s = torch.gather(ids_f, 1, order)
     tok_s = torch.div(order, k, rounding_mode="floor")         # token of entry
@@ -336,9 +458,7 @@ def _moe_tokens(p: dict, xf: torch.Tensor, cfg: ModelConfig,
     h = h.reshape(g, ep, cap, d)
     # expert FFN: (E,C,D) x (E,D,F); pad experts (>= e) receive no tokens,
     # only the zero rows
-    gh = act_fn(cfg.act)(torch.einsum("gecd,edf->gecf", h, p["w_gate"]))
-    uh = torch.einsum("gecd,edf->gecf", h, p["w_up"])
-    oh = torch.einsum("gecf,efd->gecd", gh * uh, p["w_down"])
+    oh = _expert_ffn(p, h, cfg)
     contrib = _GatherRows.apply(oh.reshape(g, slots, d), entry_slot,
                                 slot_entry[..., None])        # (G, N*K, D)
     contrib = contrib * gate.reshape(g, n * k)[..., None].to(xf.dtype)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
 
 F32 = torch.float32
 RG_LRU_C = 8.0
@@ -54,11 +55,11 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     h = d // dh
     prev_tok = state[0] if state is not None else None
     xm = _token_shift(x, p["mix_rkvw"], prev_tok)
-    r = (xm @ p["wr"]).reshape(b, t, h, dh)
-    k = (xm @ p["wk"]).reshape(b, t, h, dh)
-    v = (xm @ p["wv"]).reshape(b, t, h, dh)
+    r = L.split_dims(xm @ p["wr"], b, t, h, dh)
+    k = L.split_dims(xm @ p["wk"], b, t, h, dh)
+    v = L.split_dims(xm @ p["wv"], b, t, h, dh)
     g = F.silu(xm @ p["wg"])
-    w = _decay(p, xm).reshape(b, t, h, dh)
+    w = L.split_dims(_decay(p, xm), b, t, h, dh)
     u = p["u_bonus"].reshape(h, dh).to(F32)
 
     s = state[1] if state is not None else torch.zeros(

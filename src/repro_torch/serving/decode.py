@@ -92,7 +92,8 @@ def _attend_cache(q, k, v, mask, scale, cap):
     hkv = k.shape[2]
     g = h // hkv
     s = torch.einsum("bqhgd,bkhd->bhgqk",
-                     q.to(F32).reshape(b, 1, hkv, g, dh), k.to(F32)) * scale
+                     L.split_dims(q.to(F32), b, 1, hkv, g, dh),
+                     k.to(F32)) * scale
     s = L.softcap(s, cap)
     s = torch.where(mask[:, None, None, None, :], s, -1e30)
     p = torch.softmax(s, dim=-1)
@@ -110,9 +111,9 @@ def _rope_at(pos: int, dim: int, theta: float, device):
 def _decode_gqa(p, cache, x, cfg, pos: int, *, window=None):
     b = x.shape[0]
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, 1, h, dh)
-    k = (x @ p["wk"]).reshape(b, 1, hkv, dh)
-    v = (x @ p["wv"]).reshape(b, 1, hkv, dh)
+    q = L.split_dims(x @ p["wq"], b, 1, h, dh)
+    k = L.split_dims(x @ p["wk"], b, 1, hkv, dh)
+    v = L.split_dims(x @ p["wv"], b, 1, hkv, dh)
     cos, sin = _rope_at(pos, dh, cfg.rope_theta, x.device)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
@@ -140,7 +141,7 @@ def _decode_mla(p, cache, x, cfg, pos: int):
     h = cfg.n_heads
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     cq = L.rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["wq_b"]).reshape(b, 1, h, dn + dr)
+    q = L.split_dims(cq @ p["wq_b"], b, 1, h, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     cos, sin = _rope_at(pos, dr, cfg.rope_theta, x.device)
     q_pe = L.apply_rope(q_pe, cos, sin)
@@ -152,7 +153,7 @@ def _decode_mla(p, cache, x, cfg, pos: int):
     s_max = ckv_c.shape[1]
     ckv_c[:, pos] = ckv.reshape(b, -1)
     kpe_c[:, pos] = kpe.reshape(b, -1)
-    wkv_b = p["wkv_b"].reshape(cfg.kv_lora, h, dn + dv)
+    wkv_b = L.split_dims(p["wkv_b"], cfg.kv_lora, h, dn + dv)
     w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
     q_eff = torch.einsum("bhd,khd->bhk", q_nope[:, 0].to(F32),
                          w_uk.to(F32))                       # (B,H,kv_lora)
@@ -172,11 +173,11 @@ def _decode_rwkv_tm(p, cache_s, prev, x, cfg):
     dh = cfg.rwkv_head_dim
     h = d // dh
     xm = x + (prev - x) * p["mix_rkvw"].to(x.dtype)
-    r = (xm @ p["wr"]).reshape(b, h, dh).to(F32)
-    k = (xm @ p["wk"]).reshape(b, h, dh).to(F32)
-    v = (xm @ p["wv"]).reshape(b, h, dh).to(F32)
+    r = L.split_dims(xm @ p["wr"], b, h, dh).to(F32)
+    k = L.split_dims(xm @ p["wk"], b, h, dh).to(F32)
+    v = L.split_dims(xm @ p["wv"], b, h, dh).to(F32)
     g = torch.nn.functional.silu(xm @ p["wg"])
-    w = R._decay(p, xm).reshape(b, h, dh)
+    w = L.split_dims(R._decay(p, xm), b, h, dh)
     u = p["u_bonus"].reshape(h, dh).to(F32)
     y = torch.einsum("bhk,bhkv->bhv", r, cache_s) \
         + torch.einsum("bhk,bhk->bh", r, u[None] * k)[..., None] * v
@@ -200,7 +201,7 @@ def decode_block(kind, p, cache, x, cfg, pos: int, enc=None):
             h = M._norm(p, "ln3", x, cfg)
             b = x.shape[0]
             hh, dh = cfg.n_heads, cfg.head_dim
-            q = (h @ p["xq"]).reshape(b, 1, hh, dh)
+            q = L.split_dims(h @ p["xq"], b, 1, hh, dh)
             mask = torch.ones((b, cache["xk"].shape[1]), dtype=torch.bool,
                               device=x.device)
             o = _attend_cache(q, cache["xk"], cache["xv"], mask,

@@ -3,7 +3,8 @@ and its skip records, the microbatch and moment tables, every input spec,
 the analytic model FLOPs (float for float), and one laid-out and counted
 cell each of train, prefill and decode on a fake (2, 2) mesh (in a child
 process) whose argument bytes are the sum over the reference's shard
-shapes."""
+shapes, with the collectives and peak the DTensor step records, and the
+probes' extrapolation against a full count."""
 import json
 import os
 import subprocess
@@ -127,12 +128,10 @@ _CELLS = [("granite-34b", "train_4k"), ("granite-34b", "prefill_32k"),
 
 _LOWER_CHILD = """
 import json
-from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.configs.base import all_archs
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import ensure_fake_group
-ensure_fake_group(4)
-mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+from repro_torch.launch.mesh import make_fake_mesh
+mesh = make_fake_mesh((2, 2), ("data", "model"))
 out = {}
 for arch_id, shape in %r:
     rec = dryrun.lower_cell(arch_id, shape, mesh,
@@ -197,8 +196,18 @@ def test_lower_cell_records(lowered, cell, tmp_path):
     assert rec["status"] == "ok" and rec["mesh"] == "2x2"
     assert (rec["arch"], rec["shape"]) == cell
     assert rec["flops_per_device"] > 0 and rec["bytes_per_device"] > 0
-    assert rec["compile_s"] >= 0 and "collective" in rec["collective_note"]
-    assert rec["memory"]["argument_size_in_bytes"] == _ref_arg_bytes(*cell)
+    assert rec["compile_s"] >= 0 and rec["count_basis"] == "per-device"
+    assert "collective_error" not in rec
+    assert set(rec["collectives"]) == {
+        "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+        "collective-permute", "link_bytes"}
+    assert rec["collectives"]["link_bytes"] == dryrun.link_bytes(
+        rec["collectives"]) > 0
+    assert rec["probes"]["microbatches"] == dryrun.MICROBATCHES.get(cell, 1)
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == _ref_arg_bytes(*cell)
+    assert mem["peak_memory_in_bytes"] == mem["argument_size_in_bytes"] \
+        + mem["temp_size_in_bytes"] > mem["argument_size_in_bytes"]
     path = tmp_path / "dryrun.json"
     path.write_text(json.dumps([rec]))
     table = dryrun_table(str(path))
@@ -227,33 +236,169 @@ def test_cli_writes_a_trailing_skip_record(module, tmp_path):
 
 _PERF_CHILD = """
 import json
-from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.launch import perf
-from repro_torch.launch.mesh import ensure_fake_group
-ensure_fake_group(4)
-perf.MESH = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+from repro_torch.launch.mesh import make_fake_mesh
+perf.MESH = make_fake_mesh((2, 2), ("data", "model"))
 out = {mode: perf.measure_lm("granite-34b", "decode_32k", sharding_mode=mode)
-       for mode in ("2d", "repl_act")}
+       for mode in ("2d", "fsdp")}
 out["kmeans"] = perf.measure_kmeans(sparse=True, fuse=True)
 print(json.dumps(out))
 """
 
 
 def test_perf_terms_only_where_the_counts_can_move():
-    """A variant that changes only the sharding mode reports its argument
-    bytes, and no step terms: the counts are global/chips and would equal
-    the 2d baseline's. The kmeans-fraud cell's counted operations are
-    int64 ring products, timed at the ring rate, not the bf16 one."""
+    """A variant that changes only the sharding mode reports its own step
+    terms: the step runs on the first device's DTensor shards, so the mode
+    moves the argument bytes and the collectives. The kmeans-fraud cell's
+    counted operations are int64 ring products, timed at the ring rate,
+    not the bf16 one."""
     out = run_child(_PERF_CHILD, timeout=600)
-    base, mode = out["2d"], out["repl_act"]
-    assert base["step_s"] > 0 and base["dominant"] in ("compute_s",
-                                                       "memory_s")
-    assert "not_modelled" not in base
-    for key in ("flops_dev", "bytes_dev", "useful_ratio", "compute_s",
-                "memory_s", "step_s", "dominant", "roofline_fraction"):
-        assert mode[key] is None, key
-    assert "global/chips" in mode["not_modelled"]
-    assert mode["argument_bytes_dev"] > 0
+    base, mode = out["2d"], out["fsdp"]
+    for rec in (base, mode):
+        assert rec["step_s"] > 0 and "not_modelled" not in rec
+        assert rec["dominant"] in ("compute_s", "memory_s", "collective_s")
+        assert rec["collective_s"] == rec["link_dev"] / roofline.LINK_BW > 0
+        assert rec["step_s"] == max(rec["compute_s"], rec["memory_s"],
+                                    rec["collective_s"])
+    assert mode["argument_bytes_dev"] != base["argument_bytes_dev"]
+    assert mode["collective_s"] != base["collective_s"]
     km = out["kmeans"]
     assert km["compute_s"] == km["flops_dev"] / roofline.RING_OPS
+    assert km["collective_s"] == km["link_dev"] / roofline.LINK_BW > 0
     assert roofline.RING_OPS == 2 * 132 * 64 * 1.98e9 / 3
+
+
+_PROBE_CHILD = """
+import dataclasses, json
+from repro_torch.configs.base import ScanGroup, all_archs
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_fake_mesh
+mesh = make_fake_mesh((2, 2), ("data", "model"))
+cfg = all_archs()["granite-34b"].reduced
+cfg = dataclasses.replace(cfg, groups=tuple(ScanGroup(g.unit, 3)
+                                            for g in cfg.groups))
+out = {}
+for shape in ("train_4k", "decode_32k"):
+    probed = dryrun.lower_cell("granite-34b", shape, mesh, cfg=cfg)
+    full = dryrun.cell_config("granite-34b", shape, mesh, cfg=cfg)
+    step, args, shardings = dryrun.cell_program(
+        "granite-34b", shape, mesh, full, global_batch=None,
+        sharding_mode="2d", micro=dryrun.MICROBATCHES.get(
+            ("granite-34b", shape), 1) if shape == "train_4k" else None)
+    out[shape] = [probed, dryrun.analyze(dryrun.count_on_mesh(
+        step, args, shardings, 4))]
+print(json.dumps(out))
+"""
+
+
+def test_probes_extrapolate_to_the_full_count():
+    """Every layer of a loop does the same work: the FLOPs and the peak the
+    probes extrapolate (each loop at 1 and 2 repeats) equal those of the
+    step run with all three layers. The bytes and collectives agree to a
+    relative 1e-5: the backward of slicing a stacked (R, ...) parameter
+    writes and reduces a whole (R, ...) gradient per layer, which grows as
+    R^2, and a straight line through 1 and 2 repeats misses that (2e-7 of
+    the train step's bytes, 5e-6 of its reduce-scatter here)."""
+    out = run_child(_PROBE_CHILD, timeout=600)
+    for shape, (probed, full) in out.items():
+        assert probed["probes"]["group_repeats"] == [[1], [2]]
+        assert "probes" not in full
+        assert probed["flops_per_device"] == full["flops_per_device"]
+        assert probed["memory"] == full["memory"], shape
+        assert probed["bytes_per_device"] == pytest.approx(
+            full["bytes_per_device"], rel=1e-5)
+        assert probed["collectives"] == pytest.approx(full["collectives"],
+                                                      rel=1e-5)
+        assert probed["collectives"]["link_bytes"] > 0
+
+
+_POD_PROBE_CHILD = """
+import dataclasses, json
+from repro_torch.configs.base import ScanGroup, all_archs
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_fake_mesh
+arch = %r
+mesh = make_fake_mesh((2, 2, 2), ("pod", "data", "model"))
+cfg = all_archs()[arch].reduced
+kw = {"groups": tuple(ScanGroup(g.unit, 3) for g in cfg.groups)}
+if cfg.enc_dec:
+    kw["n_enc_layers"] = 3
+cfg = dataclasses.replace(cfg, **kw)
+probed = dryrun.lower_cell(arch, "train_4k", mesh, cfg=cfg, global_batch=16)
+pod = mesh["data", "model"]
+full = dryrun.cell_config(arch, "train_4k", pod, cfg=cfg, global_batch=8)
+step, args, shardings = dryrun.cell_program(
+    arch, "train_4k", pod, full, micro=1, global_batch=8, sharding_mode="2d")
+print(json.dumps([probed, dryrun.analyze(dryrun.count_on_mesh(
+    step, args, shardings, 4))]))
+"""
+
+
+@pytest.mark.parametrize("arch_id", ["recurrentgemma-2b",
+                                     "seamless-m4t-medium"])
+def test_pod_mesh_probes_match_a_full_count(arch_id):
+    """On a (pod=2, data=2, model=2) mesh a train cell is counted on the
+    first pod's (2, 2) mesh at half the batch, by probes over every loop
+    (the recurrent arch's layer group; the encoder-decoder's decoder group
+    and encoder, each at 3 layers), plus one all-reduce over 'pod' of the
+    gradient shards. Against the step run whole on the pod's mesh: the
+    FLOPs are equal; the bytes and collectives agree to a relative 1e-5
+    (the R^2 term of `test_probes_extrapolate_to_the_full_count`) once the
+    pod's all-reduce is added; the peak, a high-water mark and not a sum,
+    to 1e-3 (the encoder-decoder's probes miss 2 MiB of 2.3 GB)."""
+    probed, full = run_child(_POD_PROBE_CHILD % arch_id, timeout=300)
+    pod = probed["pod"]
+    assert pod["pods"] == 2 and pod["counted_on"] == "2x2"
+    assert pod["probe_global_batch_per_pod"] == 8
+    grad = pod["grad_all_reduce_bytes"]
+    assert grad > 0 and probed["count_basis"] == "per-device"
+    assert probed["flops_per_device"] == full["flops_per_device"]
+    assert probed["bytes_per_device"] == pytest.approx(
+        full["bytes_per_device"] + 2 * grad, rel=1e-5)
+    want = dict(full["collectives"])
+    want["all-reduce"] += grad
+    want["link_bytes"] += 2 * grad
+    assert probed["collectives"] == pytest.approx(want, rel=1e-5)
+    mem, fmem = probed["memory"], full["memory"]
+    assert mem["argument_size_in_bytes"] == fmem["argument_size_in_bytes"]
+    assert mem["peak_memory_in_bytes"] == pytest.approx(
+        fmem["peak_memory_in_bytes"], rel=1e-3)
+
+
+_POD_MESH_CHILD = """
+import json
+from repro_torch.configs.base import all_archs
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_fake_mesh
+mesh = make_fake_mesh((2, 2, 2), ("pod", "data", "model"))
+cfg = all_archs()["recurrentgemma-2b"].reduced
+probed = dryrun.lower_cell("recurrentgemma-2b", "train_4k", mesh, cfg=cfg,
+                           global_batch=16)
+full = dryrun.cell_config("recurrentgemma-2b", "train_4k", mesh, cfg=cfg,
+                          global_batch=16)
+step, args, shardings = dryrun.cell_program(
+    "recurrentgemma-2b", "train_4k", mesh, full, micro=1, global_batch=16,
+    sharding_mode="2d")
+print(json.dumps([probed, dryrun.analyze(dryrun.count_on_mesh(
+    step, args, shardings, 8))]))
+"""
+
+
+def test_pod_mesh_count_matches_the_three_axis_step():
+    """The pod-as-data-parallel count against the step run on the whole
+    (2, 2, 2) mesh: the same FLOPs, argument bytes, all-gathers,
+    reduce-scatters and all-to-alls. DTensor on three axes all-reduces
+    more over 'pod' (it reduces a partial sum one mesh axis at a time,
+    and its sums over 'pod' come before the reduce-scatter over 'data'),
+    so its all-reduce is at least the pod count's, which all-reduces the
+    gradient shards once."""
+    probed, full = run_child(_POD_MESH_CHILD, timeout=300)
+    assert probed["pod"]["counted_on"] == "2x2"
+    assert probed["flops_per_device"] == full["flops_per_device"]
+    assert probed["memory"]["argument_size_in_bytes"] \
+        == full["memory"]["argument_size_in_bytes"]
+    for kind in ("all-gather", "reduce-scatter", "all-to-all",
+                 "collective-permute"):
+        assert probed["collectives"][kind] == full["collectives"][kind], kind
+    assert full["collectives"]["all-reduce"] \
+        >= probed["collectives"]["all-reduce"] > 0
