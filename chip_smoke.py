@@ -179,13 +179,17 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      versions and timed at each of its shapes and layouts; 10c
      `python -m repro_torch.launch.dryrun --kmeans`, `--arch
      granite-moe-3b-a800m --shape train_4k --mesh single`, the same arch's
-     decode_32k, and `python -m repro_torch.launch.roofline --arch
-     kmeans-fraud`, each a CPU process
+     decode_32k, `python -m repro_torch.launch.roofline --arch
+     kmeans-fraud` and `python -m repro_torch.launch.dryrun --tp-ratios`
+     (every reduced config's train_4k at global batch 2 on a fake (2, 4)
+     mesh), each a CPU process
      started when the phase starts: exit 0, no error record, no
      `collective_error`, no CUDA context, the kmeans-fraud cell's
      collectives on both meshes and the roofline's three terms printed
-     (a float collective term), and their records formatted by
-     benchmarks/report.py; 10d
+     (a float collective term), their records formatted by
+     benchmarks/report.py, and each arch's replication ratio printed and
+     at most its bound (1.10, or the JAX package's own ratio where that
+     is higher); 10d
      `launch/mesh.py:make_dev_mesh()` on the card, a reduced config's tree
      placed by `param_shardings` with every local shape and word its
      global one. It prints one `KMEANS_CELL {...}` line and its seconds;
@@ -3752,7 +3756,11 @@ KF_PLAN_CMDS = {
                           "granite-moe-3b-a800m", "--shape", "decode_32k",
                           "--mesh", "single"],
     "roofline_kmeans": ["-m", "repro_torch.launch.roofline", "--arch",
-                        "kmeans-fraud"]}
+                        "kmeans-fraud"],
+    # every reduced config's train step on a fake (2, 4) mesh: the work a
+    # device repeats over 'model', against its bound (exit 1 above it)
+    "dryrun_tp_ratios": ["-m", "repro_torch.launch.dryrun", "--tp-ratios",
+                         "--shape", "train_4k", "--batches", "2"]}
 
 
 def kf_data(gen, n: int, d: int, k: int, sparsity: float = 0.0):
@@ -4212,6 +4220,9 @@ def kf_plans_check(procs: dict) -> dict:
                or "collective_error" in r]
         if bad or not recs:
             fail(f"10c: {name}: {len(recs)} records, errors {bad}")
+        if name == "dryrun_tp_ratios":
+            summary["tp_ratios"] = kf_tp_ratios(recs, last)
+            continue
         table = (roofline_table if name.startswith("roofline")
                  else dryrun_table)(str(path))
         print(f"10c: {name}: {last}", flush=True)
@@ -4239,9 +4250,29 @@ def kf_plans_check(procs: dict) -> dict:
                       f"({r['mesh']}), bytes a device: {json.dumps(coll)}",
                       flush=True)
     if set(summary) != {"roofline", "collectives_single",
-                        "collectives_multi"}:
+                        "collectives_multi", "tp_ratios"}:
         fail(f"10c: kmeans-fraud records missing: {sorted(summary)}")
     return summary
+
+
+def kf_tp_ratios(recs: list, last: str) -> dict:
+    """10c: `dryrun --tp-ratios`' records: every arch's reduced train_4k
+    at global batch 2 on a fake (data=2, model=4) mesh, counted per device
+    with its collectives, its ratio (the first device's FLOPs times 8 over
+    the step's global FLOPs) at most its bound. Prints each arch's ratio;
+    returns {arch: ratio}."""
+    from repro_torch.launch.dryrun import tp_ratio_fails
+    ratios = {}
+    for r in recs:
+        print(f"10c: tp ratio {r['arch']} {r['shape']} gb "
+              f"{r['global_batch']} on {r['mesh']}: "
+              f"{r['ratio'] or float('nan'):.4f} "
+              f"(bound {r['bound']:.2f}, {r['count_basis']})", flush=True)
+        if tp_ratio_fails(r):
+            fail(f"10c: {r['arch']} repeats work over 'model': {r}")
+        ratios[r["arch"]] = r["ratio"]
+    print(f"10c: dryrun_tp_ratios: {last}", flush=True)
+    return ratios
 
 
 def kf_dev_mesh() -> int:

@@ -286,13 +286,20 @@ def count_on_mesh(fn, args: tuple, shardings: tuple, chips: int, *,
     (or basis="global/chips" asks for it), the step is counted once on the
     global tensors and divided over `chips`, and the result carries
     `collective_error` (when it raised). Returns the cost dict of
-    `count_cost` with `argument_bytes` and `count_basis`."""
+    `count_cost` with `argument_bytes` and `count_basis`.
+
+    The first device's tensor-parallel regions take the last 'model'
+    coordinate (`models/tp.py:as_last_rank`): only the query-sequence
+    split's work depends on it, and the last rank's blocks hold no
+    sequence start, so a local window masks none of their keys."""
+    from repro_torch.models import tp
     placed = tuple(place(a, s) for a, s in zip(args, shardings))
     arg_bytes = local_bytes(placed)
     error = None
     if basis is None:
         try:
-            cost = count_cost(fn, *placed)
+            with tp.as_last_rank():
+                cost = count_cost(fn, *placed)
             cost.update(count_basis="per-device",
                         argument_bytes=arg_bytes)
             return cost
@@ -572,7 +579,11 @@ def lower_cell(arch_id: str, shape_name: str, mesh, *, cfg=None,
     the same FLOPs, but a batch sharded over two axes turns into
     `_StridedShard` placements, whose redistributions DTensor plans by a
     graph search, and a cell took up to half an hour. A batch that does
-    not split over the pods (one sequence) runs on the whole mesh."""
+    not split over the pods (one sequence) runs on the whole mesh.
+
+    A record counted per device has `replication`: its FLOPs over the
+    same probes counted once on global tensors and divided over the
+    counted mesh's chips, 1 where no device repeats another's work."""
     sh = SHAPES[shape_name]
     t0 = time.perf_counter()
     gb = global_batch or sh.global_batch
@@ -605,6 +616,12 @@ def lower_cell(arch_id: str, shape_name: str, mesh, *, cfg=None,
     args = placed_arguments(arch_id, shape_name, mesh, full, micro, gb,
                             sharding_mode)
     tot = _extrapolate(costs, full, m)
+    flat = None
+    if failed is None:
+        flat = _extrapolate([
+            _cell_cost(arch_id, shape_name, count_mesh, c, pmicro, pgb,
+                       sharding_mode, basis="global/chips")
+            for c in cfgs], full, m)
     cost = {"flops": tot["flops"], "bytes": tot["bytes"],
             "peak": args + tot["temp"], "argument_bytes": args,
             "count_basis": costs[0]["count_basis"]}
@@ -636,6 +653,8 @@ def lower_cell(arch_id: str, shape_name: str, mesh, *, cfg=None,
         rec["pod"] = pod
     if "top_ops" in costs[0]:
         rec["top_ops"] = costs[0]["top_ops"]
+    if flat is not None:
+        rec["replication"] = tot["flops"] / flat["flops"]
     rec.update(arch=arch_id, shape=shape_name, mesh=_mesh_label(mesh),
                status="ok", compile_s=round(time.perf_counter() - t0, 1))
     return rec
@@ -701,6 +720,59 @@ def lower_kmeans_cell(mesh) -> dict:
     return rec
 
 
+# The tensor-parallel check (`--tp-ratios`): every arch's reduced config on
+# a small fake mesh, where a device that repeats no other's work reads a
+# ratio of 1 and one that repeats it on every 'model' rank reads 4.
+TP_MESH = (2, 4)
+TP_RATIO_BOUND = 1.10
+# the JAX package's own ratio on that mesh where it is above the bound (the
+# recurrent archs, whose scans' elementwise work XLA's cost analysis counts
+# as FLOPs and FlopCounterMode does not), the smaller of its readings at
+# global batch 2 and 8
+REFERENCE_RATIOS = {("recurrentgemma-2b", "train_4k"): 1.33,
+                    ("recurrentgemma-2b", "prefill_32k"): 1.32,
+                    ("rwkv6-1.6b", "train_4k"): 1.22,
+                    ("rwkv6-1.6b", "prefill_32k"): 1.22}
+
+
+def replication(arch_id: str, shape_name: str, mesh,
+                global_batch: int) -> dict:
+    """The work a device repeats, for the arch's reduced config on `mesh`
+    in the 2D mode at one microbatch: `ratio` is `lower_cell`'s
+    `replication`, beside its `bound` (TP_RATIO_BOUND or the JAX package's
+    own ratio where that is higher)."""
+    cell = lower_cell(arch_id, shape_name, mesh,
+                      cfg=all_archs()[arch_id].reduced, micro=1,
+                      global_batch=global_batch)
+    rec = {"arch": arch_id, "shape": shape_name,
+           "global_batch": global_batch, "mesh": _mesh_label(mesh),
+           "ratio": cell.get("replication"),
+           "bound": max(TP_RATIO_BOUND,
+                        REFERENCE_RATIOS.get((arch_id, shape_name), 0.0)),
+           "count_basis": cell["count_basis"],
+           "link_bytes": cell.get("collectives", {}).get("link_bytes"),
+           "top_ops": cell.get("top_ops", [])[:3]}
+    if "collective_error" in cell:
+        rec["collective_error"] = cell["collective_error"]
+    return rec
+
+
+def tp_ratios(shapes, batches) -> list:
+    """`replication` of every arch on the fake TP_MESH for each of
+    `shapes` and `batches` (skipped shapes left out)."""
+    from repro_torch.launch.mesh import make_fake_mesh
+    mesh = make_fake_mesh(TP_MESH, ("data", "model"))
+    return [replication(arch_id, shape, mesh, gb)
+            for arch_id, spec in all_archs().items() for shape in shapes
+            if shape not in spec.skip_shapes for gb in batches]
+
+
+def tp_ratio_fails(rec: dict) -> bool:
+    """A `replication` record above its bound or not counted per device."""
+    return rec["count_basis"] != "per-device" \
+        or "collective_error" in rec or rec["ratio"] > rec["bound"]
+
+
 def ok_line(rec: dict) -> str:
     """One record's printed summary; a record counted on the global basis
     names it and the op that stopped the DTensor step."""
@@ -712,7 +784,10 @@ def ok_line(rec: dict) -> str:
             f"peak/dev {mem['peak_memory_in_bytes']:.3g}")
     if "collective_error" in rec:
         return line + f", no collectives: {rec['collective_error'][:160]}"
-    return line + f", link/dev {rec['collectives']['link_bytes']:.3g}"
+    line += f", link/dev {rec['collectives']['link_bytes']:.3g}"
+    if "replication" in rec:
+        line += f", replication {rec['replication']:.4f}"
+    return line
 
 
 def main():
@@ -723,9 +798,17 @@ def main():
                                                        "both"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--kmeans", action="store_true")
+    ap.add_argument("--tp-ratios", action="store_true",
+                    help="the reduced configs' replication ratios on a "
+                         "fake (2, 4) mesh (--shape: a comma list, "
+                         "default train_4k)")
+    ap.add_argument("--batches", default="2",
+                    help="--tp-ratios' global batches, a comma list")
     ap.add_argument("--out", default="dryrun_results.json")
     args = ap.parse_args()
     t_start = time.perf_counter()
+    if args.tp_ratios:
+        return tp_main(args, t_start)
 
     meshes = []
     if args.mesh in ("single", "both"):
@@ -784,6 +867,32 @@ def main():
     if cuda:
         return 5          # the dry run must never touch a device
     return 0 if n_err == 0 else 1
+
+
+def tp_main(args, t_start: float) -> int:
+    """`--tp-ratios`: one line a cell, the records to --out; exit 1 where a
+    ratio is above its bound or a step fell back to global/chips."""
+    recs = tp_ratios((args.shape or "train_4k").split(","),
+                     [int(b) for b in args.batches.split(",")])
+    for r in recs:
+        line = (f"[{'FAIL' if tp_ratio_fails(r) else 'ok'}] {r['arch']}/"
+                f"{r['shape']}/gb{r['global_batch']} on {r['mesh']}: "
+                f"ratio {r['ratio'] or float('nan'):.4f} "
+                f"(bound {r['bound']:.2f}), "
+                f"{r['count_basis']}")
+        if "collective_error" in r:
+            line += f", {r['collective_error'][:160]}"
+        print(line, flush=True)
+    with open(args.out, "w") as f:
+        json.dump(recs, f, indent=1)
+    bad = sum(map(tp_ratio_fails, recs))
+    cuda = torch.cuda.is_initialized()
+    print(f"done: {len(recs)} cells, {bad} above their bound -> {args.out} "
+          f"in {time.perf_counter() - t_start:.1f} s; "
+          f"cuda_initialized={cuda}")
+    if cuda:
+        return 5
+    return 0 if bad == 0 else 1
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import tp as T
 
 BF16 = torch.bfloat16
 F32 = torch.float32
@@ -227,19 +228,100 @@ def flash_attention(q, k, v, *, causal: bool, window: int | None,
 # GQA attention block
 # ---------------------------------------------------------------------------
 
+def _kv_heads(tp: T.Plain, h: int, hkv: int):
+    """How this rank's KV heads come: "shard" (hkv divides the 'model'
+    ways: each rank projects its own), "slice" (the ways divide by hkv:
+    the rank's query heads share one KV head, projected from the weight
+    gathered whole and sliced), or None (the query-sequence split)."""
+    if h % tp.ways:
+        return None
+    if hkv % tp.ways == 0:
+        return "shard"
+    if tp.ways % hkv == 0:
+        return "slice"
+    return None
+
+
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, causal: bool,
               window: int | None, positions: torch.Tensor) -> torch.Tensor:
     """x (B,T,D) -> (B,T,D). p: wq (D,H*Dh), wk/wv (D,Hkv*Dh), wo (H*Dh,D)."""
-    b, t, _ = x.shape
+    return _attention(p, x, x, cfg, causal=causal, window=window,
+                      cap=cfg.attn_softcap, positions=positions)
+
+
+def cross_attention(p: dict, x: torch.Tensor, enc: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    return _attention(p, x, enc, cfg, causal=False, window=None, cap=None,
+                      positions=None)
+
+
+def _attention(p: dict, x, src, cfg: ModelConfig, *, causal: bool,
+               window: int | None, cap: float | None,
+               positions: torch.Tensor | None) -> torch.Tensor:
+    """GQA attention: x (B,T,D) queries, src (B,S,D) keys and values (x
+    itself, or the encoder output), rotated by `positions` unless None. A
+    DTensor step in the 2D mode runs it as a tensor-parallel region: heads
+    that divide the 'model' ways column-parallel (each rank its heads and
+    their KV heads, `_kv_heads`) into a row-parallel `wo`, other heads by
+    the query-sequence split (`_attention_rows`)."""
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = split_dims(x @ p["wq"], b, t, h, dh)
-    k = split_dims(x @ p["wk"], b, t, hkv, dh)
-    v = split_dims(x @ p["wv"], b, t, hkv, dh)
-    cos, sin = rope_freqs(positions, dh, cfg.rope_theta)
-    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    tp = T.region(x, cfg)
+    how = _kv_heads(tp, h, hkv)
+    if how is None:
+        if tp.splits_rows(x.shape[1]) and tp.splits_rows(src.shape[1]):
+            return _attention_rows(tp, p, x, src, cfg, causal=causal,
+                                   window=window, cap=cap,
+                                   positions=positions)
+        tp, how = T.PLAIN, "shard"
+    xl = tp.enter(x)
+    sl = xl if src is x else tp.enter(src)
+    b, t, _ = xl.shape
+    s = sl.shape[1]
+    hl = h // tp.ways
+    if how == "shard":
+        hkvl, wk, wv = hkv // tp.ways, tp.column(p["wk"]), tp.column(p["wv"])
+    else:
+        j = tp.rank * hl // (h // hkv)          # the KV head of its group
+        cols = slice(j * dh, (j + 1) * dh)
+        hkvl = 1
+        wk, wv = tp.whole(p["wk"])[:, cols], tp.whole(p["wv"])[:, cols]
+    q = split_dims(xl @ tp.column(p["wq"]), b, t, hl, dh)
+    k = split_dims(sl @ wk, b, s, hkvl, dh)
+    v = split_dims(sl @ wv, b, s, hkvl, dh)
+    if positions is not None:
+        cos, sin = rope_freqs(positions, dh, cfg.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     o = flash_attention(q, k, v, causal=causal, window=window,
-                        scale=1.0 / np.sqrt(dh), cap=cfg.attn_softcap)
-    return merge_dims(o, b, t, h * dh) @ p["wo"]
+                        scale=1.0 / np.sqrt(dh), cap=cap)
+    return tp.exit_sum(merge_dims(o, b, t, hl * dh) @ tp.row(p["wo"]))
+
+
+def _attention_rows(tp: T.Region, p: dict, x, src, cfg: ModelConfig, *,
+                    causal: bool, window: int | None, cap: float | None,
+                    positions: torch.Tensor | None) -> torch.Tensor:
+    """`_attention` by the query-sequence split: each rank attends its two
+    blocks of the query sequence (`Region.rows`) with `wq`/`wo` whole and
+    K/V projected on its rows and all-gathered."""
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    xl = tp.enter(x)
+    sl = xl if src is x else tp.enter(src)
+    b, t, _ = xl.shape
+    c, starts = tp.blocks(t)
+    xq = tp.rows(xl)
+    sq = xq if src is x else tp.rows(sl)
+    q = (xq @ tp.whole(p["wq"])).reshape(b, 2 * c, h, dh)
+    k = (sq @ tp.whole(p["wk"])).reshape(b, -1, hkv, dh)
+    v = (sq @ tp.whole(p["wv"])).reshape(b, -1, hkv, dh)
+    if positions is not None:
+        cos, sin = rope_freqs(tp.rows(positions[None])[0], dh, cfg.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    k, v = tp.gather_rows(k), tp.gather_rows(v)
+    o = torch.cat([flash_attention(q[:, i * c:(i + 1) * c], k, v,
+                                   causal=causal, window=window,
+                                   scale=1.0 / np.sqrt(dh), cap=cap,
+                                   q_offset=start)
+                   for i, start in enumerate(starts)], 1)
+    return tp.exit_rows(o.reshape(b, 2 * c, h * dh) @ tp.whole(p["wo"]))
 
 
 def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -247,17 +329,26 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """DeepSeek-V2 Multi-head Latent Attention (training/prefill form).
 
     KV compressed to kv_lora (+ shared rope key); decode uses the absorbed
-    form over the compressed cache (serving/decode.py)."""
+    form over the compressed cache (serving/decode.py). A DTensor step in
+    the 2D mode runs it as a tensor-parallel region: the two
+    down-projections column-parallel and all-gathered (their norms need
+    whole rows), the up-projections column-parallel over this rank's heads,
+    `wo` row-parallel."""
+    tp = T.region(x, cfg, cfg.n_heads, cfg.q_lora,
+                  cfg.kv_lora + cfg.rope_head_dim)
+    x = tp.enter(x)
     b, t, _ = x.shape
-    h = cfg.n_heads
+    h = cfg.n_heads // tp.ways
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
-    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-    q = split_dims(cq @ p["wq_b"], b, t, h, dn + dr)
+    cq = rms_norm(tp.gather(x @ tp.column(p["wq_a"]), 2),
+                  tp.whole(p["q_norm"]), cfg.norm_eps)
+    q = split_dims(cq @ tp.column(p["wq_b"]), b, t, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    ckv_full = x @ p["wkv_a"]                       # (B,T,kv_lora+dr)
-    ckv = rms_norm(ckv_full[..., :cfg.kv_lora], p["kv_norm"], cfg.norm_eps)
+    ckv_full = tp.gather(x @ tp.column(p["wkv_a"]), 2)  # (B,T,kv_lora+dr)
+    ckv = rms_norm(ckv_full[..., :cfg.kv_lora], tp.whole(p["kv_norm"]),
+                   cfg.norm_eps)
     k_rope = split_dims(ckv_full[..., cfg.kv_lora:], b, t, 1, dr)
-    kv = split_dims(ckv @ p["wkv_b"], b, t, h, dn + dv)
+    kv = split_dims(ckv @ tp.column(p["wkv_b"]), b, t, h, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     cos, sin = rope_freqs(positions, dr, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
@@ -266,28 +357,20 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     k_full = torch.cat([k_nope, k_rope], -1)
     o = flash_attention(q_full, k_full, v, causal=True, window=None,
                         scale=1.0 / np.sqrt(dn + dr), cap=None)
-    return merge_dims(o, b, t, h * dv) @ p["wo"]
-
-
-def cross_attention(p: dict, x: torch.Tensor, enc: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
-    b, t, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = split_dims(x @ p["wq"], b, t, h, dh)
-    k = split_dims(enc @ p["wk"], b, enc.shape[1], hkv, dh)
-    v = split_dims(enc @ p["wv"], b, enc.shape[1], hkv, dh)
-    o = flash_attention(q, k, v, causal=False, window=None,
-                        scale=1.0 / np.sqrt(dh), cap=None)
-    return merge_dims(o, b, t, h * dh) @ p["wo"]
+    return tp.exit_sum(merge_dims(o, b, t, h * dv) @ tp.row(p["wo"]))
 
 
 # ---------------------------------------------------------------------------
 # dense GLU MLP
 # ---------------------------------------------------------------------------
 
-def glu_mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    g = act_fn(act)(x @ p["w_gate"])
-    return (g * (x @ p["w_up"])) @ p["w_down"]
+def glu_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A DTensor step in the 2D mode runs it as a tensor-parallel region:
+    w_gate and w_up column-parallel, w_down row-parallel."""
+    tp = T.region(x, cfg, p["w_gate"].shape[-1])
+    x = tp.enter(x)
+    g = act_fn(cfg.act)(x @ tp.column(p["w_gate"]))
+    return tp.exit_sum((g * (x @ tp.column(p["w_up"]))) @ tp.row(p["w_down"]))
 
 
 # ---------------------------------------------------------------------------
@@ -342,15 +425,22 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         cap = max(1, int(np.ceil(n * k / e * cfg.capacity_factor)))
         out = _moe_tokens(p, x.reshape(1, n, d), cfg, cap).reshape(b, t, d)
     if cfg.n_shared_experts:
-        out = out + glu_mlp(p["shared"], x, cfg.act)
+        out = out + glu_mlp(p["shared"], x, cfg)
     return out
 
 
 def _router(p: dict, xf: torch.Tensor, cfg: ModelConfig):
     """-> (gate, ids), each (G, N, K): the top_k experts of each token,
     ties to the lower expert id (as jax.lax.top_k), and their renormalized
-    probabilities times router_scale."""
-    logits = xf.to(F32) @ p["router"].to(F32)                  # (G, N, E)
+    probabilities times router_scale. A DTensor step in the 2D mode whose
+    blocks G split over the batch axes (the 'per_example' dispatch)
+    computes the logits on this rank's span of the N tokens, all-gathered
+    over 'model'."""
+    tp = T.region(xf, cfg, xf.shape[1])
+    if xf.shape[0] % tp.batch_ways:
+        tp = T.PLAIN
+    logits = tp.exit_gather(tp.own(tp.enter(xf), 1).to(F32)
+                            @ tp.whole(p["router"]).to(F32), 1)   # (G,N,E)
     probs = torch.softmax(logits, -1)
     # a stable descending sort keeps equal probabilities in expert order
     srt, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -376,13 +466,15 @@ def _expert_ffn(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The experts' GLU on dispatched tokens h (G, E, C, D) -> (G, E, C, D).
 
     A DTensor step runs it expert-parallel on the local shards: h is laid
-    out with G over the activation batch axes (`cfg.act_axes`) and E over
-    'model' (unless G took it) where they divide, each weight is gathered
-    to whole experts sharded as E is, and the einsums run on the local
-    tensors. The weights' gradients are partial sums over the batch axes,
-    reduced to their own layout by DTensor. Left to DTensor's own einsum
-    strategies the step kept every block and expert on each device, then
-    viewed a local shard by permuted global strides, which failed."""
+    out with G over the activation batch axes (`cfg.act_axes`), or its
+    slots C where G does not divide (the 'global' dispatch's one block),
+    and E over 'model' (unless the batch took it) where they divide, each
+    weight is gathered to whole experts sharded as E is, and the einsums
+    run on the local tensors. The weights' gradients are partial sums over
+    the batch axes, reduced to their own layout by DTensor. Left to
+    DTensor's own einsum strategies the step kept every block and expert
+    on each device, then viewed a local shard by permuted global strides,
+    which failed."""
     w = (p["w_gate"], p["w_up"], p["w_down"])
     if type(h) is torch.Tensor:
         return _glu_experts(h, *w, cfg.act)
@@ -396,21 +488,32 @@ def _expert_ffn(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         n_g *= mesh.size(names.index(a))
     g_on = set(cfg.act_axes) if cfg.act_axes and h.shape[0] % n_g == 0 \
         else set()
+    # one block of every token (the 'global' dispatch): its slots over the
+    # batch axes instead, so no device repeats another's
+    c_on = set(cfg.act_axes) if cfg.act_axes and not g_on \
+        and h.shape[2] % n_g == 0 else set()
     # experts over 'model' unless the batch took it (pure FSDP)
-    e_on = {"model"} if "model" in names and "model" not in g_on \
+    e_on = {"model"} if "model" in names and "model" not in g_on | c_on \
         and h.shape[1] % mesh.size(names.index("model")) == 0 else set()
-    h_pl = [Shard(0) if a in g_on else Shard(1) if a in e_on
-            else Replicate() for a in names]
+    h_pl = [Shard(0) if a in g_on else Shard(2) if a in c_on
+            else Shard(1) if a in e_on else Replicate() for a in names]
     w_pl = [Shard(0) if a in e_on else Replicate() for a in names]
-    w_grad = [Partial() if a in g_on else q for a, q in zip(names, w_pl)]
+    w_grad = [Partial() if a in g_on | c_on else q
+              for a, q in zip(names, w_pl)]
     hl = h.redistribute(mesh, h_pl).to_local()
     wl = [x.redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
           for x in w]
     # the einsums leave their result experts-major; the DTensor is
     # described row-major, and DTensor views the local tensor by that
     out = _glu_experts(hl, *wl, cfg.act).contiguous()
-    return DTensor.from_local(out, mesh, h_pl, shape=h.shape,
-                              stride=h.stride())
+    out = DTensor.from_local(out, mesh, h_pl, shape=h.shape,
+                             stride=h.stride())
+    if c_on:
+        # the combine flattens (E, C); DTensor (torch 2.11) cannot flatten
+        # a split C behind E, so the slots are gathered first
+        out = out.redistribute(mesh, [Replicate() if a in c_on else q
+                                      for a, q in zip(names, h_pl)])
+    return out
 
 
 def _glu_experts(h, w_gate, w_up, w_down, act: str) -> torch.Tensor:

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
+from repro_torch.models import tp as T
 from repro_torch.models.tree import leaves, tree_map, unflatten_like
 
 BF16 = torch.bfloat16
@@ -296,6 +297,9 @@ def _pin_batch(x, cfg: ModelConfig):
 
 def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, enc: torch.Tensor | None = None):
+    """One block. A DTensor step is pinned first (`_pin_batch`), and its
+    mixers and MLPs run as tensor-parallel regions (models/tp.py)."""
+    x = _pin_batch(x, cfg)
     if kind in ("attn", "attn_local", "rglru_attn", "moe_attn", "xattn"):
         window = cfg.window if kind in ("attn_local", "rglru_attn") else None
         a = L.attention(p, _norm(p, "ln1", x, cfg), cfg, causal=True,
@@ -309,7 +313,7 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                 _norm(p, "ln3", x, cfg), enc, cfg)
         h = _norm(p, "ln2", x, cfg)
         m = L.moe_mlp(p["moe"], h, cfg) if kind == "moe_attn" \
-            else L.glu_mlp(p, h, cfg.act)
+            else L.glu_mlp(p, h, cfg)
         if cfg.post_norms:
             m = _norm(p, "ln2_post", m, cfg)
         return x + m
@@ -317,7 +321,7 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
         x = x + L.mla_attention(p, _norm(p, "ln1", x, cfg), cfg, positions)
         h = _norm(p, "ln2", x, cfg)
         m = L.moe_mlp(p["moe"], h, cfg) if kind == "mla" \
-            else L.glu_mlp(p, h, cfg.act)
+            else L.glu_mlp(p, h, cfg)
         return x + m
     if kind == "rwkv":
         tm, _ = R.rwkv_time_mix(p, _norm(p, "ln1", x, cfg), cfg)
@@ -327,16 +331,17 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     if kind == "rglru":
         rec, _ = R.rg_lru(p, _norm(p, "ln1", x, cfg), cfg)
         x = x + rec
-        return x + L.glu_mlp(p, _norm(p, "ln2", x, cfg), cfg.act)
+        return x + L.glu_mlp(p, _norm(p, "ln2", x, cfg), cfg)
     raise ValueError(kind)
 
 
 def _encoder_block(p, x, cfg):
+    x = _pin_batch(x, cfg)
     a = L.attention(p, _norm(p, "ln1", x, cfg), cfg, causal=False,
                     window=None,
                     positions=torch.arange(x.shape[1], device=x.device))
     x = x + a
-    return x + L.glu_mlp(p, _norm(p, "ln2", x, cfg), cfg.act)
+    return x + L.glu_mlp(p, _norm(p, "ln2", x, cfg), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -344,12 +349,15 @@ def _encoder_block(p, x, cfg):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
+    """A DTensor step in the 2D mode looks up this rank's columns of the
+    table (split on D over 'model') and all-gathers them."""
+    tp = T.region(tokens, cfg, cfg.d_model)
     # F.embedding: its backward on the card sorts the ids (deterministic)
-    x = F.embedding(tokens, params["embed"]).to(BF16)
+    x = F.embedding(tp.local(tokens), tp.column(params["embed"])).to(BF16)
     if cfg.scale_embed:
         # the reference rounds sqrt(d) to bf16 before it multiplies
         x = x * float(torch.tensor(np.sqrt(cfg.d_model), dtype=BF16))
-    return x
+    return tp.exit_gather(x, 2)
 
 
 # matmul outputs: what remat_policy="dots" keeps (jax's checkpoint_dots)
@@ -415,21 +423,32 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
 def ce_loss(params, cfg: ModelConfig, hidden, labels, *, chunk: int = 512):
     """hidden (B,T,D), labels (B,T) -> mean CE. Runs T in chunks; each
     chunk's (B,chunk,V) logits are recomputed in the backward, never
-    stored. The padded vocabulary columns stay in the log-sum-exp."""
+    stored. The padded vocabulary columns stay in the log-sum-exp. A
+    DTensor step in the 2D mode takes it on this rank's vocabulary columns
+    of the head (split over 'model'): each chunk's local maximum, exp-sum
+    and true logit are all-reduced over 'model', so no logits are
+    gathered; the maximum only steadies the exponent and there carries no
+    gradient."""
     b, t, d = hidden.shape
     chunk = min(chunk, t)
     n_chunks = t // chunk
     assert t % chunk == 0, (t, chunk)
-    head = params["head"]
+    tp = T.region(hidden, cfg, cfg.vocab_padded)
+    head = tp.column(params["head"])
+    hidden, labels = tp.enter(hidden), tp.local(labels)
 
     def chunk_loss(lab, h):
         logits = (h.to(BF16) @ head).to(F32)
         logits = L.softcap(logits, cfg.final_softcap)
-        m = logits.amax(-1, keepdim=True)
-        lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
-        onehot = (torch.arange(logits.shape[-1], device=logits.device)
+        m = tp.all_max(logits.amax(-1, keepdim=True))
+        lse = torch.log(tp.all_sum(torch.exp(logits - m).sum(-1),
+                                   partial_grad=False)) + m[..., 0]
+        v = logits.shape[-1]
+        onehot = (torch.arange(tp.rank * v, (tp.rank + 1) * v,
+                               device=logits.device)
                   [None, None, :] == lab[..., None])
-        true_logit = torch.where(onehot, logits, 0.0).sum(-1)
+        true_logit = tp.all_sum(torch.where(onehot, logits, 0.0).sum(-1),
+                                partial_grad=False)
         return (lse - true_logit).sum()
 
     total = torch.zeros((), dtype=F32, device=hidden.device)
@@ -437,7 +456,7 @@ def ce_loss(params, cfg: ModelConfig, hidden, labels, *, chunk: int = 512):
         sl = slice(i * chunk, (i + 1) * chunk)
         h_i, lab_i = hidden[:, sl], labels[:, sl]
         total = total + _remat(functools.partial(chunk_loss, lab_i), h_i)
-    return total / (b * t)
+    return tp.exit_total(total) / (b * t)
 
 
 def lm_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:

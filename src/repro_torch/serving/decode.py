@@ -209,7 +209,7 @@ def decode_block(kind, p, cache, x, cfg, pos: int, enc=None):
             x = x + o @ p["xo"]
         h = M._norm(p, "ln2", x, cfg)
         m = L.moe_mlp(p["moe"], h, cfg) if kind == "moe_attn" \
-            else L.glu_mlp(p, h, cfg.act)
+            else L.glu_mlp(p, h, cfg)
         if cfg.post_norms:
             m = M._norm(p, "ln2_post", m, cfg)
         return x + m
@@ -217,7 +217,7 @@ def decode_block(kind, p, cache, x, cfg, pos: int, enc=None):
         x = x + _decode_mla(p, cache, M._norm(p, "ln1", x, cfg), cfg, pos)
         h = M._norm(p, "ln2", x, cfg)
         m = L.moe_mlp(p["moe"], h, cfg) if kind == "mla" \
-            else L.glu_mlp(p, h, cfg.act)
+            else L.glu_mlp(p, h, cfg)
         return x + m
     if kind == "rwkv":
         h = M._norm(p, "ln1", x, cfg)
@@ -237,7 +237,7 @@ def decode_block(kind, p, cache, x, cfg, pos: int, enc=None):
         cache["tail"].copy_(tail)
         cache["h"].copy_(hstate)
         x = x + rec
-        return x + L.glu_mlp(p, M._norm(p, "ln2", x, cfg), cfg.act)
+        return x + L.glu_mlp(p, M._norm(p, "ln2", x, cfg), cfg)
     raise ValueError(kind)
 
 

@@ -14,6 +14,7 @@ import functools
 import json
 import os
 import pathlib
+import socket
 import subprocess
 import sys
 
@@ -61,3 +62,47 @@ def run_child(code: str, timeout: int = 300):
              "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode == 0, out.stderr[-3000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def start_ranks(code: str, arg) -> list:
+    """Four processes running `code` as ranks 0-3 of a gloo group at a
+    free localhost port (argv: rank, port, arg)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    return [subprocess.Popen([sys.executable, "-c", code, str(r), str(port),
+                              str(arg)], cwd=str(ROOT), env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+            for r in range(4)]
+
+
+# `launch/dryrun.py:replication` of reduced archs on the fake (2, 4) mesh at
+# global batch 2: (shape, [arch ids]) -> {arch: record}
+TP_CHILD = """
+import json
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_fake_mesh
+mesh = make_fake_mesh(dryrun.TP_MESH, ("data", "model"))
+print(json.dumps({a: dryrun.replication(a, %r, mesh, 2) for a in %r}))
+"""
+
+
+def check_ratio(rec, arch_id, shape):
+    """A `TP_CHILD` record: counted per device with its collectives, at
+    most its bound."""
+    from repro_torch.launch import dryrun
+    assert (rec["arch"], rec["shape"], rec["global_batch"], rec["mesh"]) \
+        == (arch_id, shape, 2, "2x4")
+    assert rec["count_basis"] == "per-device"
+    assert "collective_error" not in rec
+    assert rec["bound"] == max(1.10, dryrun.REFERENCE_RATIOS.get(
+        (arch_id, shape), 0.0))
+    assert rec["ratio"] <= rec["bound"], rec["top_ops"]
+    # the device counted (at a busiest rank of the query-sequence split)
+    # does at least its share of the step
+    assert rec["ratio"] >= 0.999
+    assert rec["link_bytes"] > 0
+    assert not dryrun.tp_ratio_fails(rec)

@@ -402,3 +402,40 @@ def test_pod_mesh_count_matches_the_three_axis_step():
         assert probed["collectives"][kind] == full["collectives"][kind], kind
     assert full["collectives"]["all-reduce"] \
         >= probed["collectives"]["all-reduce"] > 0
+
+
+_TWO_POD_CHILD = """
+import json
+from repro_torch.configs.base import all_archs
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_fake_mesh
+pods = make_fake_mesh((2, 2, 2), ("pod", "data", "model"))
+one = make_fake_mesh((2, 2), ("data", "model"))
+out = {}
+for arch in %r:
+    cfg = all_archs()[arch].reduced
+    out[arch] = [dryrun.lower_cell(arch, "train_4k", m, cfg=cfg,
+                                   global_batch=16) for m in (pods, one)]
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("arch_id", ["granite-34b", "recurrentgemma-2b"])
+def test_two_pods_read_no_more_flops_a_device_than_one(arch_id):
+    """The same train cell (global batch 16) on two pods of (2, 2) and on
+    one: a device of two pods takes half a pod's share of the batch and,
+    with every product split over 'model', does no more work than a
+    device of one pod (before the tensor-parallel regions, DTensor
+    gathered weights and repeated products where a device's sequences did
+    not divide over 'model', and the two-pod records read more). Each
+    record's `replication` (its FLOPs over the probes' global count a
+    chip) is at most the tensor-parallel bound."""
+    two, one = run_child(_TWO_POD_CHILD % ([arch_id],), timeout=300)[arch_id]
+    assert two["pod"]["pods"] == 2 and "pod" not in one
+    for rec in (two, one):
+        assert rec["count_basis"] == "per-device"
+        assert "collective_error" not in rec
+        assert 0.8 < rec["replication"] <= dryrun.TP_RATIO_BOUND
+    assert two["flops_per_device"] <= one["flops_per_device"]
+    assert two["flops_per_device"] == pytest.approx(
+        one["flops_per_device"] / 2, rel=0.05)
