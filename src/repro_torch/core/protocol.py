@@ -12,6 +12,13 @@ Per-op traffic is shape-determined and exact.
 
 Words are int64 tensors (core/ring.py): every uint64 `>>` of the protocol
 is `ring.logical_rshift`.
+
+A call that records program spans (obs/trace.py) carries them on its
+`Ctx`: `beaver.open` around each masked-operand computation and its
+exchange (args `kind`, `triples` opened), `beaver.combine` around each
+recombination, `s2.level` around each round of the tournament (args
+`level`, `pairs` compared). With `ctx.spans` None an op pays one
+attribute check and enters the shared no-op.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from repro_torch.core.backend import KS_LEVELS, RingBackend, get_backend
 from repro_torch.core.channel import CommLog
 from repro_torch.core.sharing import AShare, BShare
 from repro_torch.core.triples import TrustedDealer
+from repro_torch.obs.trace import NOOP, ProgramSpans
 
 
 FUSE_BEAVER = True
@@ -43,6 +51,9 @@ class Ctx:
     he_seconds: float = 0.0  # modelled HE wall-time accumulated by Protocol 2
     parent: "Ctx | None" = dataclasses.field(default=None, repr=False)
     # a fork's parent: its modelled HE time is added there (see `fork`)
+    spans: ProgramSpans | None = dataclasses.field(default=None, repr=False)
+    # the program spans this call records (obs/trace.py:program_spans),
+    # resolved once per program call; None records none
 
     def __post_init__(self):
         self.backend = get_backend(self.backend, self.device)
@@ -157,16 +168,19 @@ def smul(ctx: Ctx, a: AShare, b: AShare, *, trunc_f: int | None = None) -> AShar
     shape = tuple(torch.broadcast_shapes(a.shape, b.shape))
     t = ctx.dealer.mul_triple(shape, tag=ctx.tag)
     a, b = _expand(a, shape), _expand(b, shape)
-    e = (a.s0 - t.u.s0) + (a.s1 - t.u.s1)  # Rec(a - u)
-    f = (b.s0 - t.v.s0) + (b.s1 - t.v.s1)  # Rec(b - v)
-    # Both parties exchange their local (E,F) halves: 2 tensors each way.
-    ctx.send(2 * 2 * ring.nbytes(shape), rounds=1)
+    with ctx.spans.span("beaver.open", kind="mul", triples=1) \
+            if ctx.spans else NOOP:
+        e = (a.s0 - t.u.s0) + (a.s1 - t.u.s1)  # Rec(a - u)
+        f = (b.s0 - t.v.s0) + (b.s1 - t.v.s1)  # Rec(b - v)
+        # Both parties exchange their local (E,F) halves: 2 tensors each way.
+        ctx.send(2 * 2 * ring.nbytes(shape), rounds=1)
     # ab = uv + u*f + e*v + e*f ;  z_i = z_t_i + u_i*f + e*v_i + [i==0]*e*f
-    if FUSE_BEAVER:
-        z0 = t.z.s0 + t.u.s0 * f + e * (t.v.s0 + f)
-    else:
-        z0 = t.z.s0 + t.u.s0 * f + e * t.v.s0 + e * f
-    z1 = t.z.s1 + t.u.s1 * f + e * t.v.s1
+    with ctx.spans.span("beaver.combine", kind="mul") if ctx.spans else NOOP:
+        if FUSE_BEAVER:
+            z0 = t.z.s0 + t.u.s0 * f + e * (t.v.s0 + f)
+        else:
+            z0 = t.z.s0 + t.u.s0 * f + e * t.v.s0 + e * f
+        z1 = t.z.s1 + t.u.s1 * f + e * t.v.s1
     out = AShare(z0, z1)
     return trunc(out, trunc_f) if trunc_f else out
 
@@ -177,16 +191,20 @@ def smatmul(ctx: Ctx, a: AShare, b: AShare, *, trunc_f: int | None = None) -> AS
     if d != d2:
         raise ValueError(f"smatmul inner dims disagree: {a.shape} @ {b.shape}")
     t = ctx.dealer.matmul_triple((n, d), (d, k), tag=ctx.tag)
-    e = (a.s0 - t.u.s0) + (a.s1 - t.u.s1)
-    f = (b.s0 - t.v.s0) + (b.s1 - t.v.s1)
-    ctx.send(2 * (ring.nbytes((n, d)) + ring.nbytes((d, k))), rounds=1)
+    with ctx.spans.span("beaver.open", kind="matmul", triples=1) \
+            if ctx.spans else NOOP:
+        e = (a.s0 - t.u.s0) + (a.s1 - t.u.s1)
+        f = (b.s0 - t.v.s0) + (b.s1 - t.v.s1)
+        ctx.send(2 * (ring.nbytes((n, d)) + ring.nbytes((d, k))), rounds=1)
     mm = ctx.backend.ring_mm
     # AB = UV + U F + E V + E F
-    if FUSE_BEAVER:  # P0: E@(V0 + F) fuses the public E@F term (see flag)
-        z0 = t.z.s0 + mm(t.u.s0, f) + mm(e, t.v.s0 + f)
-    else:
-        z0 = t.z.s0 + mm(t.u.s0, f) + mm(e, t.v.s0) + mm(e, f)
-    z1 = t.z.s1 + mm(t.u.s1, f) + mm(e, t.v.s1)
+    with ctx.spans.span("beaver.combine", kind="matmul") \
+            if ctx.spans else NOOP:
+        if FUSE_BEAVER:  # P0: E@(V0 + F) fuses the public E@F term (flag)
+            z0 = t.z.s0 + mm(t.u.s0, f) + mm(e, t.v.s0 + f)
+        else:
+            z0 = t.z.s0 + mm(t.u.s0, f) + mm(e, t.v.s0) + mm(e, f)
+        z1 = t.z.s1 + mm(t.u.s1, f) + mm(e, t.v.s1)
     out = AShare(z0, z1)
     return trunc(out, trunc_f) if trunc_f else out
 
@@ -213,12 +231,15 @@ def band(ctx: Ctx, x: BShare, y: BShare) -> BShare:
     t = ctx.dealer.bin_triple(shape, tag=ctx.tag)
     x = BShare(x.b0.expand(shape), x.b1.expand(shape))
     y = BShare(y.b0.expand(shape), y.b1.expand(shape))
-    e = (x.b0 ^ t.u.b0) ^ (x.b1 ^ t.u.b1)
-    f = (y.b0 ^ t.v.b0) ^ (y.b1 ^ t.v.b1)
-    ctx.send(2 * 2 * ring.nbytes(shape), rounds=1)
+    with ctx.spans.span("beaver.open", kind="bin", triples=1) \
+            if ctx.spans else NOOP:
+        e = (x.b0 ^ t.u.b0) ^ (x.b1 ^ t.u.b1)
+        f = (y.b0 ^ t.v.b0) ^ (y.b1 ^ t.v.b1)
+        ctx.send(2 * 2 * ring.nbytes(shape), rounds=1)
     # xy = (u^e)&(v^f) = uv ^ u&f ^ e&v ^ e&f
-    z0 = t.z.b0 ^ (t.u.b0 & f) ^ (e & (t.v.b0 ^ f))
-    z1 = t.z.b1 ^ (t.u.b1 & f) ^ (e & t.v.b1)
+    with ctx.spans.span("beaver.combine", kind="bin") if ctx.spans else NOOP:
+        z0 = t.z.b0 ^ (t.u.b0 & f) ^ (e & (t.v.b0 ^ f))
+        z1 = t.z.b1 ^ (t.u.b1 & f) ^ (e & t.v.b1)
     return BShare(z0, z1)
 
 
@@ -249,18 +270,21 @@ def msb_carry(ctx: Ctx, a: AShare) -> BShare:
     # Public masked operands per level: E_l/F_l reconstruct to
     # plaintext(lhs/rhs) ^ plaintext(triple) — the public transcript of the
     # exchange rounds, not a security shortcut.
-    e0 = s0 ^ (t0.u.b0 ^ t0.u.b1)
-    f0 = s1 ^ (t0.v.b0 ^ t0.v.b1)
-    g, p = s0 & s1, s0 ^ s1
-    els, fls = [], []
-    for li, s in enumerate(KS_LEVELS):
-        t = lvl[li]
-        els.append(torch.stack([p, p]) ^ (t.u.b0 ^ t.u.b1))
-        gs, ps = ring.lshift(g, s), ring.lshift(p, s)
-        fls.append(torch.stack([gs, ps]) ^ (t.v.b0 ^ t.v.b1))
-        g = g ^ (p & gs)                       # g | (p & g<<s); disjoint => xor
-        p = p & ps
-    el, fl = torch.stack(els), torch.stack(fls)    # (6, 2, *shape)
+    with (ctx.spans.span("beaver.open", kind="ks",
+                         triples=1 + len(KS_LEVELS))
+          if ctx.spans else NOOP):
+        e0 = s0 ^ (t0.u.b0 ^ t0.u.b1)
+        f0 = s1 ^ (t0.v.b0 ^ t0.v.b1)
+        g, p = s0 & s1, s0 ^ s1
+        els, fls = [], []
+        for li, s in enumerate(KS_LEVELS):
+            t = lvl[li]
+            els.append(torch.stack([p, p]) ^ (t.u.b0 ^ t.u.b1))
+            gs, ps = ring.lshift(g, s), ring.lshift(p, s)
+            fls.append(torch.stack([gs, ps]) ^ (t.v.b0 ^ t.v.b1))
+            g = g ^ (p & gs)                   # g | (p & g<<s); disjoint: xor
+            p = p & ps
+        el, fl = torch.stack(els), torch.stack(fls)    # (6, 2, *shape)
     ul = [torch.stack([t.u.b0 for t in lvl]), torch.stack([t.u.b1 for t in lvl])]
     vl = [torch.stack([t.v.b0 for t in lvl]), torch.stack([t.v.b1 for t in lvl])]
     zl = [torch.stack([t.z.b0 for t in lvl]), torch.stack([t.z.b1 for t in lvl])]
@@ -329,44 +353,14 @@ def argmin_onehot(ctx: Ctx, d: AShare, *, return_min: bool = False):
     eye = torch.eye(k, dtype=ring.DTYPE, device=dev)
     vals = d
     ohs: AShare | None = None   # public eye carried implicitly until 1st MUX
-    m = k
+    m, level = k, 0
     while m > 1:
         half, odd = m // 2, m % 2
-        l_v = AShare(vals.s0[:, 0:2 * half:2], vals.s1[:, 0:2 * half:2])
-        r_v = AShare(vals.s0[:, 1:2 * half:2], vals.s1[:, 1:2 * half:2])
-        b = cmp_lt(ctx, l_v, r_v)                       # [l < r]  (n, half)
-        b_oh = AShare(b.s0[..., None], b.s1[..., None])  # broadcast over k
-        if ohs is None:
-            # level 1: one-hot operands are public eye columns — the MUX
-            # b*(l_o - r_o) + r_o is a local scalar-by-public product.
-            v_min = mux(ctx, b, l_v, r_v)
-            l_o = eye[0:2 * half:2][None]                # (1, half, k) public
-            r_o = eye[1:2 * half:2][None]
-            o_min = add_pub(mul_pub(b_oh, l_o - r_o), r_o)
-            if odd:
-                tail_o = AShare(eye[None, -1:].expand(n, 1, k),
-                                torch.zeros((n, 1, k), dtype=ring.DTYPE,
-                                            device=dev))
-        else:
-            l_o = AShare(ohs.s0[:, 0:2 * half:2], ohs.s1[:, 0:2 * half:2])
-            r_o = AShare(ohs.s0[:, 1:2 * half:2], ohs.s1[:, 1:2 * half:2])
-            # batched MUX: stack (values | one-hots) differences along the
-            # last axis and recombine with ONE Beaver product against the
-            # shared selector — (n, half, 1+k) in a single round.
-            diff = AShare(
-                torch.cat([(l_v.s0 - r_v.s0)[..., None], l_o.s0 - r_o.s0], -1),
-                torch.cat([(l_v.s1 - r_v.s1)[..., None], l_o.s1 - r_o.s1], -1))
-            zz = smul(ctx, b_oh, diff)
-            v_min = add(AShare(zz.s0[..., 0], zz.s1[..., 0]), r_v)
-            o_min = add(AShare(zz.s0[..., 1:], zz.s1[..., 1:]), r_o)
-            if odd:
-                tail_o = AShare(ohs.s0[:, -1:], ohs.s1[:, -1:])
-        if odd:
-            v_min = AShare(torch.cat([v_min.s0, vals.s0[:, -1:]], 1),
-                           torch.cat([v_min.s1, vals.s1[:, -1:]], 1))
-            o_min = AShare(torch.cat([o_min.s0, tail_o.s0], 1),
-                           torch.cat([o_min.s1, tail_o.s1], 1))
-        vals, ohs, m = v_min, o_min, half + odd
+        level += 1
+        with ctx.spans.span("s2.level", level=level, pairs=n * half) \
+                if ctx.spans else NOOP:
+            vals, ohs = _tournament_level(ctx, vals, ohs, eye, half, odd)
+        m = half + odd
     if ohs is None:    # k == 1: the argmin is trivially the only column
         oh = AShare(torch.ones((n, 1), dtype=ring.DTYPE, device=dev),
                     torch.zeros((n, 1), dtype=ring.DTYPE, device=dev))
@@ -377,6 +371,51 @@ def argmin_onehot(ctx: Ctx, d: AShare, *, return_min: bool = False):
     if return_min:
         return oh, AShare(vals.s0[:, 0], vals.s1[:, 0])
     return oh
+
+
+def _tournament_level(ctx: Ctx, vals: AShare, ohs: AShare | None, eye,
+                      half: int, odd: int) -> tuple:
+    """One round of `argmin_onehot`: CMP + MUX over the `half` pairs of
+    the surviving columns `vals` (n, m) and their one-hots `ohs` (n, m, k;
+    None while they are still the public `eye`); an odd last column passes
+    through. Returns the next round's (vals, ohs)."""
+    n, k = vals.shape[0], eye.shape[0]
+    dev = vals.s0.device
+    l_v = AShare(vals.s0[:, 0:2 * half:2], vals.s1[:, 0:2 * half:2])
+    r_v = AShare(vals.s0[:, 1:2 * half:2], vals.s1[:, 1:2 * half:2])
+    b = cmp_lt(ctx, l_v, r_v)                       # [l < r]  (n, half)
+    b_oh = AShare(b.s0[..., None], b.s1[..., None])  # broadcast over k
+    if ohs is None:
+        # level 1: one-hot operands are public eye columns — the MUX
+        # b*(l_o - r_o) + r_o is a local scalar-by-public product.
+        v_min = mux(ctx, b, l_v, r_v)
+        l_o = eye[0:2 * half:2][None]                # (1, half, k) public
+        r_o = eye[1:2 * half:2][None]
+        o_min = add_pub(mul_pub(b_oh, l_o - r_o), r_o)
+        if odd:
+            tail_o = AShare(eye[None, -1:].expand(n, 1, k),
+                            torch.zeros((n, 1, k), dtype=ring.DTYPE,
+                                        device=dev))
+    else:
+        l_o = AShare(ohs.s0[:, 0:2 * half:2], ohs.s1[:, 0:2 * half:2])
+        r_o = AShare(ohs.s0[:, 1:2 * half:2], ohs.s1[:, 1:2 * half:2])
+        # batched MUX: stack (values | one-hots) differences along the
+        # last axis and recombine with ONE Beaver product against the
+        # shared selector — (n, half, 1+k) in a single round.
+        diff = AShare(
+            torch.cat([(l_v.s0 - r_v.s0)[..., None], l_o.s0 - r_o.s0], -1),
+            torch.cat([(l_v.s1 - r_v.s1)[..., None], l_o.s1 - r_o.s1], -1))
+        zz = smul(ctx, b_oh, diff)
+        v_min = add(AShare(zz.s0[..., 0], zz.s1[..., 0]), r_v)
+        o_min = add(AShare(zz.s0[..., 1:], zz.s1[..., 1:]), r_o)
+        if odd:
+            tail_o = AShare(ohs.s0[:, -1:], ohs.s1[:, -1:])
+    if odd:
+        v_min = AShare(torch.cat([v_min.s0, vals.s0[:, -1:]], 1),
+                       torch.cat([v_min.s1, vals.s1[:, -1:]], 1))
+        o_min = AShare(torch.cat([o_min.s0, tail_o.s0], 1),
+                       torch.cat([o_min.s1, tail_o.s1], 1))
+    return v_min, o_min
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,14 @@ tail once an iteration on the accumulated sums. `predict_program` is the S1
 body alone, scoring a new batch against a fitted model. PyTorch runs
 the bodies eagerly: a program is a plain function that launches the ring
 backend's kernels, with no ahead-of-time compilation.
+
+Program spans (obs/trace.py): each program call resolves once whether it
+records them (`_program_spans`) and carries the answer on its `Ctx`. The
+fit pair opens `prog.s1` / `prog.s3`, the batch pair `prog.s1` /
+`prog.s3p`, the finalize and predict programs `prog.finalize` /
+`prog.predict`, each from entry to return; the bodies open `s1.distances`
+(with `s1.mu_sq`), `s2.tournament`, `s3.sums` and `s3.finalize` (with
+`s3.guard`, `s3.reciprocal`, `s3.update`).
 """
 from __future__ import annotations
 
@@ -45,6 +53,8 @@ from repro_torch.core.backend import RingBackend, get_backend
 from repro_torch.core.channel import CommLog
 from repro_torch.core.sharing import AShare, BShare
 from repro_torch.core.triples import BinTriple, MatmulTriple, MulTriple
+from repro_torch.obs import trace as _trace
+from repro_torch.obs.trace import NOOP
 
 
 class RecordingDealer:
@@ -237,6 +247,14 @@ class _ReducedProducts(RingBackend):
         return self.inner.ks_fused(*args, **kwargs)
 
 
+def _program_spans(t: torch.Tensor):
+    """The program spans of one program call whose tensors are on `t`'s
+    device (obs/trace.py:program_spans): None unless the tracer is
+    configured for them or a torch.profiler session records."""
+    return _trace.program_spans(t.is_cuda,
+                                torch.autograd._profiler_enabled())
+
+
 # ---------------------------------------------------------------------------
 # Program bodies — ONE implementation per online stage, all combos
 # ---------------------------------------------------------------------------
@@ -252,9 +270,20 @@ def _s1_body(ctx, geo: FitGeometry, xa, xb, mu: AShare, he,
     consuming pool triples inside the program.
     he=(j1, j2) -> sparse: the blocks were computed on the host by Protocol
     2 from the centroid shares and enter as share inputs."""
+    with ctx.spans.span("s1.distances") if ctx.spans else NOOP:
+        dist = _s1_distances(ctx, geo, xa, xb, mu, he)
+    with ctx.spans.span("s2.tournament") if ctx.spans else NOOP:
+        return P.argmin_onehot(ctx, dist, return_min=return_min)
+
+
+def _s1_distances(ctx, geo: FitGeometry, xa, xb, mu: AShare, he) -> AShare:
+    """S1's (n, k) distance shares D' = |mu|^2 - 2 X mu^T at scale f. Its
+    temporaries (ten (n, k) word tensors) die on return, before the
+    tournament allocates."""
     mm = ctx.backend.ring_mm
-    mu_sq = P.smul(ctx, mu, mu)
-    u = AShare(mu_sq.s0.sum(1), mu_sq.s1.sum(1))
+    with ctx.spans.span("s1.mu_sq") if ctx.spans else NOOP:
+        mu_sq = P.smul(ctx, mu, mu)
+        u = AShare(mu_sq.s0.sum(1), mu_sq.s1.sum(1))
     mut = AShare(mu.s0.T, mu.s1.T)
     zl = torch.zeros_like
     if geo.partition == "vertical":
@@ -283,7 +312,7 @@ def _s1_body(ctx, geo: FitGeometry, xa, xb, mu: AShare, he,
         xmu = AShare(torch.cat([loc_a + j_a.s0, j_b.s0], 0),
                      torch.cat([j_a.s1, loc_b + j_b.s1], 0))
     d2 = P.sub(AShare(u.s0[None, :], u.s1[None, :]), P.lshift(xmu, 1))
-    return P.argmin_onehot(ctx, P.trunc(d2, ring.F), return_min=return_min)
+    return P.trunc(d2, ring.F)
 
 
 def _s3_partial_body(ctx, geo: FitGeometry, xa, xb, c: AShare, he):
@@ -293,6 +322,11 @@ def _s3_partial_body(ctx, geo: FitGeometry, xa, xb, c: AShare, he):
     he=None -> dense Beaver joint blocks; he=(ja, jb) -> the Protocol-2
     results of the mid-iteration host exchange on the assignment shares S1
     produced."""
+    with ctx.spans.span("s3.sums") if ctx.spans else NOOP:
+        return _s3_sums(ctx, geo, xa, xb, c, he)
+
+
+def _s3_sums(ctx, geo: FitGeometry, xa, xb, c: AShare, he):
     mm = ctx.backend.ring_mm
     k = geo.k
     dev = c.s0.device
@@ -348,20 +382,25 @@ def _s3_final_body(ctx, k: int, n: int, mu: AShare, num: AShare,
     On DTensors sharded over the samples, num and den arrive as partial
     sums; they are all-reduced here, before the first op that is not
     linear over a sum (CMP, truncation)."""
-    num, den = _replicated_share(num), _replicated_share(den)
-    dev = num.s0.device
-    one = AShare(torch.ones((k,), dtype=ring.DTYPE, device=dev),
-                 _zeros((k,), dev))
-    is_empty = P.cmp_lt(ctx, den, one)
-    den_safe = P.mux(ctx, is_empty, one, den)
-    m = int(np.ceil(np.log2(max(2, n))))
-    s = m // 2
-    num_s = P.trunc(num, s)
-    r = P.reciprocal(ctx, den_safe, max_den=n, f=f, extra_bits=s)
-    mu_new = P.smul(ctx, num_s, AShare(r.s0[:, None], r.s1[:, None]),
-                    trunc_f=f)
-    guard = AShare(is_empty.s0[:, None], is_empty.s1[:, None])
-    return P.mux(ctx, guard, mu, mu_new)
+    sp = ctx.spans
+    with sp.span("s3.finalize") if sp else NOOP:
+        num, den = _replicated_share(num), _replicated_share(den)
+        dev = num.s0.device
+        one = AShare(torch.ones((k,), dtype=ring.DTYPE, device=dev),
+                     _zeros((k,), dev))
+        with sp.span("s3.guard") if sp else NOOP:
+            is_empty = P.cmp_lt(ctx, den, one)
+            den_safe = P.mux(ctx, is_empty, one, den)
+        m = int(np.ceil(np.log2(max(2, n))))
+        s = m // 2
+        with sp.span("s3.reciprocal") if sp else NOOP:
+            r = P.reciprocal(ctx, den_safe, max_den=n, f=f, extra_bits=s)
+        with sp.span("s3.update") if sp else NOOP:
+            num_s = P.trunc(num, s)
+            mu_new = P.smul(ctx, num_s, AShare(r.s0[:, None], r.s1[:, None]),
+                            trunc_f=f)
+            guard = AShare(is_empty.s0[:, None], is_empty.s1[:, None])
+            return P.mux(ctx, guard, mu, mu_new)
 
 
 def _s3_body(ctx, geo: FitGeometry, xa, xb, mu: AShare, c: AShare, he):
@@ -536,8 +575,9 @@ def fit_programs(partition: str, sparse: bool, shape_a, shape_b, k: int,
     xa, xb = _zeros(geo.shape_a, device), _zeros(geo.shape_b, device)
     mu = AShare(_zeros((k, d), device), _zeros((k, d), device))
 
-    def ctx_over(dealer):
-        return P.Ctx(dealer=dealer, log=CommLog(), backend=ring_backend)
+    def ctx_over(dealer, spans=None):
+        return P.Ctx(dealer=dealer, log=CommLog(), backend=ring_backend,
+                     spans=spans)
 
     rec1 = RecordingDealer(device)
     _s1_body(ctx_over(rec1), geo, xa, xb, mu,
@@ -548,16 +588,21 @@ def fit_programs(partition: str, sparse: bool, shape_a, shape_b, k: int,
              _zero_he(geo.he_shapes_s3(), device))
 
     def s1(xa, xb, mu0, mu1, *rest):
-        he, flat = _split_he(rest, geo.he_shapes_s1())
-        ctx = ctx_over(ListDealer(flat, mu0.device))
-        c = _s1_body(ctx, geo, xa, xb, AShare(mu0, mu1), he)
-        return c.s0, c.s1
+        sp = _program_spans(mu0)
+        with sp.span("prog.s1") if sp else NOOP:
+            he, flat = _split_he(rest, geo.he_shapes_s1())
+            ctx = ctx_over(ListDealer(flat, mu0.device), sp)
+            c = _s1_body(ctx, geo, xa, xb, AShare(mu0, mu1), he)
+            return c.s0, c.s1
 
     def s3(xa, xb, mu0, mu1, c0, c1, *rest):
-        he, flat = _split_he(rest, geo.he_shapes_s3())
-        ctx = ctx_over(ListDealer(flat, mu0.device))
-        out = _s3_body(ctx, geo, xa, xb, AShare(mu0, mu1), AShare(c0, c1), he)
-        return out.s0, out.s1
+        sp = _program_spans(mu0)
+        with sp.span("prog.s3") if sp else NOOP:
+            he, flat = _split_he(rest, geo.he_shapes_s3())
+            ctx = ctx_over(ListDealer(flat, mu0.device), sp)
+            out = _s3_body(ctx, geo, xa, xb, AShare(mu0, mu1),
+                           AShare(c0, c1), he)
+            return out.s0, out.s1
 
     progs = FitPrograms(geo, s1, s3, list(rec1.requests), list(rec3.requests))
     _PROGRAM_CACHE[key] = progs
@@ -614,8 +659,9 @@ def fit_batch_programs(partition: str, sparse: bool, shape_a, shape_b,
     n, d = geo.n, geo.d
     xa, xb = _zeros(geo.shape_a, device), _zeros(geo.shape_b, device)
 
-    def ctx_over(dealer):
-        return P.Ctx(dealer=dealer, log=CommLog(), backend=ring_backend)
+    def ctx_over(dealer, spans=None):
+        return P.Ctx(dealer=dealer, log=CommLog(), backend=ring_backend,
+                     spans=spans)
 
     rec1 = RecordingDealer(device)
     _s1_body(ctx_over(rec1), geo, xa, xb,
@@ -627,16 +673,20 @@ def fit_batch_programs(partition: str, sparse: bool, shape_a, shape_b,
                      _zero_he(geo.he_shapes_s3(), device))
 
     def s1(xa, xb, mu0, mu1, *rest):
-        he, flat = _split_he(rest, geo.he_shapes_s1())
-        ctx = ctx_over(ListDealer(flat, mu0.device))
-        c = _s1_body(ctx, geo, xa, xb, AShare(mu0, mu1), he)
-        return c.s0, c.s1
+        sp = _program_spans(mu0)
+        with sp.span("prog.s1") if sp else NOOP:
+            he, flat = _split_he(rest, geo.he_shapes_s1())
+            ctx = ctx_over(ListDealer(flat, mu0.device), sp)
+            c = _s1_body(ctx, geo, xa, xb, AShare(mu0, mu1), he)
+            return c.s0, c.s1
 
     def s3p(xa, xb, c0, c1, *rest):
-        he, flat = _split_he(rest, geo.he_shapes_s3())
-        ctx = ctx_over(ListDealer(flat, c0.device))
-        num, den = _s3_partial_body(ctx, geo, xa, xb, AShare(c0, c1), he)
-        return num.s0, num.s1, den.s0, den.s1
+        sp = _program_spans(c0)
+        with sp.span("prog.s3p") if sp else NOOP:
+            he, flat = _split_he(rest, geo.he_shapes_s3())
+            ctx = ctx_over(ListDealer(flat, c0.device), sp)
+            num, den = _s3_partial_body(ctx, geo, xa, xb, AShare(c0, c1), he)
+            return num.s0, num.s1, den.s0, den.s1
 
     progs = BatchPrograms(geo, s1, s3p, list(rec1.requests),
                           list(rec3.requests))
@@ -671,8 +721,9 @@ def finalize_program(k: int, d: int, n: int, backend="cuda",
     if hit is not None:
         return hit
 
-    def ctx_over(dealer):
-        return P.Ctx(dealer=dealer, log=CommLog(), backend=ring_backend)
+    def ctx_over(dealer, spans=None):
+        return P.Ctx(dealer=dealer, log=CommLog(), backend=ring_backend,
+                     spans=spans)
 
     rec = RecordingDealer(device)
     _s3_final_body(ctx_over(rec), k, n,
@@ -680,10 +731,12 @@ def finalize_program(k: int, d: int, n: int, backend="cuda",
                      for s in ((k, d), (k, d), (k,))))
 
     def fn(mu0, mu1, num0, num1, den0, den1, *flat):
-        ctx = ctx_over(ListDealer(list(flat), mu0.device))
-        out = _s3_final_body(ctx, k, n, AShare(mu0, mu1),
-                             AShare(num0, num1), AShare(den0, den1))
-        return out.s0, out.s1
+        sp = _program_spans(mu0)
+        with sp.span("prog.finalize") if sp else NOOP:
+            ctx = ctx_over(ListDealer(list(flat), mu0.device), sp)
+            out = _s3_final_body(ctx, k, n, AShare(mu0, mu1),
+                                 AShare(num0, num1), AShare(den0, den1))
+            return out.s0, out.s1
 
     prog = FinalizeProgram(fn, list(rec.requests))
     _FINALIZE_CACHE[key] = prog
@@ -760,8 +813,9 @@ def predict_program(partition: str, sparse: bool, shape_a, shape_b, k: int,
 
     fgeo = geo.fit_geometry()
 
-    def ctx_over(dealer):
-        return P.Ctx(dealer=dealer, log=CommLog(), backend=ring_backend)
+    def ctx_over(dealer, spans=None):
+        return P.Ctx(dealer=dealer, log=CommLog(), backend=ring_backend,
+                     spans=spans)
 
     rec = RecordingDealer(device)
     _s1_body(ctx_over(rec), fgeo, _zeros(geo.shape_a, device),
@@ -770,14 +824,16 @@ def predict_program(partition: str, sparse: bool, shape_a, shape_b, k: int,
              _zero_he(fgeo.he_shapes_s1(), device), return_min=with_scores)
 
     def fn(xa, xb, mu0, mu1, *rest):
-        he, flat = _split_he(rest, fgeo.he_shapes_s1())
-        ctx = ctx_over(ListDealer(flat, mu0.device))
-        out = _s1_body(ctx, fgeo, xa, xb, AShare(mu0, mu1), he,
-                       return_min=with_scores)
-        if with_scores:
-            c, v = out
-            return c.s0, c.s1, v.s0, v.s1
-        return out.s0, out.s1
+        sp = _program_spans(mu0)
+        with sp.span("prog.predict") if sp else NOOP:
+            he, flat = _split_he(rest, fgeo.he_shapes_s1())
+            ctx = ctx_over(ListDealer(flat, mu0.device), sp)
+            out = _s1_body(ctx, fgeo, xa, xb, AShare(mu0, mu1), he,
+                           return_min=with_scores)
+            if with_scores:
+                c, v = out
+                return c.s0, c.s1, v.s0, v.s1
+            return out.s0, out.s1
 
     prog = PredictProgram(geo, fn, list(rec.requests))
     _PREDICT_PROGRAM_CACHE[key] = prog

@@ -1,7 +1,8 @@
 """Telemetry plane: span tracing, metrics registry, distributed request
-traces (DESIGN.md §15). The JAX package's `obs` line for line: it imports
-neither torch nor jax, so the two packages record the same spans and
-series under the same names."""
+traces (DESIGN.md §15). The JAX package's `obs`, plus span ids and
+parents and the program-span level of `trace.py`: it imports neither
+torch nor jax, so the two packages record the same reference-named
+spans and series under the same names."""
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       MetricsServer, StatsLineLogger, get_registry,
                       register_bank, register_commlog, register_replenisher,

@@ -24,13 +24,39 @@ The module-level `span`/`instant` helpers delegate to the GLOBAL tracer
 (`get_tracer`); components that need per-endpoint span files (e.g. a
 client and a server in one test process) accept an explicit `tracer=`.
 
+Every recorded span carries an ``id`` and its ``parent``'s id (the span
+open on the same thread when it opened, from a thread-local stack); the
+Chrome export puts both in the event's ``args``.
+
 Spans time the host, as the JAX package's do: a CUDA launch returns
 before the card runs it, so a span around queued kernels measures their
 enqueue. No span argument may read a device tensor (an `.item()` would
 wait for the card on every call, tracing on or off); shapes are fine.
+
+**Program spans** are a second level, apart from those reference-named
+spans (`fit.*`, `serve.*`, ...), which do not change: the spans inside
+the secure Lloyd programs (`launch/kmeans_step.py`, `core/protocol.py`:
+``prog.*``, ``s1.*``, ``s2.*``, ``s3.*``, ``beaver.*``). A program call
+asks `program_spans` once whether to record them: only while the tracer
+is configured for them (``configure(programs=True)``) or while a
+`torch.profiler` session records. Otherwise it gets None, and each of its
+ops pays one attribute check: no `record_function`, no CUDA event, no
+synchronize, no read of a device tensor. A recorded program span keeps
+the host clocks of any span and, where the call's tensors are on a CUDA
+device, a CUDA event pair on the current stream: the span's interval on
+the device's stream (``dev_us``, from the card reaching its first
+operation to finishing its last, waits for the host included). The pair
+is resolved when the events are read or exported, once the card has
+passed it (after the caller's own synchronize): never a synchronize
+inside the program. While a profiler records, the span is also a
+`record_function` range of its name, so it lands in the profiler's trace
+on CUPTI's clock, on the host and, as ``gpu_user_annotation``, on the
+device. Program spans fill the global tracer like any other (bounded by
+`max_events`); `reset` frees them and their events.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import secrets
 import threading
@@ -68,6 +94,22 @@ def current_trace() -> str | None:
     return getattr(_TLS, "trace", None)
 
 
+_IDS = itertools.count(1)
+
+
+def _stack() -> list:
+    """This thread's stack of open span ids (the innermost last)."""
+    stack = getattr(_TLS, "stack", None)
+    if stack is None:
+        stack = _TLS.stack = []
+    return stack
+
+
+def _innermost() -> int | None:
+    stack = _stack()
+    return stack[-1] if stack else None
+
+
 class _NoopSpan:
     """Shared do-nothing context manager — what a disabled tracer returns.
     One module-level instance, so the disabled fast path allocates
@@ -83,13 +125,15 @@ class _NoopSpan:
 
 
 _NOOP = _NoopSpan()
+NOOP = _NOOP  # what a program op enters when its call records no spans
 
 
 class _Span:
     """One live span: records on `__exit__`. Cheap on purpose — two clock
     reads plus one locked list append per span."""
 
-    __slots__ = ("tracer", "name", "args", "t_epoch_us", "t0")
+    __slots__ = ("tracer", "name", "args", "id", "parent", "t_epoch_us",
+                 "t0")
 
     def __init__(self, tracer: "Tracer", name: str, args: dict):
         self.tracer = tracer
@@ -97,13 +141,87 @@ class _Span:
         self.args = args
 
     def __enter__(self):
+        stack = _stack()
+        self.parent = stack[-1] if stack else None
+        self.id = next(_IDS)
+        stack.append(self.id)
         self.t_epoch_us = time.time_ns() // 1_000
         self.t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         dur_us = max(0, (time.perf_counter_ns() - self.t0) // 1_000)
-        self.tracer._record(self.name, self.t_epoch_us, dur_us, self.args)
+        _stack().pop()
+        self.tracer._record(self.name, self.t_epoch_us, dur_us, self.args,
+                            self.id, self.parent)
+        return False
+
+
+class ProgramSpans:
+    """The program-span level of ONE program call (see the module
+    docstring): what `program_spans` hands a call that records them. On a
+    CUDA device it times each span by an event pair on the stream that is
+    current at the call's first span (looked up once: a lookup costs as
+    much as the record); while a profiler records it opens a
+    `record_function` range too."""
+
+    __slots__ = ("tracer", "cuda", "stream", "range")
+
+    def __init__(self, tracer: "Tracer", cuda: bool, profiling: bool):
+        import torch
+        self.tracer = tracer
+        self.cuda = torch.cuda if cuda else None
+        self.stream = None
+        self.range = torch.profiler.record_function if profiling else None
+
+    def span(self, name: str, **args) -> "_ProgramSpan":
+        return _ProgramSpan(self, name, args)
+
+    def record(self):
+        """A timing event recorded on the call's stream."""
+        if self.stream is None:
+            self.stream = self.cuda.current_stream()
+        ev = self.cuda.Event(enable_timing=True)
+        ev.record(self.stream)
+        return ev
+
+
+class _ProgramSpan:
+    """One live program span; records on `__exit__`, its CUDA event pair
+    left pending until the tracer's events are read."""
+
+    __slots__ = ("level", "name", "args", "id", "parent", "t_epoch_us", "t0",
+                 "ev0", "rf")
+
+    def __init__(self, level: ProgramSpans, name: str, args: dict):
+        self.level = level
+        self.name = name
+        self.args = args
+
+    def __enter__(self):
+        level = self.level
+        if level.range is not None:
+            self.rf = level.range(self.name)
+            self.rf.__enter__()
+        stack = _stack()
+        self.parent = stack[-1] if stack else None
+        self.id = next(_IDS)
+        stack.append(self.id)
+        if level.cuda is not None:
+            self.ev0 = level.record()
+        self.t_epoch_us = time.time_ns() // 1_000
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dur_us = max(0, (time.perf_counter_ns() - self.t0) // 1_000)
+        level = self.level
+        dev = None if level.cuda is None else (self.ev0, level.record())
+        _stack().pop()
+        level.tracer._record(self.name, self.t_epoch_us, dur_us, self.args,
+                             self.id, self.parent, dev)
+        if level.range is not None:
+            self.rf.__exit__(*exc)
         return False
 
 
@@ -132,13 +250,17 @@ class Tracer:
       `rotated_out`.
     * `sample_rate=r` records ~every ``round(1/r)``-th event per category
       (deterministic counter sampling, not RNG — reruns trace the same
-      spans). Skips count in `sampled_out`."""
+      spans). Skips count in `sampled_out`.
+
+    `programs=True` (`configure`) records the program spans of every
+    program call, profiler or not; `enabled` does not govern them."""
 
     def __init__(self, enabled: bool = False, process: str = "repro",
                  max_events: int = 1_000_000,
                  rotate_spans: int | None = None,
                  sample_rate: float = 1.0):
         self.enabled = bool(enabled)
+        self.programs = False
         self.process = str(process)
         self.max_events = int(max_events)
         self.dropped = 0
@@ -188,7 +310,8 @@ class Tracer:
         tid = current_trace()
         if tid is not None and "trace" not in args:
             args["trace"] = tid
-        self._record(name, time.time_ns() // 1_000, None, args)
+        self._record(name, time.time_ns() // 1_000, None, args,
+                     next(_IDS), _innermost())
 
     def complete_span(self, name: str, start_epoch_us: int, dur_us: int,
                       **args) -> None:
@@ -201,13 +324,17 @@ class Tracer:
         tid = current_trace()
         if tid is not None and "trace" not in args:
             args["trace"] = tid
-        self._record(name, int(start_epoch_us), max(0, int(dur_us)), args)
+        self._record(name, int(start_epoch_us), max(0, int(dur_us)), args,
+                     next(_IDS), _innermost())
 
     def _record(self, name: str, ts_us: int, dur_us: int | None,
-                args: dict) -> None:
+                args: dict, span_id: int, parent: int | None,
+                dev: tuple | None = None) -> None:
         th = threading.current_thread()
         ev = {"name": name, "ts": ts_us, "tid": th.ident,
-              "args": args}
+              "args": args, "id": span_id, "parent": parent}
+        if dev is not None:
+            ev["_dev"] = dev
         if dur_us is None:
             ev["ph"] = "i"
             ev["s"] = "t"
@@ -237,18 +364,30 @@ class Tracer:
             self._threads.setdefault(th.ident, th.name)
 
     def _all_events(self) -> list[dict]:
-        """Every retained event (flat list + rotation rings), ts-ordered.
-        Caller must hold `_lock`."""
+        """Every retained event (flat list + rotation rings), ts-ordered,
+        each program span's CUDA event pair resolved to ``dev_us`` once the
+        card has passed it. Caller must hold `_lock`."""
         evs = list(self._events)
         for ring in self._rings.values():
             evs.extend(ring)
         evs.sort(key=lambda e: e["ts"])
+        for e in evs:
+            if "_dev" in e and e["_dev"][1].query():
+                start, end = e.pop("_dev")
+                e["dev_us"] = 1e3 * start.elapsed_time(end)
         return evs
+
+    @staticmethod
+    def _public(e: dict) -> dict:
+        """A copy of an event without a pair still pending on the card."""
+        e = dict(e)
+        e.pop("_dev", None)
+        return e
 
     # -- queries ----------------------------------------------------------
     def events(self) -> list[dict]:
         with self._lock:
-            return [dict(e) for e in self._all_events()]
+            return [self._public(e) for e in self._all_events()]
 
     def span_counts(self) -> dict:
         """{span name: count} over everything retained so far."""
@@ -260,7 +399,7 @@ class Tracer:
 
     def spans_for_trace(self, trace_id: str) -> list[dict]:
         with self._lock:
-            return [dict(e) for e in self._all_events()
+            return [self._public(e) for e in self._all_events()
                     if e["args"].get("trace") == trace_id]
 
     def reset(self) -> None:
@@ -278,7 +417,7 @@ class Tracer:
         """The Chrome-trace event list: metadata rows naming the process
         and thread lanes, then every recorded span."""
         with self._lock:
-            events = [dict(e) for e in self._all_events()]
+            events = [self._public(e) for e in self._all_events()]
             threads = dict(self._threads)
         out = [{"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
                 "args": {"name": self.process}}]
@@ -288,6 +427,13 @@ class Tracer:
         for e in events:
             e["pid"] = pid
             e["cat"] = e["name"].split(".")[0].split("_")[0]
+            args = dict(e["args"], id=e.pop("id"))
+            parent = e.pop("parent")
+            if parent is not None:
+                args["parent"] = parent
+            if "dev_us" in e:
+                args["dev_us"] = e.pop("dev_us")
+            e["args"] = args
             out.append(e)
         return out
 
@@ -342,12 +488,16 @@ def get_tracer() -> Tracer:
 def configure(enabled: bool | None = None, process: str | None = None,
               max_events: int | None = None,
               rotate_spans: int | None = None,
-              sample_rate: float | None = None) -> Tracer:
+              sample_rate: float | None = None,
+              programs: bool | None = None) -> Tracer:
     """Adjust the global tracer in place (None = leave unchanged; passing
     either bounded-memory knob resets the rotation rings + sample
-    counters)."""
+    counters). `programs` records the program spans of every program call
+    (without it, only while a `torch.profiler` session records)."""
     if enabled is not None:
         _TRACER.enabled = bool(enabled)
+    if programs is not None:
+        _TRACER.programs = bool(programs)
     if process is not None:
         _TRACER.process = str(process)
     if max_events is not None:
@@ -372,6 +522,17 @@ def span(name: str, **args):
 def instant(name: str, **args) -> None:
     if _TRACER.enabled:
         _TRACER.instant(name, **args)
+
+
+def program_spans(cuda: bool, profiling: bool) -> ProgramSpans | None:
+    """The program-span level of one program call on the global tracer, or
+    None when the call records no program spans: the tracer is not
+    configured for them and no profiler records (`profiling`, which the
+    caller reads from torch). `cuda`: the call's tensors are on a CUDA
+    device."""
+    if not (_TRACER.programs or profiling):
+        return None
+    return ProgramSpans(_TRACER, cuda, profiling)
 
 
 # -- multi-process timeline merge --------------------------------------------
