@@ -12,7 +12,9 @@ csrc` (into the ignored `build/torch_kernels/`), then:
      exact integer equality, at the main path's full-size shapes and at odd
      and wrap-heavy ones (ring_matmul also at phase 10's widths and operand
      layouts, at a ragged n, which loads its wide variants before any timed
-     wall), and times ks_carry_share and spmm_ell there;
+     wall), and times ks_carry_share and spmm_ell there, and the secure
+     reciprocal's Newton loop (`kernels/newton.py`) at the benchmark
+     cells' (k, iters), beside its plain chain and a latency estimate;
      ring_matmul is timed at the operand layouts the dense and sparse fits
      really pass (transposed and sliced views, read in place, and the
      contiguous ones), the wrapper's work included;
@@ -577,7 +579,63 @@ def phase_kernels(rng):
         print(f"ks_carry_share {shape} (both parties): equal; kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{_fmt_bound(bound)}", flush=True)
+    phase_newton(words)
     return rows, worst
+
+
+# (k, iters) of S3's Newton loop in the benchmark's cells: fraud-deploy (k =
+# 5, n = 6,362,620) and kmeans-fraud (k = 16, n = 2^19); iters = 0 launches
+# once and copies x0: the launch's floor
+NEWTON_CASES = ((5, 29), (16, 25), (5, 0), (16, 0), (4099, 45))
+NEWTON_DEP_CYCLES = 40   # estimated dependent-chain cycles of one product
+
+
+def newton_bound_ms(iters: int) -> float:
+    """Latency bound of the loop: 2 * iters Beaver products, each waiting on
+    the one before, at NEWTON_DEP_CYCLES cycles of the SM's top clock."""
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    return 1e3 * 2 * iters * NEWTON_DEP_CYCLES / clock
+
+
+def phase_newton(words) -> None:
+    """The reciprocal's Newton loop: kernel = plain version, word for word,
+    and its time at the cells' (k, iters), with the plain chain's."""
+    from repro_torch.core import ring
+    from repro_torch.core.sharing import AShare
+    from repro_torch.core.triples import MulTriple
+    from repro_torch.kernels import newton
+
+    def share(k):
+        return AShare(words((k,)), words((k,)))
+
+    for k, iters in NEWTON_CASES:
+        dp, x0 = share(k), share(k)
+        triples = [MulTriple(share(k), share(k), share(k))
+                   for _ in range(2 * iters)]
+
+        def kernel():
+            return newton.newton_recip(dp, x0, triples, f=ring.F,
+                                       iters=iters)
+
+        def plain():
+            return newton.newton_recip_plain(dp, x0, triples, f=ring.F,
+                                             iters=iters)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if not (torch.equal(got.s0, want.s0)
+                and torch.equal(got.s1, want.s1)):
+            fail(f"newton_recip k={k} iters={iters} differs from its plain "
+                 f"version")
+        ms = device_ms(kernel, [()])
+        plain_ms = device_ms(plain, [()], reps=5, bursts=3)
+        print(f"newton_recip k={k} iters={iters}: equal; kernel "
+              f"{1e3 * ms:.2f} us, plain {1e3 * plain_ms:.2f} us, latency "
+              f"bound {1e3 * newton_bound_ms(iters):.2f} us (estimate)",
+              flush=True)
 
 
 def fit_operand(gen, rows: int, cols: int, kind, mu_width: int):

@@ -12,6 +12,10 @@ small dispatch interface:
   * ``ks_fused`` — one party's fused Kogge-Stone recombination: all 7 AND
                    levels of the secure-adder MSB in one local pass given the
                    exchanged masked operands.
+  * ``newton_recip`` — the secure reciprocal's Newton loop: 2 * iters
+                   Beaver products, openings and recombinations of both
+                   parties, on drawn triples (``newton_impl`` names the
+                   implementation: "plain" or "kernel").
 
 Three implementations:
 
@@ -33,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import ksadder, modmatmul, spmm
+from repro_torch.kernels import ksadder, modmatmul, newton, spmm
 from repro_torch.kernels.ksadder import LEVELS as KS_LEVELS
 
 __all__ = ["KS_LEVELS", "RingBackend", "TorchBackend", "CudaBackend",
@@ -82,11 +86,20 @@ class RingBackend:
         still drawn and exchanged by msb_carry: they mask the transcript."""
         raise NotImplementedError
 
+    def newton_recip(self, dp, x0, triples, *, f: int, iters: int):
+        """The AShare x after `iters` Newton iterations x <- x(2 - dp x)
+        from x0, each product a truncated Beaver product on the next two
+        of the 2 * iters drawn `triples` (dx, then x). Bit for bit the
+        chain of `protocol.smul`s; the caller draws the triples and logs
+        the openings' traffic."""
+        raise NotImplementedError
+
 
 class TorchBackend(RingBackend):
     """Plain PyTorch on any device — the parity oracle."""
 
     name = "torch"
+    newton_impl = "plain"
 
     def ring_mm(self, a, b):
         return modmatmul.ring_matmul_plain(a, b)
@@ -98,6 +111,9 @@ class TorchBackend(RingBackend):
                  party0: bool):
         return ksadder.ks_carry_share_plain(x, e0, f0, u0, v0, z0, el, fl,
                                             ul, vl, zl, party0=party0)
+
+    def newton_recip(self, dp, x0, triples, *, f: int, iters: int):
+        return newton.newton_recip_plain(dp, x0, triples, f=f, iters=iters)
 
 
 def _require_cuda(*tensors) -> None:
@@ -112,6 +128,7 @@ class CudaBackend(RingBackend):
     """The hand-written Hopper kernels (kernels/csrc)."""
 
     name = "cuda"
+    newton_impl = "kernel"
 
     def __init__(self):
         if not torch.cuda.is_available():
@@ -132,6 +149,10 @@ class CudaBackend(RingBackend):
         args = (x, e0, f0, u0, v0, z0, el, fl, ul, vl, zl)
         _require_cuda(*args)
         return ksadder.ks_carry_share(*args, party0=party0)
+
+    def newton_recip(self, dp, x0, triples, *, f: int, iters: int):
+        _require_cuda(*dp, *x0)
+        return newton.newton_recip(dp, x0, triples, f=f, iters=iters)
 
 
 def _csr_spmm_chunked(csr, y: np.ndarray) -> np.ndarray:
@@ -182,6 +203,10 @@ class NumpyBackend(TorchBackend):
         _require_cpu(x, e0, f0, u0, v0, z0, el, fl, ul, vl, zl)
         return super().ks_fused(x, e0, f0, u0, v0, z0, el, fl, ul, vl, zl,
                                 party0=party0)
+
+    def newton_recip(self, dp, x0, triples, *, f: int, iters: int):
+        _require_cpu(*dp, *x0)
+        return super().newton_recip(dp, x0, triples, f=f, iters=iters)
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,10 @@ is `ring.logical_rshift`.
 
 A call that records program spans (obs/trace.py) carries them on its
 `Ctx`: `beaver.open` around each masked-operand computation and its
-exchange (args `kind`, `triples` opened), `beaver.combine` around each
-recombination, `s2.level` around each round of the tournament (args
-`level`, `pairs` compared). With `ctx.spans` None an op pays one
+exchange (args `kind`, `triples` opened; the reciprocal's whole Newton
+loop is one), `beaver.combine` around each other recombination,
+`s2.level` around each round of the tournament (args `level`, `pairs`
+compared). With `ctx.spans` None an op pays one
 attribute check and enters the shared no-op.
 """
 from __future__ import annotations
@@ -422,6 +423,12 @@ def _tournament_level(ctx: Ctx, vals: AShare, ohs: AShare | None, eye,
 # Secure reciprocal (division -> SADD/SMUL, paper Sec 4.2 F_SCU)
 # ---------------------------------------------------------------------------
 
+def newton_iters(max_den: float) -> int:
+    """`reciprocal`'s default Newton iteration count: m + 6, with m =
+    ceil(log2 max_den)."""
+    return max(0, int(np.ceil(np.log2(max_den)))) + 6
+
+
 def reciprocal(ctx: Ctx, den: AShare, max_den: float, *, f: int = ring.F,
                iters: int | None = None, extra_bits: int = 0) -> AShare:
     """Newton-Raphson 1/den, den an *integer-valued* share (scale 1) in
@@ -435,19 +442,29 @@ def reciprocal(ctx: Ctx, den: AShare, max_den: float, *, f: int = ring.F,
     extra_bits <= m keeps that many bits of the internal scale, trading
     headroom for 2^-(f+extra-m)-relative precision (the centroid update uses
     it: the following num*recip product cancels den).
+
+    Each iteration is two truncated `smul`s (dx = d'x, then x(2 - dx)): the
+    2 * iters mul triples are drawn and their openings exchanged in that
+    order, one round each, and the loop itself is one `backend.newton_recip`
+    call (the newton kernel on the cuda backend), under one `beaver.open`.
     """
     m = max(0, int(np.ceil(np.log2(max_den))))
     extra_bits = min(extra_bits, m)
     if iters is None:
-        iters = m + 6
+        iters = newton_iters(max_den)
     if m <= f:
         dp = lshift(den, f - m)                   # exact local rescale
     else:
         dp = trunc(mul_pub(den, ring.to_i64(1 << (2 * f - m))), f)
     two = ring.encode(2.0, f, device=den.s0.device)
     x = pub_sub(two, dp)                          # x0 = 2 - d'
-    for _ in range(iters):
-        dx = smul(ctx, dp, x, trunc_f=f)
-        x = smul(ctx, x, pub_sub(two, dx), trunc_f=f)
+    shape = dp.shape
+    triples = [ctx.dealer.mul_triple(shape, tag=ctx.tag)
+               for _ in range(2 * iters)]
+    with ctx.spans.span("beaver.open", kind="mul", triples=2 * iters) \
+            if ctx.spans else NOOP:
+        for _ in range(2 * iters):
+            ctx.send(2 * 2 * ring.nbytes(shape), rounds=1)  # E, F each way
+        x = ctx.backend.newton_recip(dp, x, triples, f=f, iters=iters)
     # x ~ 2^(f+m)/den; drop (m - extra_bits) to land at scale f + extra_bits
     return trunc(x, m - extra_bits) if m > extra_bits else x

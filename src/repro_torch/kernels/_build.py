@@ -46,6 +46,9 @@ SIGNATURES = {
     "esd": ("esd_launch", [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
                            _P]),
     "argmin": ("argmin_onehot_launch", [_P, _P, _I64, _I32, _I32, _P]),
+    "newton": ("newton_recip_launch",
+               [_P, _I32, _I32] + [_P] * 5
+               + [_I64, _I32, _I64, _I32, _I32, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -37,7 +37,9 @@ fit pair opens `prog.s1` / `prog.s3`, the batch pair `prog.s1` /
 `prog.s3p`, the finalize and predict programs `prog.finalize` /
 `prog.predict`, each from entry to return; the bodies open `s1.distances`
 (with `s1.mu_sq`), `s2.tournament`, `s3.sums` and `s3.finalize` (with
-`s3.guard`, `s3.reciprocal`, `s3.update`).
+`s3.guard`, `s3.reciprocal`, `s3.update`); `s3.reciprocal` carries the
+Newton loop's `impl` ("kernel" on the cuda backend, else "plain") and
+`iters`.
 """
 from __future__ import annotations
 
@@ -246,6 +248,9 @@ class _ReducedProducts(RingBackend):
     def ks_fused(self, *args, **kwargs):
         return self.inner.ks_fused(*args, **kwargs)
 
+    def newton_recip(self, *args, **kwargs):
+        return self.inner.newton_recip(*args, **kwargs)
+
 
 def _program_spans(t: torch.Tensor):
     """The program spans of one program call whose tensors are on `t`'s
@@ -393,8 +398,11 @@ def _s3_final_body(ctx, k: int, n: int, mu: AShare, num: AShare,
             den_safe = P.mux(ctx, is_empty, one, den)
         m = int(np.ceil(np.log2(max(2, n))))
         s = m // 2
-        with sp.span("s3.reciprocal") if sp else NOOP:
-            r = P.reciprocal(ctx, den_safe, max_den=n, f=f, extra_bits=s)
+        iters = P.newton_iters(n)
+        with sp.span("s3.reciprocal", impl=ctx.backend.newton_impl,
+                     iters=iters) if sp else NOOP:
+            r = P.reciprocal(ctx, den_safe, max_den=n, f=f, iters=iters,
+                             extra_bits=s)
         with sp.span("s3.update") if sp else NOOP:
             num_s = P.trunc(num, s)
             mu_new = P.smul(ctx, num_s, AShare(r.s0[:, None], r.s1[:, None]),

@@ -13,7 +13,10 @@ import torch
 
 from repro_torch.core import ring
 from repro_torch.core.kmeans import KMeansConfig, SecureKMeans
-from repro_torch.kernels import argmin, esd, ksadder, modmatmul, ops, spmm
+from repro_torch.core.sharing import AShare
+from repro_torch.core.triples import MulTriple
+from repro_torch.kernels import (argmin, esd, ksadder, modmatmul, newton, ops,
+                                 spmm)
 
 pytestmark = pytest.mark.cuda
 RNG = np.random.default_rng(5)
@@ -362,6 +365,83 @@ def test_ks_carry_share_kernel_equals_plain(cuda, shape, party0):
     assert ksadder.LAUNCHES == before + 1
     assert torch.equal(got, ksadder.ks_carry_share_plain(*flat, *lvls,
                                                          party0=party0))
+
+
+def _newton_triples(k, count, dev, layout):
+    """`count` mul triples of (k,) random words: separate tensors, rows of
+    one stacked pool (views), or strided views of one."""
+    if layout == "separate":
+        return [MulTriple(*(AShare(_words((k,), dev), _words((k,), dev))
+                            for _ in range(3))) for _ in range(count)]
+    pool = _words((count, 6, 2 * k), dev)
+    pool = pool[..., :k] if layout == "pooled" else pool[..., ::2]
+    return [MulTriple(AShare(p[0], p[1]), AShare(p[2], p[3]),
+                      AShare(p[4], p[5])) for p in pool]
+
+
+@pytest.mark.parametrize("layout", ["separate", "pooled", "strided"])
+@pytest.mark.parametrize("iters", [1, 25, 29, 45])
+@pytest.mark.parametrize("k", [1, 5, 16, 4099])
+def test_newton_recip_kernel_equals_plain(cuda, k, iters, layout):
+    """Word for word, one launch per newton.MAX_ITERS iterations (45
+    takes two, x carried between them through the output)."""
+    dp = AShare(_words((k,), cuda), _words((k,), cuda))
+    x0 = AShare(_words((k,), cuda), _words((k,), cuda))
+    triples = _newton_triples(k, 2 * iters, cuda, layout)
+    before = newton.LAUNCHES
+    got = newton.newton_recip(dp, x0, triples, f=20, iters=iters)
+    assert newton.LAUNCHES == before + -(-iters // newton.MAX_ITERS)
+    want = newton.newton_recip_plain(dp, x0, triples, f=20, iters=iters)
+    assert torch.equal(got.s0, want.s0) and torch.equal(got.s1, want.s1)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 41])
+def test_newton_recip_kernel_chunks(cuda, monkeypatch, chunk):
+    """Any chunk the parameter struct holds gives the same words, x
+    carried between launches through the output; 41 iterations a launch
+    is more than it holds, and the launcher refuses it."""
+    monkeypatch.setattr(newton, "MAX_ITERS", chunk)
+    dp = AShare(_words((5,), cuda), _words((5,), cuda))
+    x0 = AShare(_words((5,), cuda), _words((5,), cuda))
+    triples = _newton_triples(5, 2 * 29, cuda, "pooled")
+    if chunk > 40:
+        with pytest.raises(RuntimeError, match="newton_recip"):
+            newton.newton_recip(dp, x0, triples, f=20, iters=29)
+        return
+    before = newton.LAUNCHES
+    got = newton.newton_recip(dp, x0, triples, f=20, iters=29)
+    assert newton.LAUNCHES == before + -(-29 // chunk)
+    want = newton.newton_recip_plain(dp, x0, triples, f=20, iters=29)
+    assert torch.equal(got.s0, want.s0) and torch.equal(got.s1, want.s1)
+
+
+@pytest.mark.parametrize("k", [5, 16])
+def test_fit_programs_s3_kernel_equals_plain_on_the_card(cuda, k):
+    """A whole S3 program call on the cuda backend (its Newton loop one
+    kernel launch) = the same call on the torch backend, on the card."""
+    from repro_torch.core.triples import TrustedDealer
+    from repro_torch.launch import kmeans_step as KS
+    n, da, db = 300, 3, 4
+    progs = {b: KS.fit_programs("vertical", False, (n, da), (n, db), k,
+                                backend=b, device="cuda")
+             for b in ("cuda", "torch")}
+    assert progs["cuda"].s3_requests == progs["torch"].s3_requests
+    g = torch.Generator().manual_seed(k)
+    xa = torch.randint(-2 ** 21, 2 ** 21, (n, da), generator=g).to(cuda)
+    xb = torch.randint(-2 ** 21, 2 ** 21, (n, db), generator=g).to(cuda)
+    mu0, mu1 = (torch.randint(-2 ** 62, 2 ** 62, (k, da + db),
+                              generator=g).to(cuda) for _ in range(2))
+    dealer = TrustedDealer(seed=k, device="cuda")
+    flat1 = KS.materialize_offline(progs["cuda"].s1_requests, dealer)
+    flat3 = KS.materialize_offline(progs["cuda"].s3_requests, dealer)
+    c0, c1 = progs["cuda"].s1(xa, xb, mu0, mu1, *flat1)
+    before = newton.LAUNCHES
+    got = progs["cuda"].s3(xa, xb, mu0, mu1, c0, c1, *flat3)
+    assert newton.LAUNCHES == before + 1
+    want = progs["torch"].s3(xa, xb, mu0, mu1, c0, c1, *flat3)
+    assert newton.LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("case", [((12500, 1, 8, 128), 128, 3),

@@ -14,7 +14,9 @@ from repro.kernels.ksadder import ks_carry_share as j_ks_carry_share
 from repro_torch.core import ring
 from repro_torch.core.backend import (CudaBackend, RingBackend, TorchBackend,
                                       get_backend)
-from repro_torch.kernels import ksadder, modmatmul
+from repro_torch.core.sharing import AShare
+from repro_torch.core.triples import MulTriple
+from repro_torch.kernels import ksadder, modmatmul, newton
 
 RNG = np.random.default_rng(31)
 
@@ -435,3 +437,76 @@ def test_cuda_backend_refuses_cpu(monkeypatch):
                           torch.zeros((1, 1), dtype=torch.int32),
                           torch.ones((1,), dtype=torch.int32),
                           _t(_words((128, 3))))
+
+
+# ---------------------------------------------------------------------------
+# the reciprocal's Newton loop
+# ---------------------------------------------------------------------------
+
+def _newton_operands(k, iters):
+    def share():
+        return AShare(_t(_words((k,))), _t(_words((k,))))
+    return share(), share(), [MulTriple(share(), share(), share())
+                              for _ in range(2 * iters)]
+
+
+def _bad_newton_case(case):
+    """(dp, x0, triples, f, iters) with one fault, named by `case`."""
+    dp, x0, triples = _newton_operands(5, 3)
+    f, iters = 20, 3
+    if case == "negative_iters":
+        iters, triples = -1, []
+    elif case == "f_too_large":
+        f = 62
+    elif case == "negative_f":
+        f = -1
+    elif case == "triple_count":
+        triples = triples[:-1]
+    elif case == "triple_shape":
+        t = triples[3]
+        triples[3] = t._replace(z=AShare(t.z.s0, _t(_words((6,)))))
+    elif case == "x0_shape":
+        x0 = AShare(_t(_words((5, 1))), x0.s1)
+    elif case == "int32_words":
+        dp = AShare(dp.s0.to(torch.int32), dp.s1)
+    elif case == "two_devices":
+        dp = AShare(dp.s0.to("meta"), dp.s1)
+    return dp, x0, triples, f, iters
+
+
+@pytest.mark.parametrize("case", ["negative_iters", "f_too_large",
+                                  "negative_f", "triple_count",
+                                  "triple_shape", "x0_shape", "int32_words",
+                                  "two_devices"])
+def test_newton_recip_plain_refuses_bad_operands(case):
+    dp, x0, triples, f, iters = _bad_newton_case(case)
+    err = TypeError if case == "int32_words" else ValueError
+    with pytest.raises(err):
+        newton.newton_recip_plain(dp, x0, triples, f=f, iters=iters)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 4])
+def test_newton_recip_takes_the_plain_version_on_cpu(iters):
+    dp, x0, triples = _newton_operands(7, iters)
+    before = newton.LAUNCHES
+    got = newton.newton_recip(dp, x0, triples, f=20, iters=iters)
+    want = newton.newton_recip_plain(dp, x0, triples, f=20, iters=iters)
+    assert newton.LAUNCHES == before
+    assert torch.equal(got.s0, want.s0) and torch.equal(got.s1, want.s1)
+
+
+def test_newton_recip_by_backend(monkeypatch):
+    """The torch backend runs the plain loop and names it so; the cuda
+    backend names the kernel and refuses CPU tensors (with or without a
+    GPU)."""
+    dp, x0, triples = _newton_operands(3, 2)
+    got = TorchBackend().newton_recip(dp, x0, triples, f=20, iters=2)
+    want = newton.newton_recip_plain(dp, x0, triples, f=20, iters=2)
+    assert torch.equal(got.s0, want.s0) and torch.equal(got.s1, want.s1)
+    assert (TorchBackend.newton_impl, CudaBackend.newton_impl) == (
+        "plain", "kernel")
+    with pytest.raises(NotImplementedError):
+        RingBackend().newton_recip(dp, x0, triples, f=20, iters=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        CudaBackend().newton_recip(dp, x0, triples, f=20, iters=2)

@@ -199,3 +199,22 @@ def test_reference_spans_carry_ids_and_parents_into_the_export():
                                     "id": evs["fit.s1_launch"]["id"],
                                     "parent": evs["fit"]["id"]}
     assert "parent" not in out["fit"]
+
+
+@pytest.mark.parametrize("k", [16, 5])
+def test_reciprocal_span_names_its_impl_and_opens_once(k):
+    """`s3.reciprocal` says which Newton loop ran ("plain" on the CPU) and
+    for how many iterations; its one opening, with the loop's 2 * iters
+    triples, stands in for the chain's per-product spans."""
+    progs, step = _pair(k)
+    trace.configure(programs=True)
+    step()
+    evs = trace.get_tracer().events()
+    parent, ancestors = _tree(evs)
+    [rcp] = [e for e in evs if e["name"] == "s3.reciprocal"]
+    iters = math.ceil(math.log2(N)) + 6
+    assert rcp["args"] == {"impl": "plain", "iters": iters}
+    under = [e for e in evs if "s3.reciprocal" in ancestors(e)]
+    assert [(e["name"], e["args"]) for e in under] == [
+        ("beaver.open", {"kind": "mul", "triples": 2 * iters})]
+    assert parent(under[0]) is rcp

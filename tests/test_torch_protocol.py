@@ -11,8 +11,10 @@ from repro.core.sharing import AShare as JAShare
 from repro.core.sharing import BShare as JBShare
 from repro_torch.core import protocol as P
 from repro_torch.core import ring
+from repro_torch.core.channel import CommLog
 from repro_torch.core.interop import shares_from_numpy, shares_to_numpy
 from repro_torch.core.sharing import BShare, rec, rec_real, share_real
+from repro_torch.launch import kmeans_step as KS
 
 RNG = np.random.default_rng(77)
 
@@ -196,3 +198,72 @@ def test_share_real_feeds_protocol():
     """Shares made by the port's own sharing helpers reconstruct exactly."""
     a = share_real(np.array([1.5, -2.25]), np.random.default_rng(0))
     np.testing.assert_array_equal(rec_real(a).numpy(), [1.5, -2.25])
+
+
+class _SendLog(CommLog):
+    """A CommLog that also keeps every send, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.sends = []
+
+    def send(self, nbytes, *, tag="misc", phase="online", rounds=1):
+        self.sends.append((nbytes, tag, phase, rounds))
+        super().send(nbytes, tag=tag, phase=phase, rounds=rounds)
+
+
+def _smul_chain_reciprocal(ctx, den, max_den, *, f=ring.F, extra_bits=0):
+    """The reciprocal as 2 * iters `smul`s, one Beaver product at a time:
+    the loop `P.reciprocal` ran before its loop became one backend call."""
+    m = max(0, int(np.ceil(np.log2(max_den))))
+    extra_bits = min(extra_bits, m)
+    if m <= f:
+        dp = P.lshift(den, f - m)
+    else:
+        dp = P.trunc(P.mul_pub(den, ring.to_i64(1 << (2 * f - m))), f)
+    two = ring.encode(2.0, f)
+    x = P.pub_sub(two, dp)
+    for _ in range(m + 6):
+        dx = P.smul(ctx, dp, x, trunc_f=f)
+        x = P.smul(ctx, x, P.pub_sub(two, dx), trunc_f=f)
+    return P.trunc(x, m - extra_bits) if m > extra_bits else x
+
+
+@pytest.mark.parametrize("max_den,extra_bits", [(2048, 5), ((1 << 20) + 5, 0),
+                                                (6_362_620, 11)])
+def test_reciprocal_draws_and_sends_as_the_smul_chain(max_den, extra_bits):
+    """One backend call draws the smul chain's triples in its order and
+    shapes, and sends its openings with the same bytes and rounds, one
+    send a product: a RecordingDealer sees the same requests, and a
+    ListDealer replay of the same words gives the same shares, consumes
+    as many tensors and logs the same sends."""
+    den = RNG.integers(1, max_den + 1, (5,)).astype(np.uint64)
+    s0 = RNG.integers(0, 1 << 64, den.shape, dtype=np.uint64)
+    den_t = shares_from_numpy(s0, den - s0)
+    iters = P.newton_iters(max_den)
+    recs = {}
+    for name, fn in (("kernel_call", P.reciprocal),
+                     ("chain", _smul_chain_reciprocal)):
+        dealer = KS.RecordingDealer("cpu")
+        fn(P.Ctx(dealer=dealer, log=CommLog(), backend="torch", tag="S3"),
+           den_t, max_den, extra_bits=extra_bits)
+        recs[name] = dealer.requests
+    assert recs["kernel_call"] == recs["chain"] == [("mul", (5,))] * (2 * iters)
+    flat = [ring.from_u64_numpy(RNG.integers(0, 1 << 64, (5,),
+                                             dtype=np.uint64))
+            for _ in range(6 * 2 * iters)]
+    runs = {}
+    for name, fn in (("kernel_call", P.reciprocal),
+                     ("chain", _smul_chain_reciprocal)):
+        dealer, log = KS.ListDealer(flat), _SendLog()
+        out = fn(P.Ctx(dealer=dealer, log=log, backend="torch", tag="S3"),
+                 den_t, max_den, extra_bits=extra_bits)
+        runs[name] = (out, dealer.i, log)
+    (got, used, log), (want, want_used, want_log) = (runs["kernel_call"],
+                                                     runs["chain"])
+    np.testing.assert_array_equal(shares_to_numpy(got), shares_to_numpy(want))
+    assert used == want_used == len(flat)
+    assert log.sends == want_log.sends == [(2 * 2 * 8 * 5, "S3", "online",
+                                            1)] * (2 * iters)
+    assert dict(log.bytes) == dict(want_log.bytes)
+    assert dict(log.rounds) == dict(want_log.rounds)
